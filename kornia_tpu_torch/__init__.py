@@ -1,0 +1,45 @@
+"""kornia_tpu_torch — the PyTorch/CUDA port of ``kornia_tpu``.
+
+The package mirrors ``kornia_tpu`` module for module
+(``kornia_tpu_torch/features/orb.py`` ↔ ``kornia_tpu/features/orb.py``)
+and is held to it by the ``tests/test_torch_*.py`` parity tests. Plain
+tensor code is PyTorch; every Pallas kernel of the JAX package on a
+ported path is a hand-written CUDA kernel for Hopper (sm_90a) under
+``ops/csrc/``, built at first use by :mod:`kornia_tpu_torch.ops.cuda_kernels`.
+
+Entry points take ``device=`` (default ``"cuda"``) and move numpy or
+tensor inputs there. Without a card they fail unless the caller asks for
+``device="cpu"``, where each kernel wrapper runs its plain PyTorch
+version.
+
+This package never imports ``jax`` or ``kornia_tpu``.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Numerics contract, the counterpart of kornia_tpu/__init__.py:34
+# (float32 matmuls at full float32 precision): no TF32 anywhere.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+
+def resolve_device(device) -> _torch.device:
+    """``device`` as a torch.device; a CUDA device without a card raises
+    (the entry points never fall back to the CPU on their own)."""
+    dev = _torch.device(device)
+    if dev.type == "cuda" and not _torch.cuda.is_available():
+        raise RuntimeError(
+            "kornia_tpu_torch: CUDA device requested but "
+            "torch.cuda.is_available() is False; pass device='cpu' to "
+            "run the plain PyTorch versions")
+    return dev
+
+
+def to_device(x, device: _torch.device, dtype=None) -> _torch.Tensor:
+    """numpy array / tensor / sequence → tensor on ``device``."""
+    if isinstance(x, _torch.Tensor):
+        return x.to(device=device, dtype=dtype or x.dtype)
+    return _torch.tensor(x, dtype=dtype, device=device)

@@ -1,0 +1,261 @@
+"""ORB detector + descriptor (port of kornia_tpu/features/orb.py, the
+default paired-window path).
+
+Per pyramid level: the FAST score, its 3×3 NMS and the dense Harris map
+come from one CUDA kernel (``cuda_kernels.fast_harris``), then the two-tier
+gate and the packed per-cell top-k pick candidates and a stable top-k takes
+the level budget. The describe stage packs all levels into one
+edge-replicated canvas; keypoints 2i and 2i+1 share one (40, 128) window
+(``cuda_kernels.windows_paired``), orientation is the intensity centroid on
+those windows and rotated BRIEF-256 samples 1024 taps per window
+(``cuda_kernels.brief_sample``).
+
+Not ported yet: the unpaired describe path (odd budget sums), the
+per-keypoint gather path, ``harris_at_windows`` and the quadtree variant.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import json
+import os
+from typing import List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from kornia_tpu_torch import resolve_device, to_device
+from kornia_tpu_torch.features.fast import (_two_tier_gate,
+                                            fast_detect_cells,
+                                            fast_harris_cells, stable_topk)
+from kornia_tpu_torch.ops import cuda_kernels as ck
+from kornia_tpu_torch.ops.filters import gaussian_blur
+from kornia_tpu_torch.ops.resize import resize
+
+_PATCH = 31
+_HALF = _PATCH // 2  # 15
+_PAIR_CX = (32, 96)   # per-half centres in the paired window layout
+
+
+@functools.lru_cache(maxsize=None)
+def brief_pattern(seed: int = 7, n_bits: int = 256) -> np.ndarray:
+    """(n_bits, 4) int32 (x1, y1, x2, y2) offsets in [-14, 14], the seeded
+    Gaussian variant."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(0.0, _PATCH / 5.0, size=(n_bits, 4))
+    return np.clip(np.round(pts), -_HALF + 1, _HALF - 1).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def brief_pattern_rublee2011() -> np.ndarray:
+    """(256, 4) int32: the published learned BRIEF pattern of Rublee et al.
+    2011 (OpenCV's ``bit_pattern_31_``), the bit space of ORBvoc-class
+    vocabularies."""
+    path = os.path.join(os.path.dirname(__file__),
+                        "brief_pattern_rublee2011.json")
+    with open(path) as f:
+        return np.asarray(json.load(f), np.int32)
+
+
+def _resolve_pattern(pattern: str, seed: int) -> np.ndarray:
+    if pattern == "rublee2011":
+        return brief_pattern_rublee2011()
+    if pattern == "seeded":
+        return brief_pattern(seed)
+    raise ValueError(f"unknown BRIEF pattern {pattern!r}")
+
+
+@functools.lru_cache(maxsize=None)
+def _circular_mask() -> np.ndarray:
+    """(31, 31) mask of the intensity-centroid circle of radius 15."""
+    yy, xx = np.mgrid[-_HALF: _HALF + 1, -_HALF: _HALF + 1]
+    return (xx * xx + yy * yy <= _HALF * _HALF).astype(np.float32)
+
+
+class OrbFeatures(NamedTuple):
+    """Fixed-capacity ORB output."""
+
+    xy: torch.Tensor           # (N, 2) float32 in level-0 pixel coords
+    score: torch.Tensor        # (N,) response
+    angle: torch.Tensor        # (N,) radians
+    octave: torch.Tensor       # (N,) int32
+    descriptors: torch.Tensor  # (N, 256) uint8 bits in {0, 1}
+    mask: torch.Tensor         # (N,) bool valid
+
+
+@dataclasses.dataclass(frozen=True)
+class OrbConfig:
+    """ORB-SLAM3 settings, as kornia_tpu's OrbConfig."""
+
+    n_features: int = 2000
+    n_levels: int = 8
+    scale_factor: float = 1.2
+    fast_threshold_high: float = 20.0
+    fast_threshold_low: float = 7.0
+    cell_size: int = 35
+    pattern: str = "rublee2011"
+    pattern_seed: int = 7
+    harris_rescore: bool = True
+
+
+def _level_budgets(cfg: OrbConfig) -> List[int]:
+    """Per-level keypoint counts ∝ 1/scale^i (ORB-SLAM3 distribution)."""
+    inv = [1.0 / cfg.scale_factor ** i for i in range(cfg.n_levels)]
+    total = sum(inv)
+    raw = [int(round(cfg.n_features * v / total)) for v in inv]
+    raw[0] += cfg.n_features - sum(raw)
+    return raw
+
+
+def _pyramid(gray_u8: torch.Tensor, cfg: OrbConfig) -> List[torch.Tensor]:
+    h, w = gray_u8.shape
+    levels = [gray_u8]
+    for i in range(1, cfg.n_levels):
+        s = cfg.scale_factor ** i
+        nh, nw = int(round(h / s)), int(round(w / s))
+        levels.append(resize(levels[-1], (nh, nw)))
+    return levels
+
+
+def _level_candidates(level_img: torch.Tensor, budget: int, cfg: OrbConfig):
+    """Per-cell-capped candidates of one octave: (xy (C, 2), score (C,)
+    with −inf in the invalid slots)."""
+    lh, lw = level_img.shape
+    n_cells = (-(-lh // cfg.cell_size)) * (-(-lw // cfg.cell_size))
+    per_cell = max(2, -(-2 * budget // n_cells))
+    # FAST score + NMS and the Harris map come from one kernel pass; the
+    # Harris map goes unused when harris_rescore is off
+    s_lo, hmap = ck.fast_harris(level_img, cfg.fast_threshold_low)
+    sel = _two_tier_gate(s_lo, cfg.fast_threshold_high, cfg.cell_size)
+    common = dict(cell_size=cfg.cell_size,
+                  threshold_high=cfg.fast_threshold_high,
+                  threshold_low=cfg.fast_threshold_low, per_cell=per_cell,
+                  sel=sel)
+    if cfg.harris_rescore:
+        kps = fast_harris_cells(level_img, hmap, **common)
+    else:
+        kps = fast_detect_cells(level_img, **common)
+    ninf = torch.full_like(kps.score, float("-inf"))
+    return kps.xy, torch.where(kps.mask, kps.score, ninf)
+
+
+def _select_level(level_img: torch.Tensor, budget: int, cfg: OrbConfig):
+    """Detection + budgeted selection for one octave: (xy level coords,
+    vals, valid). The top-k is stable: the lower index first on ties, as
+    ``lax.top_k``."""
+    xy_all, scores = _level_candidates(level_img, budget, cfg)
+    vals, idx = stable_topk(scores, budget)
+    xy = xy_all[idx]
+    valid = torch.isfinite(vals)
+    return xy, torch.where(valid, vals, torch.zeros_like(vals)), valid
+
+
+def _extract_windows_packed_paired(frames: List[torch.Tensor],
+                                   xys: List[torch.Tensor]) -> torch.Tensor:
+    """(K/2, 40, 128) paired windows over all levels from ONE stacked
+    canvas: each keypoint's y is offset by its level's first canvas row."""
+    canvas, starts = ck.prepare_window_canvas(frames)
+    xy = torch.cat([
+        x + torch.tensor([0, s], dtype=torch.int32, device=x.device)[None]
+        for x, s in zip(xys, starts)]).contiguous()
+    wimg = max(int(f.shape[1]) for f in frames)
+    return ck.windows_paired(canvas, xy, wimg)
+
+
+def orientation_from_windows_paired(windows: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid orientation from paired (K/2, 40, 128) windows →
+    (K,) radians in keypoint order."""
+    dev = windows.device
+    mask = torch.from_numpy(_circular_mask()).to(dev)
+    offs = torch.arange(-_HALF, _HALF + 1, dtype=torch.float32, device=dev)
+    angs = []
+    for cx in _PAIR_CX:
+        patches = windows[:, ck.PAIR_CY - _HALF: ck.PAIR_CY + _HALF + 1,
+                          cx - _HALF: cx + _HALF + 1]
+        m10 = torch.sum(patches * mask * offs[None, None, :], dim=(1, 2))
+        m01 = torch.sum(patches * mask * offs[None, :, None], dim=(1, 2))
+        angs.append(torch.atan2(m01, m10))
+    return torch.stack(angs, dim=1).reshape(-1)
+
+
+def _brief_tap_coords(angle: torch.Tensor, seed: int, pattern: str,
+                      half_w: int = 32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K, 512) int32 window-space (rows, cols) of the rotated BRIEF taps,
+    [A(256), B(256)], for a half window centred at lane ``half_w`` and row
+    20, clipped to it (orb.py:188-210; the row clip at 40 stays, as the
+    reference has it)."""
+    pat = torch.from_numpy(_resolve_pattern(pattern, seed)).to(angle.device)
+    ca, sa = torch.cos(angle), torch.sin(angle)
+    px = torch.cat([pat[:, 0], pat[:, 2]]).to(torch.float32)
+    py = torch.cat([pat[:, 1], pat[:, 3]]).to(torch.float32)
+    dx = torch.round(px[None, :] * ca[:, None]
+                     - py[None, :] * sa[:, None]).to(torch.int32)
+    dy = torch.round(px[None, :] * sa[:, None]
+                     + py[None, :] * ca[:, None]).to(torch.int32)
+    cols = torch.clamp(half_w + dx, 0, 2 * half_w - 1)
+    rows = torch.clamp(ck.PAIR_CY + dy, 0, ck.PAIR_WIN_H - 1)
+    return rows, cols
+
+
+def brief_from_windows_paired(windows: torch.Tensor, angle: torch.Tensor,
+                              seed: int = 7,
+                              pattern: str = "rublee2011") -> torch.Tensor:
+    """Rotated BRIEF-256 (K, 256) u8 bits from paired (K/2, 40, 128)
+    blurred windows and (K,) angles: each window's 1024 taps (keypoint
+    2i's 512 at lane base 32, 2i+1's at 96) in one sampling pass."""
+    k = angle.shape[0]
+    rows, cols = _brief_tap_coords(angle, seed, pattern, half_w=32)
+    rows = rows.reshape(k // 2, 1024).contiguous()
+    lane = torch.tensor([0, 64], dtype=torch.int32, device=angle.device)
+    cols = (cols.reshape(k // 2, 2, 512) + lane[None, :, None]).reshape(
+        k // 2, 1024).contiguous()
+    s = ck.brief_sample(windows, rows, cols).reshape(k, 512)
+    return (s[:, :256] < s[:, 256:]).to(torch.uint8)
+
+
+def pack_descriptors(bits: torch.Tensor) -> torch.Tensor:
+    """(N, 256) {0,1} → (N, 32) uint8, bit j of byte i = bit 8i+j."""
+    b = bits.reshape(bits.shape[0], 32, 8).to(torch.int32)
+    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.int32,
+                           device=bits.device)
+    return torch.sum(b * weights, dim=-1).to(torch.uint8)
+
+
+def unpack_descriptors(packed: torch.Tensor) -> torch.Tensor:
+    """(N, 32) uint8 → (N, 256) {0,1} bits."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(packed.shape[0], -1)
+
+
+def orb_detect_and_describe(gray_u8, cfg: OrbConfig = OrbConfig(),
+                            device="cuda") -> OrbFeatures:
+    """Multi-scale ORB on an (H, W) u8 frame (numpy or tensor), on
+    ``device``."""
+    dev = resolve_device(device)
+    gray = to_device(gray_u8, dev, torch.uint8)
+    budgets = _level_budgets(cfg)
+    if sum(budgets) % 2:
+        raise NotImplementedError(
+            "odd feature counts take the unpaired describe path, which is "
+            "not ported yet")
+    levels = _pyramid(gray, cfg)
+    sels = [_select_level(img, budget, cfg)
+            for img, budget in zip(levels, budgets)]
+    grays_f = [img.to(torch.float32) for img in levels]
+    blurs = [gaussian_blur(g, (7, 7), 2.0) for g in grays_f]
+    xy_ints = [torch.round(xy).to(torch.int32) for xy, _, _ in sels]
+    ang = orientation_from_windows_paired(
+        _extract_windows_packed_paired(grays_f, xy_ints))
+    desc = brief_from_windows_paired(
+        _extract_windows_packed_paired(blurs, xy_ints), ang,
+        cfg.pattern_seed, cfg.pattern)
+    xy = torch.cat([s[0] * cfg.scale_factor ** i
+                    for i, s in enumerate(sels)])
+    score = torch.cat([s[1] for s in sels])
+    octv = torch.cat([torch.full((b,), i, dtype=torch.int32, device=dev)
+                      for i, b in enumerate(budgets)])
+    mask = torch.cat([s[2] for s in sels])
+    return OrbFeatures(xy=xy, score=score, angle=ang, octave=octv,
+                       descriptors=desc, mask=mask)

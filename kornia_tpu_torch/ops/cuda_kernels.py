@@ -1,0 +1,310 @@
+"""Hand-written CUDA kernels of the port, their plain PyTorch versions, the
+build and the launch counters.
+
+Each TPU kernel on a ported path (kornia_tpu/ops/pallas_kernels.py) has one
+CUDA C++ source under ``csrc/`` for sm_90a and one wrapper here:
+
+==============  ==========================================  =================
+wrapper         replaces                                    source
+==============  ==========================================  =================
+fast_harris     pallas_kernels.py::fast_score_pallas        fast_harris.cu
+                (nms=True, harris=True)
+windows_paired  pallas_kernels.py::                         windows_paired.cu
+                extract_windows_prepared_paired
+brief_sample    pallas_kernels.py::brief_sample_pallas      brief_sample.cu
+==============  ==========================================  =================
+
+Dispatch is by the tensor's device only: a CPU tensor runs the plain
+version, a CUDA tensor launches the kernel or raises. There is no fallback.
+
+Build: each source is compiled by ``nvcc`` into its own shared library with
+a plain C interface, loaded with ctypes, in ``kornia_tpu_torch/_build/``
+(git-ignored), named by the hash of the source, so an edited source is
+rebuilt. The first kernel call builds every library, one ``nvcc`` per
+source, all started together. ``LAUNCHES`` counts launches per wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from kornia_tpu_torch.features.fast import fast_score, nms_maxpool
+from kornia_tpu_torch.features.responses import harris_response
+from kornia_tpu_torch.ops.filters import gaussian_kernel1d
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
+SOURCES = ("fast_harris", "windows_paired", "brief_sample")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v")
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+BUILD_LOG: Dict[str, str] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(_CSRC, name + ".cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def build(names: Sequence[str] = SOURCES) -> float:
+    """Compile every library of ``names`` that is missing, all in parallel,
+    and load them. Returns the wall seconds spent."""
+    t0 = time.perf_counter()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    for name in names:
+        out = _lib_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(_CSRC, name + ".cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (rc {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    for name in names:
+        if name not in _LIBS:
+            _LIBS[name] = _bind(name, ctypes.CDLL(_lib_path(name)))
+    return time.perf_counter() - t0
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sig = {
+        "fast_harris": [p, p, p, i, i, f, ctypes.POINTER(f), f, p],
+        "windows_paired": [p, p, p, i, i, i, i, i, i, p],
+        "brief_sample": [p, p, p, p, i, i, i, i, p],
+    }[name]
+    fn = getattr(lib, "kt_" + name)
+    fn.argtypes = sig
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _kernel(name: str):
+    if name not in _LIBS:
+        build()
+    return getattr(_LIBS[name], "kt_" + name)
+
+
+def _check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int):
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{what}: expected {ndim} dims, got {t.ndim}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def _launched(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")
+    LAUNCHES[name] += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# --------------------------------------------------------------------------
+# K1: FAST score + NMS + Harris
+# --------------------------------------------------------------------------
+
+_HARRIS_K = 0.04
+
+
+def _fast_harris_plain(img: torch.Tensor, threshold: float):
+    """``nms_maxpool(fast_score(img, threshold))`` and the central-gradient
+    Harris map, as the CPU reference runs them (fast.py:159-162,
+    orb.py:465)."""
+    score = nms_maxpool(fast_score(img, threshold, 9))
+    hmap = harris_response(img.to(torch.float32), k=_HARRIS_K, block_size=5,
+                           sigma=1.0, grad="central")
+    return score, hmap
+
+
+def fast_harris(img: torch.Tensor, threshold: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(H, W) u8 → (NMS'd FAST-9 score, Harris map), both (H, W) f32."""
+    if img.device.type == "cpu":
+        return _fast_harris_plain(img, threshold)
+    _check(img, "fast_harris img", torch.uint8, 2)
+    h, w = img.shape
+    score = torch.empty((h, w), dtype=torch.float32, device=img.device)
+    hmap = torch.empty_like(score)
+    if h == 0 or w == 0:
+        return score, hmap
+    win = (ctypes.c_float * 5)(*[float(v) for v in gaussian_kernel1d(5, 1.0)])
+    rc = _kernel("fast_harris")(
+        img.data_ptr(), score.data_ptr(), hmap.data_ptr(), h, w,
+        float(threshold), win, _HARRIS_K, _stream(img))
+    _launched("fast_harris", rc)
+    return score, hmap
+
+
+# --------------------------------------------------------------------------
+# K2: paired keypoint windows
+# --------------------------------------------------------------------------
+
+# The paired window layout, shared with features/orb.py: PAIR_WIN_H rows
+# (rotated BRIEF taps reach at most ±19 rows from the keypoint), the
+# keypoint on row PAIR_CY; each level is padded _WIN_CX columns left.
+PAIR_CY = 20
+PAIR_WIN_H = 40
+_WIN_CX = 64
+
+
+def prepare_window_canvas(frames: List[torch.Tensor]):
+    """Edge-replicated, level-stacked float32 canvas for window extraction
+    (the counterpart of pallas_kernels.py:383-398 and the level stacking of
+    orb.py:367-374, without the TPU's alignment padding). Level i occupies
+    rows [starts[i], starts[i+1]), padded PAIR_CY rows above,
+    PAIR_WIN_H − PAIR_CY below, 64 columns left and right, then
+    zero-padded on the right to the widest level. Returns (canvas (Hc, Wc)
+    f32, starts)."""
+    pads = []
+    for f in frames:
+        h, w = f.shape
+        dev = f.device
+        iy = torch.clamp(torch.arange(-PAIR_CY, h + PAIR_WIN_H - PAIR_CY,
+                                      device=dev), 0, h - 1)
+        ix = torch.clamp(torch.arange(-_WIN_CX, w + 128 - _WIN_CX,
+                                      device=dev), 0, w - 1)
+        pads.append(f.to(torch.float32).index_select(0, iy)
+                    .index_select(1, ix))
+    wmax = max(int(p.shape[1]) for p in pads)
+    pads = [torch.nn.functional.pad(p, (0, wmax - int(p.shape[1])))
+            for p in pads]
+    starts = np.cumsum([0] + [int(p.shape[0]) for p in pads]).tolist()
+    return torch.cat(pads, dim=0).contiguous(), starts
+
+
+def _clip_pairs(xy: torch.Tensor, hsum: int, wimg: int) -> torch.Tensor:
+    """pallas_kernels.py:473-475: clip to the canvas and pad an odd K with
+    a (0, 0) keypoint."""
+    hi = torch.tensor([wimg - 1, hsum - 1], device=xy.device, dtype=xy.dtype)
+    xy = torch.minimum(torch.clamp(xy, min=0), hi)
+    if xy.shape[0] % 2:
+        xy = torch.cat([xy, torch.zeros_like(xy[:1])])
+    return xy
+
+
+def _windows_paired_plain(canvas: torch.Tensor, xy: torch.Tensor,
+                          wimg: int) -> torch.Tensor:
+    """The non-TPU branch (orb.py:382-386): one full (PAIR_WIN_H, 128)
+    window per keypoint, then keypoint 2i's lanes [32, 96) beside keypoint
+    2i+1's."""
+    hc, wc = canvas.shape
+    xy = _clip_pairs(xy.to(torch.int64), hc, wimg)
+    dev = canvas.device
+    rows = torch.clamp(xy[:, 1, None] + torch.arange(PAIR_WIN_H, device=dev),
+                       max=hc - 1)
+    cols = torch.clamp(xy[:, 0, None] + torch.arange(128, device=dev),
+                       max=wc - 1)
+    full = canvas[rows[:, :, None], cols[:, None, :]]   # (K, PAIR_WIN_H, 128)
+    a = full[0::2, :, 32:96]
+    b = full[1::2, :, 32:96]
+    return torch.cat([a, b], dim=2)
+
+
+def windows_paired(canvas: torch.Tensor, xy: torch.Tensor,
+                   wimg: int) -> torch.Tensor:
+    """(ceil(K/2), PAIR_WIN_H, 128) f32 paired windows of (K, 2) int32
+    canvas keypoints (x, y) from a :func:`prepare_window_canvas` canvas."""
+    if canvas.device.type == "cpu":
+        return _windows_paired_plain(canvas, xy, wimg)
+    _check(canvas, "windows_paired canvas", torch.float32, 2)
+    _check(xy, "windows_paired xy", torch.int32, 2)
+    if xy.shape[1] != 2 or xy.device != canvas.device:
+        raise ValueError("windows_paired: xy must be (K, 2) on the canvas' "
+                         "device")
+    k = int(xy.shape[0])
+    hc, wc = canvas.shape
+    out = torch.empty(((k + 1) // 2, PAIR_WIN_H, 128), dtype=torch.float32,
+                      device=canvas.device)
+    if k == 0:
+        return out
+    rc = _kernel("windows_paired")(
+        canvas.data_ptr(), xy.data_ptr(), out.data_ptr(), k, hc, wc, hc,
+        int(wimg), PAIR_WIN_H, _stream(canvas))
+    _launched("windows_paired", rc)
+    return out
+
+
+# --------------------------------------------------------------------------
+# K3: BRIEF tap sampling
+# --------------------------------------------------------------------------
+
+
+def _brief_sample_plain(windows: torch.Tensor, rows: torch.Tensor,
+                        cols: torch.Tensor) -> torch.Tensor:
+    """take_along_axis on the flattened windows (orb.py:422-423)."""
+    k, wh, ww = windows.shape
+    r = torch.clamp(rows.to(torch.int64), 0, wh - 1)
+    c = torch.clamp(cols.to(torch.int64), 0, ww - 1)
+    base = (torch.arange(k, device=windows.device) * (wh * ww))[:, None]
+    return windows.reshape(-1)[base + r * ww + c]
+
+
+def brief_sample(windows: torch.Tensor, rows: torch.Tensor,
+                 cols: torch.Tensor) -> torch.Tensor:
+    """(K, wh, ww) f32 windows, (K, T) int32 rows/cols → (K, T) f32."""
+    if windows.device.type == "cpu":
+        return _brief_sample_plain(windows, rows, cols)
+    _check(windows, "brief_sample windows", torch.float32, 3)
+    _check(rows, "brief_sample rows", torch.int32, 2)
+    _check(cols, "brief_sample cols", torch.int32, 2)
+    k, wh, ww = windows.shape
+    if (rows.shape != cols.shape or rows.shape[0] != k
+            or rows.device != windows.device
+            or cols.device != windows.device):
+        raise ValueError("brief_sample: rows/cols must be (K, T) on the "
+                         "windows' device")
+    taps = int(rows.shape[1])
+    out = torch.empty((k, taps), dtype=torch.float32, device=windows.device)
+    if k == 0 or taps == 0:
+        return out
+    rc = _kernel("brief_sample")(
+        windows.data_ptr(), rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
+        k, wh, ww, taps, _stream(windows))
+    _launched("brief_sample", rc)
+    return out
