@@ -1,10 +1,10 @@
 """Carry state from the JAX package into the port.
 
-There are no learned weights on the ported path. The state is the
-configurations and, for stage-by-stage comparison, the reference's
-intermediate arrays. Both arrive as plain numpy / Python values (so this
-module imports nothing of the JAX package) and leave as the port's objects
-and tensors on a given device.
+There are no learned weights on the ported paths. The state is the
+configurations, the stereo calibration and, for stage-by-stage comparison,
+the reference's intermediate arrays. They arrive as plain numpy / Python
+values (so this module imports nothing of the JAX package) and leave as
+the port's objects and tensors on a given device.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 
 from kornia_tpu_torch import resolve_device, to_device
 from kornia_tpu_torch.features.orb import OrbConfig
+from kornia_tpu_torch.geometry.stereo import StereoRectifier
 from kornia_tpu_torch.geometry.twoview import TwoViewParams
 
 
@@ -38,6 +39,32 @@ def twoview_params(values: Mapping[str, Any]) -> TwoViewParams:
     """``dataclasses.asdict`` of the reference's TwoViewParams →
     TwoViewParams."""
     return _config(TwoViewParams, values)
+
+
+_RECTIFIER_FIELDS = ("k1", "d1", "k2", "d2", "image_size", "r1", "r2", "p1",
+                     "p2", "q")
+
+
+def stereo_rectifier_from_reference(fields: Mapping[str, Any]
+                                    ) -> StereoRectifier:
+    """``dataclasses.asdict`` (or ``vars``) of the reference's
+    StereoRectifier — numpy ``k1 d1 k2 d2 image_size r1 r2 p1 p2 q`` — →
+    the port's StereoRectifier, float64 as there (d1/d2 may be None)."""
+    missing = set(_RECTIFIER_FIELDS) - set(fields)
+    unknown = set(fields) - set(_RECTIFIER_FIELDS)
+    if missing or unknown:
+        raise ValueError(f"StereoRectifier fields: missing {sorted(missing)},"
+                         f" unknown {sorted(unknown)}")
+
+    def arr(v):
+        return None if v is None else np.asarray(v, np.float64)
+
+    return StereoRectifier(
+        k1=arr(fields["k1"]), d1=arr(fields["d1"]), k2=arr(fields["k2"]),
+        d2=arr(fields["d2"]),
+        image_size=tuple(int(v) for v in fields["image_size"]),
+        r1=arr(fields["r1"]), r2=arr(fields["r2"]), p1=arr(fields["p1"]),
+        p2=arr(fields["p2"]), q=arr(fields["q"]))
 
 
 def tensor(array, device="cpu", dtype: torch.dtype | None = None

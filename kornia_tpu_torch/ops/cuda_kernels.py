@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels of the port, their plain PyTorch versions, the
 build and the launch counters.
 
-Each TPU kernel on a ported path (kornia_tpu/ops/pallas_kernels.py) has one
-CUDA C++ source under ``csrc/`` for sm_90a and one wrapper here:
+Each TPU kernel on a ported path (kornia_tpu/ops/pallas_kernels.py,
+warp_pallas.py, warp_shear.py) has one CUDA C++ source under ``csrc/`` for
+sm_90a and one wrapper here:
 
 ==============  ==========================================  =================
 wrapper         replaces                                    source
@@ -12,6 +13,10 @@ fast_harris     pallas_kernels.py::fast_score_pallas        fast_harris.cu
 windows_paired  pallas_kernels.py::                         windows_paired.cu
                 extract_windows_prepared_paired
 brief_sample    pallas_kernels.py::brief_sample_pallas      brief_sample.cu
+remap           warp_pallas.py::_make_kernel                remap.cu
+                (launched by _remap_chunks)
+lane_shift      warp_pallas.py::_lane_shift_pallas          lane_shift.cu
+shear_x         warp_shear.py::_shear_x                     shear_x.cu
 ==============  ==========================================  =================
 
 Dispatch is by the tensor's device only: a CPU tensor runs the plain
@@ -44,7 +49,8 @@ from kornia_tpu_torch.ops.filters import gaussian_kernel1d
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
-SOURCES = ("fast_harris", "windows_paired", "brief_sample")
+SOURCES = ("fast_harris", "windows_paired", "brief_sample", "remap",
+           "lane_shift", "shear_x")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -110,6 +116,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "fast_harris": [p, p, p, i, i, f, ctypes.POINTER(f), f, p],
         "windows_paired": [p, p, p, i, i, i, i, i, i, p],
         "brief_sample": [p, p, p, p, i, i, i, i, p],
+        "remap": [p, i, i, i, i, p, i, i, i, p, p, ctypes.POINTER(f), i, i,
+                  f, p],
+        "lane_shift": [p, p, p, i, i, i, i, p],
+        "shear_x": [p, p, p, i, i, i, p],
     }[name]
     fn = getattr(lib, "kt_" + name)
     fn.argtypes = sig
@@ -307,4 +317,223 @@ def brief_sample(windows: torch.Tensor, rows: torch.Tensor,
         windows.data_ptr(), rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
         k, wh, ww, taps, _stream(windows))
     _launched("brief_sample", rc)
+    return out
+
+
+# --------------------------------------------------------------------------
+# K7: exact bilinear / nearest remap (data maps, affine, perspective)
+# --------------------------------------------------------------------------
+
+REMAP_FORMS = {"data": 0, "affine": 1, "persp": 2}
+_DEN_EPS = 1e-8
+
+
+def _f32(v: float, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def _source_coords(form: str, out_hw: Tuple[int, int], coefs, map_x, map_y,
+                   device):
+    """(sx, sy), each (Ho, Wo) f32: the data maps, or the affine /
+    perspective map of the destination pixel grid evaluated as the kernel
+    does (warp_pallas.py:224-230)."""
+    if form == "data":
+        return map_x.to(torch.float32), map_y.to(torch.float32)
+    ho, wo = out_hw
+    k = coefs.to(device=device, dtype=torch.float32)
+    gy, gx = torch.meshgrid(torch.arange(ho, dtype=torch.float32,
+                                         device=device),
+                            torch.arange(wo, dtype=torch.float32,
+                                         device=device), indexing="ij")
+    sx = k[0] * gx + k[1] * gy + k[2]
+    sy = k[3] * gx + k[4] * gy + k[5]
+    if form == "persp":
+        den = k[6] * gx + k[7] * gy + k[8]
+        eps = _f32(_DEN_EPS, device)
+        den = torch.where(den.abs() < eps, eps, den)
+        sx = sx / den
+        sy = sy / den
+    return sx, sy
+
+
+def _remap_plain(img: torch.Tensor, out_hw: Tuple[int, int], form: str,
+                 coefs=None, map_x=None, map_y=None, nearest: bool = False,
+                 border: bool = False, fill: float = 0.0) -> torch.Tensor:
+    """The kernel's contract in PyTorch ops, each a separately rounded f32
+    op in the kernel's order (see csrc/remap.cu): (H, W, C) u8/f32 →
+    (Ho, Wo, C) of the same dtype."""
+    dev = img.device
+    h, w, c = img.shape
+    ho, wo = out_hw
+    sx, sy = _source_coords(form, out_hw, coefs, map_x, map_y, dev)
+    if border:
+        sx = torch.clamp(sx, 0.0, float(w - 1))
+        sy = torch.clamp(sy, 0.0, float(h - 1))
+    if nearest:
+        sx = torch.floor(sx + 0.5)
+        sy = torch.floor(sy + 0.5)
+    sx = torch.clamp(sx, -1.5, w + 0.5)
+    sy = torch.clamp(sy, -1.5, h + 0.5)
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    fx = sx - x0
+    fy = sy - y0
+    gx0 = 1.0 - fx
+    gy0 = 1.0 - fy
+    weights = {(0, 0): gx0 * gy0, (0, 1): fx * gy0, (1, 0): gx0 * fy,
+               (1, 1): fx * fy}
+    ix = x0.to(torch.int64)
+    iy = y0.to(torch.int64)
+    flat = img.reshape(h * w, c).to(torch.float32)
+    fill_t = _f32(fill, dev)
+    acc = None
+    for (dy, dx), wt in weights.items():
+        jy, jx = iy + dy, ix + dx
+        inb = (jx >= 0) & (jx <= w - 1) & (jy >= 0) & (jy <= h - 1)
+        idx = torch.clamp(jy, 0, h - 1) * w + torch.clamp(jx, 0, w - 1)
+        v = flat[idx.reshape(-1)].reshape(ho, wo, c)
+        term = torch.where(inb[..., None], v, fill_t) * wt[..., None]
+        acc = term if acc is None else acc + term
+    if img.dtype == torch.uint8:
+        return torch.clamp(torch.round(acc), 0, 255).to(torch.uint8)
+    return acc
+
+
+def remap(img: torch.Tensor, out_hw: Tuple[int, int], form: str,
+          coefs: torch.Tensor | None = None,
+          map_x: torch.Tensor | None = None,
+          map_y: torch.Tensor | None = None, nearest: bool = False,
+          border: bool = False, fill: float = 0.0) -> torch.Tensor:
+    """Sample (H, W, C) u8 or f32 ``img`` into (Ho, Wo, C) of its dtype.
+
+    ``form`` is "data" (``map_x``/``map_y``: (Ho, Wo) f32 on the image's
+    device) or "affine"/"persp" (``coefs``: 9 f32 values on the CPU, the
+    destination → source map ``[c1x c2x c0x c1y c2y c0y p1 p2 p0]``)."""
+    if form not in REMAP_FORMS:
+        raise ValueError(f"remap: unknown map form {form!r}")
+    ho, wo = (int(v) for v in out_hw)
+    if form != "data":
+        coefs = torch.as_tensor(coefs, dtype=torch.float32).reshape(9).cpu()
+    if img.device.type == "cpu":
+        return _remap_plain(img, (ho, wo), form, coefs, map_x, map_y,
+                            nearest, border, fill)
+    if img.dtype not in (torch.uint8, torch.float32):
+        raise ValueError(f"remap img: expected uint8 or float32, got "
+                         f"{img.dtype}")
+    _check(img, "remap img", img.dtype, 3)
+    h, w, c = img.shape
+    ptrs = [None, None]
+    if form == "data":
+        for i, (t, nm) in enumerate(((map_x, "map_x"), (map_y, "map_y"))):
+            _check(t, f"remap {nm}", torch.float32, 2)
+            if tuple(t.shape) != (ho, wo) or t.device != img.device:
+                raise ValueError(f"remap {nm}: expected ({ho}, {wo}) on "
+                                 f"{img.device}")
+            ptrs[i] = t.data_ptr()
+        cvals = [0.0] * 9
+    else:
+        cvals = coefs.tolist()
+    out = torch.empty((ho, wo, c), dtype=img.dtype, device=img.device)
+    if out.numel() == 0:
+        return out
+    rc = _kernel("remap")(
+        img.data_ptr(), int(img.dtype == torch.uint8), h, w, c,
+        out.data_ptr(), ho, wo, REMAP_FORMS[form], ptrs[0], ptrs[1],
+        (ctypes.c_float * 9)(*cvals), int(bool(nearest)), int(bool(border)),
+        float(fill), _stream(img))
+    _launched("remap", rc)
+    return out
+
+
+# --------------------------------------------------------------------------
+# K8: integer row shift (the TPU pre-shear)
+# --------------------------------------------------------------------------
+
+
+def _lane_shift_plain(src: torch.Tensor, shifts: torch.Tensor,
+                      out_w: int) -> torch.Tensor:
+    """out[..., r, j] = src[..., r, j - shifts[r]], zero outside."""
+    cc = src.shape[-1]
+    j = torch.arange(out_w, device=src.device)
+    k = j[None, :] - shifts.to(torch.int64)[:, None]        # (rr, out_w)
+    ok = (k >= 0) & (k < cc)
+    idx = torch.clamp(k, 0, max(cc - 1, 0)).expand(
+        src.shape[:-1] + (out_w,))
+    v = torch.gather(src, -1, idx)
+    return torch.where(ok, v, _f32(0.0, src.device))
+
+
+def lane_shift(src: torch.Tensor, shifts: torch.Tensor,
+               out_w: int) -> torch.Tensor:
+    """(rr, cc) or (B, rr, cc) f32, (rr,) int32 shifts → (..., rr, out_w)."""
+    if src.device.type == "cpu":
+        return _lane_shift_plain(src, shifts, out_w)
+    if src.ndim not in (2, 3):
+        raise ValueError("lane_shift src: expected (rr, cc) or (B, rr, cc)")
+    _check(src, "lane_shift src", torch.float32, src.ndim)
+    _check(shifts, "lane_shift shifts", torch.int32, 1)
+    rr, cc = src.shape[-2:]
+    if shifts.shape[0] != rr or shifts.device != src.device:
+        raise ValueError("lane_shift: shifts must be (rr,) on the source's "
+                         "device")
+    b = src.shape[0] if src.ndim == 3 else 1
+    out = torch.empty(src.shape[:-1] + (int(out_w),), dtype=torch.float32,
+                      device=src.device)
+    if out.numel() == 0:
+        return out
+    rc = _kernel("lane_shift")(src.data_ptr(), shifts.data_ptr(),
+                               out.data_ptr(), b, rr, cc, int(out_w),
+                               _stream(src))
+    _launched("lane_shift", rc)
+    return out
+
+
+# --------------------------------------------------------------------------
+# K9: fractional row shear
+# --------------------------------------------------------------------------
+
+
+def shear_slack(c: int) -> int:
+    """Largest |integer shift| a shear row may have (warp_shear.py:63)."""
+    return c // 4 + 192
+
+
+def _shear_x_plain(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """out[..., y, x] = img[..., y, x + shifts[y]], linear in x, zero off
+    the canvas and on rows whose integer shift leaves ±slack."""
+    c = img.shape[-1]
+    slack = shear_slack(c)
+    zero = _f32(0.0, img.device)
+    i0 = torch.floor(shifts)
+    f = shifts - i0
+    valid = (i0 > -slack) & (i0 < slack - 1)
+    p = i0.to(torch.int64)[:, None] + torch.arange(c, device=img.device)
+
+    def tap(q):
+        ok = (q >= 0) & (q < c)
+        v = torch.gather(img, -1, torch.clamp(q, 0, c - 1).expand(img.shape))
+        return torch.where(ok, v, zero)
+
+    out = tap(p) * (1.0 - f)[:, None] + tap(p + 1) * f[:, None]
+    return torch.where(valid[:, None], out, zero)
+
+
+def shear_x(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """(c, c) or (B, c, c) f32 canvas, (c,) f32 shifts → same shape."""
+    if img.device.type == "cpu":
+        return _shear_x_plain(img, shifts)
+    if img.ndim not in (2, 3) or img.shape[-1] != img.shape[-2]:
+        raise ValueError("shear_x img: expected (c, c) or (B, c, c)")
+    _check(img, "shear_x img", torch.float32, img.ndim)
+    _check(shifts, "shear_x shifts", torch.float32, 1)
+    c = img.shape[-1]
+    if shifts.shape[0] != c or shifts.device != img.device:
+        raise ValueError("shear_x: shifts must be (c,) on the canvas' device")
+    b = img.shape[0] if img.ndim == 3 else 1
+    out = torch.empty_like(img)
+    if out.numel() == 0:
+        return out
+    rc = _kernel("shear_x")(img.data_ptr(), shifts.data_ptr(), out.data_ptr(),
+                            b, c, shear_slack(c), _stream(img))
+    _launched("shear_x", rc)
     return out

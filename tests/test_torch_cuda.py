@@ -79,3 +79,124 @@ def test_cuda_wrappers_reject_bad_input(cuda_dev):
     idx = torch.zeros((2, 1024), dtype=torch.int64, device=cuda_dev)
     with pytest.raises(ValueError):
         ck.brief_sample(win, idx, idx)
+
+
+def _smooth_maps(h, w, ho, wo, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:ho, 0:wo].astype(np.float32)
+    r2 = ((xx - wo / 2) / wo) ** 2 + ((yy - ho / 2) / ho) ** 2
+    mx = xx * (w / wo) + 40.0 * r2 * (xx - wo / 2) / wo
+    my = yy * (h / ho) + 40.0 * r2 * (yy - ho / 2) / ho
+    # exact .5 and integer coordinates, and samples far outside
+    mx[0, :8] = np.array([-3.0, -1.5, -0.5, 0.5, 2.5, w - 0.5, w + 0.7, 1e7])
+    my[1, :4] = np.array([-1e7, h - 1.0, h - 0.5, 3.5])
+    mx += rng.uniform(-0.25, 0.25, mx.shape).astype(np.float32) * (
+        np.arange(ho)[:, None] % 3 == 2)
+    return mx.astype(np.float32), my.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["data", "affine", "persp"])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("shape,out_hw", [((75, 170, 1), (61, 133)),
+                                          ((37, 45, 3), (80, 96))])
+def test_cuda_remap_bit_equal(cuda_dev, form, dtype, shape, out_hw):
+    """K7 against its plain version: every map form, nearest and bilinear,
+    zeros (with a fill) and border padding, u8 and f32, odd sizes,
+    samples at exact .5, on the edge and far outside."""
+    rng = np.random.default_rng(14)
+    img = rng.integers(0, 256, shape).astype(dtype)
+    if dtype == np.float32:
+        img = img * np.float32(0.37) + rng.random(shape).astype(np.float32)
+    x = convert.tensor(img, cuda_dev)
+    ho, wo = out_hw
+    mx = my = coefs = None
+    if form == "data":
+        mx, my = (convert.tensor(a, cuda_dev)
+                  for a in _smooth_maps(shape[0], shape[1], ho, wo, 15))
+    elif form == "affine":
+        coefs = torch.tensor([0.94, -0.34, 20.5, 0.34, 0.94, -12.25, 0, 0, 1])
+    else:
+        hinv = np.array([[1.02, 0.05, -4.0], [0.02, 0.98, 3.0],
+                         [1e-3, -8e-4, 1.0]])
+        coefs = torch.tensor(hinv.reshape(9), dtype=torch.float32)
+    for mode in ("bilinear", "nearest"):
+        for pad, fill in (("zeros", 0.0), ("zeros", 17.25), ("border", 0.0)):
+            kw = dict(coefs=coefs, map_x=mx, map_y=my,
+                      nearest=mode == "nearest", border=pad == "border",
+                      fill=fill)
+            ck.reset_launch_counts()
+            got = ck.remap(x, out_hw, form, **kw)
+            want = ck._remap_plain(x, out_hw, form, **kw)
+            torch.cuda.synchronize()
+            assert ck.LAUNCHES["remap"] == 1
+            assert got.dtype == x.dtype and got.shape == want.shape
+            assert torch.equal(got, want), (mode, pad, fill)
+
+
+@pytest.mark.cuda
+def test_cuda_lane_shift_bit_equal(cuda_dev):
+    """K8 against its plain version: both slope signs, a batch, shifts
+    that push rows past either end of the output."""
+    rng = np.random.default_rng(16)
+    s = 203
+    src = convert.tensor(rng.random((3, s, s)).astype(np.float32), cuda_dev)
+    ht = s + int(np.ceil(1.05 * s)) + 8
+    for kap in (0.57735, -1.05, 1.7):
+        sh = np.floor(np.float32(kap) * np.arange(s, dtype=np.float32))
+        sh = convert.tensor((sh - sh.min() - 5).astype(np.int32), cuda_dev)
+        ck.reset_launch_counts()
+        got = ck.lane_shift(src, sh, ht)
+        want = ck._lane_shift_plain(src, sh, ht)
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["lane_shift"] == 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_shear_x_bit_equal(cuda_dev):
+    """K9 against its plain version: a batch of three channels, fractional
+    shifts of both signs, exact integers, and rows past ±slack (zero)."""
+    rng = np.random.default_rng(17)
+    c = 512
+    img = convert.tensor(rng.standard_normal((3, c, c)).astype(np.float32),
+                         cuda_dev)
+    ys = np.arange(c, dtype=np.float32)
+    for shifts in (0.3 * ys - 40.0, -0.414 * ys + 60.7,
+                   np.full(c, 33.0, np.float32), 2.0 * ys - 400.0):
+        sh = convert.tensor(shifts.astype(np.float32), cuda_dev)
+        ck.reset_launch_counts()
+        got = ck.shear_x(img, sh)
+        want = ck._shear_x_plain(img, sh)
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["shear_x"] == 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_warp_entry_points_launch_kernels(cuda_dev):
+    """The entry points reach the kernels: rectify/remap/warp_affine/
+    warp_perspective/undistort_image one K7 launch each, the shear route
+    six K9 launches (three channels batched)."""
+    from kornia_tpu_torch.geometry import camera, stereo
+    from kornia_tpu_torch.ops import interpolation, warp
+    img = _img(18, (60, 80, 3))
+    k = np.array([[70.0, 0, 40.0], [0, 70.0, 30.0], [0, 0, 1]])
+    dist = np.array([-0.28, 0.07, 0.0002, -0.0001, 0.001])
+    rect = stereo.StereoRectifier.from_calib(
+        k, dist, k, dist, (60, 80), np.eye(3), np.array([-0.11, 0.0, 0.0]))
+    m = np.array([[0.9, -0.2, 5.0], [0.2, 0.9, -3.0]], np.float32)
+    mx, my = camera.generate_correction_map_polynomial(k, dist, (60, 80))
+    ck.reset_launch_counts()
+    outs = [rect.rectify_left(img[..., 0]), rect.rectify_right(img[..., 1]),
+            interpolation.remap(img, mx, my),
+            warp.warp_affine(img, m, (50, 70)),
+            warp.warp_perspective(img, np.eye(3), (50, 70)),
+            camera.undistort_image(img, k, dist)]
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["remap"] == len(outs)
+    assert all(o.dtype == torch.uint8 and o.is_cuda for o in outs)
+    ck.reset_launch_counts()
+    out = warp.warp_affine(img, m, (50, 70), method="shear")
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["shear_x"] == 6 and out.shape == (50, 70, 3)
