@@ -1,7 +1,7 @@
 """Carry state from the JAX package into the port.
 
 There are no learned weights on the ported paths. The state is the
-configurations, the stereo calibration and, for stage-by-stage comparison,
+configurations (ORB, two-view, LK, preprocessor), the stereo calibration and, for stage-by-stage comparison,
 the reference's intermediate arrays. They arrive as plain numpy / Python
 values (so this module imports nothing of the JAX package) and leave as
 the port's objects and tensors on a given device.
@@ -19,6 +19,9 @@ from kornia_tpu_torch import resolve_device, to_device
 from kornia_tpu_torch.features.orb import OrbConfig
 from kornia_tpu_torch.geometry.stereo import StereoRectifier
 from kornia_tpu_torch.geometry.twoview import TwoViewParams
+from kornia_tpu_torch.ops.optical_flow import PyrLKParams
+from kornia_tpu_torch.ops.preprocess import (NormalizeMode,
+                                             PreprocessorConfig, ResizeMode)
 
 
 def _config(cls, values: Mapping[str, Any]):
@@ -39,6 +42,28 @@ def twoview_params(values: Mapping[str, Any]) -> TwoViewParams:
     """``dataclasses.asdict`` of the reference's TwoViewParams →
     TwoViewParams."""
     return _config(TwoViewParams, values)
+
+
+def pyrlk_params(values: Mapping[str, Any]) -> PyrLKParams:
+    """``dataclasses.asdict`` of the reference's PyrLKParams → PyrLKParams."""
+    return _config(PyrLKParams, values)
+
+
+def preprocessor_config(values: Mapping[str, Any]) -> PreprocessorConfig:
+    """``dataclasses.asdict`` of the reference's PreprocessorConfig →
+    PreprocessorConfig. The two enum fields are matched by value (the
+    reference's members, their ``.value`` strings or the port's members
+    all do)."""
+    values = dict(values)
+    for key, enum_cls in (("resize_mode", ResizeMode),
+                          ("normalize", NormalizeMode)):
+        if key in values:
+            v = values[key]
+            values[key] = enum_cls(getattr(v, "value", v))
+    for key in ("out_size", "mean", "std"):
+        if key in values:
+            values[key] = tuple(np.asarray(values[key]).tolist())
+    return _config(PreprocessorConfig, values)
 
 
 _RECTIFIER_FIELDS = ("k1", "d1", "k2", "d2", "image_size", "r1", "r2", "p1",

@@ -13,6 +13,11 @@ fast_harris     pallas_kernels.py::fast_score_pallas        fast_harris.cu
 windows_paired  pallas_kernels.py::                         windows_paired.cu
                 extract_windows_prepared_paired
 brief_sample    pallas_kernels.py::brief_sample_pallas      brief_sample.cu
+windows         pallas_kernels.py::extract_windows_prepared windows.cu
+                (and extract_windows_pallas)
+lane_gather     pallas_kernels.py::lane_gather              lane_gather.cu
+fused_          pallas_kernels.py::fused_preprocess_pallas  preprocess.cu
+preprocess
 remap           warp_pallas.py::_make_kernel                remap.cu
                 (launched by _remap_chunks)
 lane_shift      warp_pallas.py::_lane_shift_pallas          lane_shift.cu
@@ -32,6 +37,7 @@ source, all started together. ``LAUNCHES`` counts launches per wrapper.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -45,12 +51,13 @@ import torch
 from kornia_tpu_torch.features.fast import fast_score, nms_maxpool
 from kornia_tpu_torch.features.responses import harris_response
 from kornia_tpu_torch.ops.filters import gaussian_kernel1d
+from kornia_tpu_torch.ops.resize import _resize_matrix
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
-SOURCES = ("fast_harris", "windows_paired", "brief_sample", "remap",
-           "lane_shift", "shear_x")
+SOURCES = ("fast_harris", "windows_paired", "brief_sample", "windows",
+           "lane_gather", "preprocess", "remap", "lane_shift", "shear_x")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -116,6 +123,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "fast_harris": [p, p, p, i, i, f, ctypes.POINTER(f), f, p],
         "windows_paired": [p, p, p, i, i, i, i, i, i, p],
         "brief_sample": [p, p, p, p, i, i, i, i, p],
+        "windows": [p, p, p, i, i, i, i, i, i, i, i, p],
+        "lane_gather": [p, p, p, ctypes.c_longlong, p],
+        "preprocess": [p, i, p, p, p, p, ctypes.POINTER(f),
+                       ctypes.POINTER(f), p, i, i, p],
         "remap": [p, i, i, i, i, p, i, i, i, p, p, ctypes.POINTER(f), i, i,
                   f, p],
         "lane_shift": [p, p, p, i, i, i, i, p],
@@ -203,19 +214,21 @@ PAIR_WIN_H = 40
 _WIN_CX = 64
 
 
-def prepare_window_canvas(frames: List[torch.Tensor]):
+def prepare_window_canvas(frames: List[torch.Tensor],
+                          win_h: int = PAIR_WIN_H, cy_off: int = PAIR_CY):
     """Edge-replicated, level-stacked float32 canvas for window extraction
     (the counterpart of pallas_kernels.py:383-398 and the level stacking of
-    orb.py:367-374, without the TPU's alignment padding). Level i occupies
-    rows [starts[i], starts[i+1]), padded PAIR_CY rows above,
-    PAIR_WIN_H − PAIR_CY below, 64 columns left and right, then
-    zero-padded on the right to the widest level. Returns (canvas (Hc, Wc)
-    f32, starts)."""
+    orb.py:315-322 / 367-374, without the TPU's alignment padding). Level i
+    occupies rows [starts[i], starts[i+1]), padded ``cy_off`` rows above,
+    ``win_h − cy_off`` below, 64 columns left and right, then zero-padded
+    on the right to the widest level. The defaults are the paired layout
+    (40 rows, keypoint on row 20); the unpaired one is (48, 24). Returns
+    (canvas (Hc, Wc) f32, starts)."""
     pads = []
     for f in frames:
         h, w = f.shape
         dev = f.device
-        iy = torch.clamp(torch.arange(-PAIR_CY, h + PAIR_WIN_H - PAIR_CY,
+        iy = torch.clamp(torch.arange(-cy_off, h + win_h - cy_off,
                                       device=dev), 0, h - 1)
         ix = torch.clamp(torch.arange(-_WIN_CX, w + 128 - _WIN_CX,
                                       device=dev), 0, w - 1)
@@ -317,6 +330,217 @@ def brief_sample(windows: torch.Tensor, rows: torch.Tensor,
         windows.data_ptr(), rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
         k, wh, ww, taps, _stream(windows))
     _launched("brief_sample", rc)
+    return out
+
+
+# --------------------------------------------------------------------------
+# K4: one (win_h, 128) window per keypoint
+# --------------------------------------------------------------------------
+
+
+def _window_frame(src: torch.Tensor, win_h: int, cy_off: int, cx_off: int,
+                  prepared):
+    """(oy, ox, xmax, ymax) of the two call shapes of :func:`windows`."""
+    if prepared is None:
+        h, w = src.shape
+        return cy_off, cx_off, w - 1, h - 1
+    hsum, wimg = prepared
+    return 0, 0, int(wimg) - 1, int(hsum) - 1
+
+
+def _windows_plain(src: torch.Tensor, xy: torch.Tensor, win_h: int = 48,
+                   cy_off: int = 24, cx_off: int = 64,
+                   prepared=None) -> torch.Tensor:
+    """The vmapped ``dynamic_slice`` branches (orb.py:155-162, 330-347;
+    optical_flow.py:169-175, 306-323) as one advanced-indexing gather with
+    clamped indices."""
+    oy, ox, xmax, ymax = _window_frame(src, win_h, cy_off, cx_off, prepared)
+    hs, ws = src.shape
+    dev = src.device
+    xy = xy.to(torch.int64)
+    cx = torch.clamp(xy[:, 0], 0, xmax)
+    cy = torch.clamp(xy[:, 1], 0, ymax)
+    rows = torch.clamp(cy[:, None] + torch.arange(win_h, device=dev) - oy,
+                       0, hs - 1)
+    cols = torch.clamp(cx[:, None] + torch.arange(128, device=dev) - ox,
+                       0, ws - 1)
+    return src[rows[:, :, None], cols[:, None, :]]
+
+
+def windows(src: torch.Tensor, xy: torch.Tensor, win_h: int = 48,
+            cy_off: int = 24, cx_off: int = 64,
+            prepared: Tuple[int, int] | None = None) -> torch.Tensor:
+    """(K, win_h, 128) f32 edge-replicated windows at (K, 2) int32
+    keypoints (x, y).
+
+    Single frame (``prepared=None``): ``src`` is the (H, W) f32 frame and
+    ``out[k, r, c] = src[clamp(y + r − cy_off), clamp(x + c − cx_off)]``
+    with xy first clipped to the frame. Stacked levels: ``src`` is the
+    canvas of ``prepare_window_canvas(frames, win_h, cy_off)``, xy are
+    canvas coordinates and ``prepared = (canvas rows, widest level)``."""
+    if src.device.type == "cpu":
+        return _windows_plain(src, xy, win_h, cy_off, cx_off, prepared)
+    _check(src, "windows src", torch.float32, 2)
+    _check(xy, "windows xy", torch.int32, 2)
+    if xy.shape[1] != 2 or xy.device != src.device:
+        raise ValueError("windows: xy must be (K, 2) on the source's device")
+    oy, ox, xmax, ymax = _window_frame(src, win_h, cy_off, cx_off, prepared)
+    k = int(xy.shape[0])
+    hs, ws = src.shape
+    out = torch.empty((k, int(win_h), 128), dtype=torch.float32,
+                      device=src.device)
+    if out.numel() == 0:
+        return out
+    if hs == 0 or ws == 0:
+        raise ValueError("windows: empty source")
+    rc = _kernel("windows")(src.data_ptr(), xy.data_ptr(), out.data_ptr(), k,
+                            hs, ws, xmax, ymax, oy, ox, int(win_h),
+                            _stream(src))
+    _launched("windows", rc)
+    return out
+
+
+# --------------------------------------------------------------------------
+# K5: lane gather
+# --------------------------------------------------------------------------
+
+
+def _lane_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.gather(src, 1, torch.clamp(idx.to(torch.int64), 0, 127))
+
+
+def lane_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[i, j] = src[i, clip(idx[i, j], 0, 127)] for (N, 128) f32 ``src``
+    and (N, 128) int32 ``idx``."""
+    if src.ndim != 2 or src.shape[1] != 128:
+        raise ValueError(f"lane_gather needs 128 lanes, got "
+                         f"{tuple(src.shape)}")
+    if idx.shape != src.shape:
+        raise ValueError("lane_gather: idx must have the shape of src")
+    if src.device.type == "cpu":
+        return _lane_gather_plain(src, idx)
+    _check(src, "lane_gather src", torch.float32, 2)
+    _check(idx, "lane_gather idx", torch.int32, 2)
+    if idx.device != src.device:
+        raise ValueError("lane_gather: idx must be on the source's device")
+    out = torch.empty_like(src)
+    if out.numel() == 0:
+        return out
+    rc = _kernel("lane_gather")(src.data_ptr(), idx.data_ptr(),
+                                out.data_ptr(), int(src.shape[0]),
+                                _stream(src))
+    _launched("lane_gather", rc)
+    return out
+
+
+# --------------------------------------------------------------------------
+# K6: fused resize + normalise + CHW
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=256)
+def _resize_taps(in_size: int, out_size: int):
+    """The non-zero entries of the rows of ``_resize_matrix``: ((out, 2)
+    int32 indices, (out, 2) f32 weights), ascending index; a row with one
+    entry (an integer position, or edge taps merged by the clamp) repeats
+    its index with weight 0."""
+    m = _resize_matrix(in_size, out_size)
+    idx = np.zeros((out_size, 2), np.int32)
+    wt = np.zeros((out_size, 2), np.float32)
+    for i, row in enumerate(m):
+        nz = np.nonzero(row)[0]
+        if not 1 <= len(nz) <= 2:
+            raise AssertionError("a bilinear row has one or two taps")
+        idx[i] = nz[0], nz[-1]
+        wt[i, 0] = row[nz[0]]
+        wt[i, 1] = row[nz[-1]] if len(nz) == 2 else 0.0
+    return idx, wt
+
+
+def _norm_scale_bias(mean, std):
+    """float32 (scale, bias) with ``scale = 1/(255·std)``, ``bias =
+    −mean/std`` computed in Python floats first, as
+    pallas_kernels.py:88-91."""
+    scale = np.asarray([1.0 / (255.0 * s) for s in std], np.float32)
+    bias = np.asarray([-m / s for m, s in zip(mean, std)], np.float32)
+    if scale.shape != (3,) or bias.shape != (3,):
+        raise ValueError("fused_preprocess: mean and std need 3 values")
+    return scale, bias
+
+
+def _fused_preprocess_plain(rgb_u8: torch.Tensor, out_h: int, out_w: int,
+                            mean=(0.0, 0.0, 0.0), std=(1.0, 1.0, 1.0)
+                            ) -> torch.Tensor:
+    """The TPU kernel's body in PyTorch: two dense f32 band-matrix
+    products (horizontal, then vertical), then ``· scale + bias``."""
+    h, w, _ = rgb_u8.shape
+    dev = rgb_u8.device
+    scale, bias = _norm_scale_bias(mean, std)
+    wy = torch.from_numpy(_resize_matrix(h, out_h)).to(dev)
+    wx_t = torch.from_numpy(_resize_matrix(w, out_w)).to(dev).T
+    src = rgb_u8.permute(2, 0, 1).to(torch.float32)          # (3, H, W)
+    t = torch.matmul(src, wx_t)                              # (3, H, ow)
+    out = torch.matmul(wy, t)                                # (3, oh, ow)
+    return (out * torch.from_numpy(scale).to(dev)[:, None, None]
+            + torch.from_numpy(bias).to(dev)[:, None, None])
+
+
+def _fused_preprocess_taps(rgb_u8: torch.Tensor, out_h: int, out_w: int,
+                           mean=(0.0, 0.0, 0.0), std=(1.0, 1.0, 1.0)
+                           ) -> torch.Tensor:
+    """The kernel's own arithmetic in PyTorch ops, each product and sum a
+    separately rounded f32 op: the two-tap form of both passes. The kernel
+    is bit-equal to this; :func:`_fused_preprocess_plain` differs from it
+    by the rounding of its products' summation only."""
+    h, w, _ = rgb_u8.shape
+    dev = rgb_u8.device
+    scale, bias = _norm_scale_bias(mean, std)
+    yi, yw = (torch.from_numpy(a).to(dev) for a in _resize_taps(h, out_h))
+    xi, xw = (torch.from_numpy(a).to(dev) for a in _resize_taps(w, out_w))
+    src = rgb_u8.permute(2, 0, 1).to(torch.float32)
+    xi, yi = xi.to(torch.int64), yi.to(torch.int64)
+    t = (src[:, :, xi[:, 0]] * xw[:, 0] + src[:, :, xi[:, 1]] * xw[:, 1])
+    out = (t[:, yi[:, 0], :] * yw[:, 0, None]
+           + t[:, yi[:, 1], :] * yw[:, 1, None])
+    return (out * torch.from_numpy(scale).to(dev)[:, None, None]
+            + torch.from_numpy(bias).to(dev)[:, None, None])
+
+
+@functools.lru_cache(maxsize=64)
+def _device_taps(in_size: int, out_size: int, device: str):
+    idx, wt = _resize_taps(in_size, out_size)
+    return (torch.from_numpy(idx).to(device).contiguous(),
+            torch.from_numpy(wt).to(device).contiguous())
+
+
+def fused_preprocess(rgb_u8: torch.Tensor, out_h: int, out_w: int,
+                     mean=(0.0, 0.0, 0.0), std=(1.0, 1.0, 1.0)
+                     ) -> torch.Tensor:
+    """(H, W, 3) u8 → (3, out_h, out_w) f32: bilinear resize (cv2
+    half-pixel centres, edges replicated), ``(x/255 − mean)/std`` per
+    channel and the CHW transpose in one kernel."""
+    out_h, out_w = int(out_h), int(out_w)
+    if rgb_u8.ndim != 3 or rgb_u8.shape[2] != 3:
+        raise ValueError("fused_preprocess: expected an (H, W, 3) image")
+    if rgb_u8.device.type == "cpu":
+        return _fused_preprocess_plain(rgb_u8, out_h, out_w, mean, std)
+    _check(rgb_u8, "fused_preprocess rgb", torch.uint8, 3)
+    h, w, _ = rgb_u8.shape
+    if h == 0 or w == 0:
+        raise ValueError("fused_preprocess: empty image")
+    scale, bias = _norm_scale_bias(mean, std)
+    dev = rgb_u8.device
+    out = torch.empty((3, out_h, out_w), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    yi, yw = _device_taps(h, out_h, str(dev))
+    xi, xw = _device_taps(w, out_w, str(dev))
+    f3 = ctypes.c_float * 3
+    rc = _kernel("preprocess")(
+        rgb_u8.data_ptr(), w, yi.data_ptr(), yw.data_ptr(), xi.data_ptr(),
+        xw.data_ptr(), f3(*scale.tolist()), f3(*bias.tolist()),
+        out.data_ptr(), out_h, out_w, _stream(rgb_u8))
+    _launched("preprocess", rc)
     return out
 
 

@@ -1,5 +1,5 @@
-"""Separable Gaussian filtering (port of kornia_tpu/ops/filters.py, the part
-ORB and Harris use).
+"""Separable filtering (port of kornia_tpu/ops/filters.py, the part ORB,
+Harris and the pyramids use: Gaussian blur and Sobel derivatives).
 
 The separable convolution keeps the reference's shift-add form and order
 (filters.py:72-79): vertical taps ascending, then horizontal, the first term
@@ -102,4 +102,32 @@ def gaussian_blur(img: torch.Tensor, ksize: Tuple[int, int],
     ky = gaussian_kernel1d(ksize[1], sigma[1])  # vertical uses ksize_y
     kx = gaussian_kernel1d(ksize[0], sigma[0])
     out = _finalize(_conv_sep(x, ky, kx, border), img.dtype)
+    return out[..., 0] if squeeze else out
+
+
+# cv2.getDerivKernels first-order pairs (deriv, smooth) per aperture
+_SOBEL = {
+    1: (np.array([-1.0, 0.0, 1.0], np.float32),
+        np.array([1.0], np.float32)),
+    3: (np.array([-1.0, 0.0, 1.0], np.float32),
+        np.array([1.0, 2.0, 1.0], np.float32)),
+    5: (np.array([-1.0, -2.0, 0.0, 2.0, 1.0], np.float32),
+        np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32)),
+    7: (np.array([-1.0, -4.0, -5.0, 0.0, 5.0, 4.0, 1.0], np.float32),
+        np.array([1.0, 6.0, 15.0, 20.0, 15.0, 6.0, 1.0], np.float32)),
+}
+
+
+def sobel(img: torch.Tensor, dx: int, dy: int, ksize: int = 3
+          ) -> torch.Tensor:
+    """First-order Sobel derivative of (H, W) or (..., H, W, C), float32
+    (cv2.Sobel CV_32F), apertures 1/3/5/7."""
+    if ksize not in _SOBEL:
+        raise ValueError(f"sobel ksize must be one of {sorted(_SOBEL)}, "
+                         f"got {ksize}")
+    squeeze = img.ndim == 2
+    x = img[..., None] if squeeze else img
+    deriv, smooth = _SOBEL[ksize]
+    out = _conv_sep(x, deriv if dy else smooth, deriv if dx else smooth,
+                    "reflect")
     return out[..., 0] if squeeze else out

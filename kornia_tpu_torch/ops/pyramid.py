@@ -1,0 +1,51 @@
+"""Image pyramids (port of kornia_tpu/ops/pyramid.py: the cv2 5-tap
+binomial ``pyrdown`` / ``pyrup`` and ``gaussian_pyramid``).
+
+Images are (H, W) or (..., H, W, C). ``scale_pyramid`` is not ported yet;
+ORB builds its own levels (features/orb._pyramid).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from kornia_tpu_torch.ops.filters import _conv_sep, _finalize
+
+_PYR_K = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
+
+
+def _with_channels(img: torch.Tensor):
+    if img.ndim == 2:
+        return img[..., None], True
+    return img, False
+
+
+def pyrdown(img: torch.Tensor) -> torch.Tensor:
+    """Gaussian blur (5-tap binomial) + drop every other pixel
+    (cv2.pyrDown)."""
+    x, squeeze = _with_channels(img)
+    blurred = _conv_sep(x, _PYR_K, _PYR_K, "reflect")
+    out = _finalize(blurred[..., ::2, ::2, :], img.dtype)
+    return out[..., 0] if squeeze else out
+
+
+def pyrup(img: torch.Tensor) -> torch.Tensor:
+    """Zero-upsample 2× + blur with 4·kernel (cv2.pyrUp)."""
+    x, squeeze = _with_channels(img)
+    h, w, c = x.shape[-3:]
+    up = torch.zeros(x.shape[:-3] + (h * 2, w * 2, c), dtype=torch.float32,
+                     device=x.device)
+    up[..., ::2, ::2, :] = x.to(torch.float32)
+    out = _finalize(_conv_sep(up, _PYR_K * 2.0, _PYR_K * 2.0, "reflect"),
+                    img.dtype)
+    return out[..., 0] if squeeze else out
+
+
+def gaussian_pyramid(img: torch.Tensor, levels: int) -> List[torch.Tensor]:
+    out = [img]
+    for _ in range(levels - 1):
+        out.append(pyrdown(out[-1]))
+    return out

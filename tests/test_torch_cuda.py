@@ -200,3 +200,189 @@ def test_cuda_warp_entry_points_launch_kernels(cuda_dev):
     out = warp.warp_affine(img, m, (50, 70), method="shear")
     torch.cuda.synchronize()
     assert ck.LAUNCHES["shear_x"] == 6 and out.shape == (50, 70, 3)
+
+
+def _border_keypoints(rng, h, w, k):
+    """k int32 keypoints in an (h, w) frame, the first on all four borders
+    and corners, two outside the frame."""
+    xy = np.stack([rng.integers(0, w, k), rng.integers(0, h, k)], 1)
+    fixed = [(0, 0), (w - 1, h - 1), (w - 1, 0), (0, h - 1), (w // 2, 0),
+             (0, h // 2), (w - 1, h // 3), (w // 3, h - 1), (-7, 5),
+             (w + 30, h + 9)]
+    n = min(k, len(fixed))
+    xy[:n] = np.asarray(fixed[:n], xy.dtype).reshape(n, 2)
+    return xy.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 1, 7, 64])
+@pytest.mark.parametrize("shape,layout", [((97, 131), (48, 24, 64)),
+                                          ((60, 80), (24, 8, 64)),
+                                          ((5, 9), (48, 24, 64))])
+def test_cuda_windows_bit_equal(cuda_dev, k, shape, layout):
+    """K4 on a single frame against its plain version: K = 0, 1, odd;
+    keypoints on all four borders and outside; a frame smaller than the
+    window; both window layouts."""
+    rng = np.random.default_rng(19)
+    img = convert.tensor(rng.standard_normal(shape).astype(np.float32),
+                         cuda_dev)
+    xy = convert.tensor(_border_keypoints(rng, *shape, k), cuda_dev)
+    ck.reset_launch_counts()
+    got = ck.windows(img, xy, *layout)
+    want = ck._windows_plain(img, xy, *layout)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["windows"] == (1 if k else 0)
+    assert got.shape == (k, layout[0], 128) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_windows_packed_canvas_bit_equal(cuda_dev):
+    """K4 on the level-stacked canvas: each keypoint reads its own level."""
+    rng = np.random.default_rng(20)
+    frames = [convert.tensor(_img(21 + i, s).astype(np.float32), cuda_dev)
+              for i, s in enumerate(_SHAPES)]
+    canvas, starts = ck.prepare_window_canvas(frames, 48, 24)
+    xys = [_border_keypoints(rng, h, w, 8)[:8] + np.array([0, s], np.int32)
+           for (h, w), s in zip(_SHAPES, starts)]
+    for i, (h, w) in enumerate(_SHAPES):      # keep them inside their level
+        xys[i][:, 0] = np.clip(xys[i][:, 0], 0, w - 1)
+        xys[i][:, 1] = np.clip(xys[i][:, 1], starts[i], starts[i] + h - 1)
+    xy = convert.tensor(np.concatenate(xys).astype(np.int32), cuda_dev)
+    got = ck.windows(canvas, xy, 48, prepared=(starts[-1], 80))
+    assert torch.equal(got, ck._windows_plain(canvas, xy, 48,
+                                              prepared=(starts[-1], 80)))
+    for i, f in enumerate(frames):            # and equal to per-level calls
+        lvl = xy[8 * i: 8 * i + 8] - torch.tensor(
+            [0, starts[i]], dtype=torch.int32, device=cuda_dev)
+        assert torch.equal(got[8 * i: 8 * i + 8],
+                           ck.windows(f, lvl.contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 5, 513, 4801])
+def test_cuda_lane_gather_bit_equal(cuda_dev, n):
+    """K5 against torch.gather on the clipped indices: N not a multiple of
+    anything, indices outside [0, 127]."""
+    rng = np.random.default_rng(22)
+    src = convert.tensor(rng.standard_normal((n, 128)).astype(np.float32),
+                         cuda_dev)
+    idx = convert.tensor(rng.integers(-4, 132, (n, 128)).astype(np.int32),
+                         cuda_dev)
+    ck.reset_launch_counts()
+    got = ck.lane_gather(src, idx)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["lane_gather"] == (1 if n else 0)
+    assert torch.equal(got, ck._lane_gather_plain(src, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,out_hw", [
+    ((96, 128, 3), (64, 64)), ((37, 53, 3), (50, 81)), ((9, 7, 3), (1, 1)),
+    ((1, 1, 3), (4, 5)), ((1080, 1920, 3), (360, 640))])
+def test_cuda_fused_preprocess(cuda_dev, shape, out_hw):
+    """K6: bit-equal to its own arithmetic written in PyTorch ops (two
+    taps per pass, every op rounded on its own), and within 2e-6 of the
+    plain version's dense float32 products (their summation rounding);
+    outputs larger than the input and 1×1 sizes included."""
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    img = convert.tensor(_img(23, shape), cuda_dev)
+    ck.reset_launch_counts()
+    got = ck.fused_preprocess(img, *out_hw, mean, std)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["preprocess"] == 1
+    assert got.shape == (3,) + out_hw and got.dtype == torch.float32
+    assert torch.equal(got, ck._fused_preprocess_taps(img, *out_hw, mean,
+                                                      std))
+    plain = ck._fused_preprocess_plain(img, *out_hw, mean, std)
+    assert float((got - plain).abs().max()) <= 2e-6
+
+
+@pytest.mark.cuda
+def test_cuda_new_wrappers_reject_bad_input(cuda_dev):
+    img = torch.zeros((20, 30), device=cuda_dev)
+    xy = torch.zeros((3, 2), dtype=torch.int32, device=cuda_dev)
+    with pytest.raises(ValueError):
+        ck.windows(img, xy.long())
+    with pytest.raises(ValueError):
+        ck.windows(img.double(), xy)
+    with pytest.raises(ValueError):
+        ck.windows(img, xy.cpu())
+    with pytest.raises(ValueError, match="128 lanes"):
+        ck.lane_gather(torch.zeros((4, 64), device=cuda_dev),
+                       torch.zeros((4, 64), dtype=torch.int32,
+                                   device=cuda_dev))
+    with pytest.raises(ValueError):
+        ck.lane_gather(torch.zeros((4, 128), device=cuda_dev),
+                       torch.zeros((4, 128), dtype=torch.int64,
+                                   device=cuda_dev))
+    with pytest.raises(ValueError):
+        ck.fused_preprocess(torch.zeros((8, 8, 3), device=cuda_dev), 4, 4)
+    with pytest.raises(ValueError):
+        ck.fused_preprocess(torch.zeros((8, 8, 4), dtype=torch.uint8,
+                                        device=cuda_dev), 4, 4)
+
+
+@pytest.mark.cuda
+def test_cuda_slice3_entry_points_launch_kernels(cuda_dev):
+    """The entry points of the third slice reach the kernels with the
+    counts the describe forms and LK methods imply."""
+    import dataclasses
+    from kornia_tpu_torch.features import orb, responses
+    from kornia_tpu_torch.ops import optical_flow as flow
+    from kornia_tpu_torch.ops import preprocess as pp
+    rng = np.random.default_rng(24)
+    small = rng.random((22, 28))
+    gray = (np.kron(small, np.ones((8, 8))) * 255).astype(np.uint8)
+    cfg = orb.OrbConfig(n_features=200, n_levels=3)
+
+    def run(fn):
+        ck.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in ck.LAUNCHES.items() if v}
+
+    paired, n = run(lambda: orb.orb_detect_and_describe(gray, cfg))
+    assert n == {"fast_harris": 3, "windows_paired": 2, "brief_sample": 1}
+    unp, n = run(lambda: orb.orb_detect_and_describe(gray, cfg,
+                                                     describe="unpaired"))
+    assert n == {"fast_harris": 3, "windows": 2, "brief_sample": 1}
+    assert torch.equal(unp.descriptors, paired.descriptors)
+    assert torch.equal(unp.angle, paired.angle)
+    lg, n = run(lambda: orb.orb_detect_and_describe(gray, cfg,
+                                                    brief="lane_gather"))
+    assert n == {"fast_harris": 3, "windows": 2, "lane_gather": 4}
+    assert torch.equal(lg.descriptors, paired.descriptors)
+    odd, n = run(lambda: orb.orb_detect_and_describe(
+        gray, dataclasses.replace(cfg, n_features=201)))
+    assert n == {"fast_harris": 3, "windows": 2, "brief_sample": 1}
+    assert odd.descriptors.shape == (201, 256)
+    _, n = run(lambda: orb.orb_detect_and_describe_quadtree(gray, cfg))
+    assert n == {"windows": 6, "brief_sample": 3}
+    xy = torch.round(paired.xy[paired.octave == 0]).to(torch.int32)
+    _, n = run(lambda: responses.harris_at_windows(
+        torch.as_tensor(gray, device=cuda_dev).float(), xy))
+    assert n == {"windows": 1}
+
+    nxt = np.roll(gray, 2, axis=1)
+    pts = paired.xy[paired.mask & (paired.octave == 0)][:50]
+    params = flow.PyrLKParams(window=15, max_level=1)
+    for method in ("auto", "taps", "windows", "gather"):
+        stats = {}
+        res, n = run(lambda: flow.calc_optical_flow_pyr_lk(
+            gray, nxt, pts, params, method=method, stats=stats))
+        want = {"taps": 4 * 2 + sum(stats["iterations"]), "windows": 4 * 2,
+                "gather": 0}[stats["method"]]
+        assert n.get("windows", 0) == want and res.points.is_cuda
+        cpu = flow.calc_optical_flow_pyr_lk(gray, nxt, pts.cpu(), params,
+                                            method=stats["method"],
+                                            device="cpu")
+        ok = res.status.cpu() & cpu.status
+        assert ok.sum() >= 10
+        assert float((res.points.cpu() - cpu.points)[ok].abs().max()) < 0.05
+    assert stats["method"] == "gather"
+
+    img = _img(25, (90, 120, 3))
+    out, n = run(lambda: pp.resize_normalize_to_tensor(
+        img, pp.PreprocessorConfig(out_size=(64, 64),
+                                   resize_mode=pp.ResizeMode.LETTERBOX)))
+    assert n == {"preprocess": 1} and out.shape == (1, 3, 64, 64)

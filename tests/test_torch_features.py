@@ -284,12 +284,17 @@ def test_brief_given_reference_angles(describe_ref):
     np.testing.assert_array_equal(got, describe_ref["desc"])
 
 
+@pytest.mark.parametrize("half_w", [32, None])
 @pytest.mark.parametrize("pattern", ["rublee2011", "seeded"])
-def test_brief_tap_coords_equal(pattern):
+def test_brief_tap_coords_equal(pattern, half_w):
+    """Both layouts: the paired half window (half_w=32, 40 rows) and the
+    unpaired (48, 128) window (half_w=None)."""
     ang = np.random.default_rng(8).uniform(-np.pi, np.pi, 64).astype(
         np.float32)
-    rr, rc = jorb._brief_tap_coords(jnp.asarray(ang), 7, pattern, half_w=32)
-    tr, tc = torb._brief_tap_coords(convert.tensor(ang), 7, pattern)
+    rr, rc = jorb._brief_tap_coords(jnp.asarray(ang), 7, pattern,
+                                    half_w=half_w)
+    tr, tc = torb._brief_tap_coords(convert.tensor(ang), 7, pattern,
+                                    half_w=half_w)
     # rounding of a rotated tap may flip on a one-ULP cos/sin difference;
     # allow 1 of the 64×512 taps to move by one
     for t, r in ((tr, rr), (tc, rc)):

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from kornia_tpu.features import fast as jfast
 from kornia_tpu.features import orb as jorb
 from kornia_tpu.features import responses as jresp
+from kornia_tpu.ops import optical_flow as jflow
 from kornia_tpu.ops import pallas_kernels as pk
 
 from kornia_tpu_torch import convert
@@ -171,6 +172,191 @@ def test_brief_sample_plain_matches_pallas_interpret():
     got = ck.brief_sample(convert.tensor(win), convert.tensor(rows),
                           convert.tensor(cols))
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+# --------------------------------------------------------------------------
+# K4: one window per keypoint
+# --------------------------------------------------------------------------
+
+
+def _frame_and_keypoints(seed, h, w, k=21):
+    """The shapes of tests/test_pallas_kernels.py:86-99: a float frame and
+    k keypoints, the first four on the corners and edges."""
+    rng = np.random.default_rng(seed)
+    img = rng.standard_normal((h, w)).astype(np.float32)
+    xs = rng.integers(0, w, k)
+    ys = rng.integers(0, h, k)
+    xs[:4] = [0, w - 1, 1, w - 2]
+    ys[:4] = [0, h - 1, h - 1, 0]
+    return img, np.stack([xs, ys], 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("h,w", [(240, 320), (97, 131)])
+def test_windows_plain_matches_pallas_interpret_and_slices(h, w):
+    """A single frame, (48, 24, 64): bit-equal to extract_windows_pallas
+    (interpret mode) and to the vmapped dynamic_slice branch
+    (orb.py:155-162), corner keypoints and a ragged frame included."""
+    img, xy = _frame_and_keypoints(20, h, w)
+    got = ck.windows(convert.tensor(img), convert.tensor(xy)).numpy()
+    assert got.shape == (21, 48, 128)
+    np.testing.assert_array_equal(got, np.asarray(
+        pk.extract_windows_pallas(jnp.asarray(img), jnp.asarray(xy))))
+    np.testing.assert_array_equal(got, np.asarray(
+        jorb._extract_windows(jnp.asarray(img), jnp.asarray(xy))))
+
+
+def test_windows_plain_clips_keypoints_outside_the_frame():
+    """xy is clipped to the frame first (pallas_kernels.py:409)."""
+    img, xy = _frame_and_keypoints(21, 50, 70, 6)
+    far = xy.copy()
+    far[0] = (-9, -3)
+    far[1] = (200, 300)
+    xy[0] = (0, 0)
+    xy[1] = (69, 49)
+    np.testing.assert_array_equal(
+        ck.windows(convert.tensor(img), convert.tensor(far)).numpy(),
+        ck.windows(convert.tensor(img), convert.tensor(xy)).numpy())
+
+
+def test_windows_plain_taps_layout_matches_slices():
+    """The LK taps layout (24 rows, 8 above, 64 left) against the
+    dynamic_slice fallback (optical_flow.py:306-323)."""
+    img, xy = _frame_and_keypoints(22, 64, 96, 33)
+    want = np.asarray(jflow._extract_taps_windows(
+        jflow._prepare_taps_source(jnp.asarray(img)), jnp.asarray(xy)))
+    got = ck.windows(convert.tensor(img), convert.tensor(xy), 24, 8, 64)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_windows_plain_packed_canvas_matches_reference():
+    """The level-stacked canvas call: bit-equal to the reference's non-TPU
+    branch (orb.py:330-347) and to extract_windows_prepared (interpret
+    mode) on the reference's own aligned canvas."""
+    frames = [f.astype(np.float32) for f in _levels(23, _SHAPES)]
+    xys = _keypoints(24, _SHAPES, (7, 6, 4))
+    jf = [jnp.asarray(f) for f in frames]
+    ref = np.asarray(jorb._extract_windows_packed(
+        jf, [jnp.asarray(x) for x in xys]))
+    canvas, starts = ck.prepare_window_canvas(
+        [convert.tensor(f) for f in frames], 48, 24)
+    xy = torch.cat([convert.tensor(x) + torch.tensor([0, s],
+                                                     dtype=torch.int32)
+                    for x, s in zip(xys, starts)])
+    got = ck.windows(canvas, xy, 48, prepared=(starts[-1], 80)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    pads = [pk.prepare_window_source(f, 48, 24, 64) for f in jf]
+    wmax = max(int(p.shape[1]) for p in pads)
+    pads = [jnp.pad(p, ((0, 0), (0, wmax - int(p.shape[1])))) for p in pads]
+    pstarts = np.cumsum([0] + [int(p.shape[0]) for p in pads])
+    xy_pl = jnp.concatenate([jnp.asarray(x) + jnp.asarray([0, s], jnp.int32)
+                             for x, s in zip(xys, pstarts)])
+    np.testing.assert_array_equal(got, np.asarray(pk.extract_windows_prepared(
+        jnp.concatenate(pads), (int(pstarts[-1]), 80), xy_pl, 48)))
+
+
+def test_prepare_window_canvas_default_is_the_paired_layout():
+    frames = [convert.tensor(f.astype(np.float32))
+              for f in _levels(25, _SHAPES)]
+    a, sa = ck.prepare_window_canvas(frames)
+    b, sb = ck.prepare_window_canvas(frames, ck.PAIR_WIN_H, ck.PAIR_CY)
+    assert sa == sb and torch.equal(a, b)
+    assert sa[1] == _SHAPES[0][0] + 40
+    c, sc = ck.prepare_window_canvas(frames, 48, 24)
+    assert sc[1] == _SHAPES[0][0] + 48
+    assert torch.equal(c[24:24 + 60, 64:64 + 80], frames[0])
+
+
+# --------------------------------------------------------------------------
+# K5: lane gather
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [5, 512, 700])
+def test_lane_gather_plain_matches_pallas_interpret(n):
+    """Bit-equal to lane_gather (interpret mode), indices outside
+    [0, 127] included: both clip them (pallas_kernels.py:359)."""
+    rng = np.random.default_rng(26)
+    src = rng.standard_normal((n, 128)).astype(np.float32)
+    idx = rng.integers(0, 128, (n, 128)).astype(np.int32)
+    idx[0, :4] = [-5, 128, 1000, -1]
+    ref = np.asarray(pk.lane_gather(jnp.asarray(src), jnp.asarray(idx)))
+    got = ck.lane_gather(convert.tensor(src), convert.tensor(idx))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(
+        got.numpy(), np.take_along_axis(src, np.clip(idx, 0, 127), 1))
+
+
+def test_lane_gather_rejects_non_128_lanes():
+    with pytest.raises(ValueError, match="128 lanes"):
+        ck.lane_gather(torch.zeros(8, 64), torch.zeros(8, 64,
+                                                       dtype=torch.int32))
+
+
+# --------------------------------------------------------------------------
+# K6: fused preprocess
+# --------------------------------------------------------------------------
+
+_MEAN = (0.485, 0.456, 0.406)
+_STD = (0.229, 0.224, 0.225)
+
+
+@pytest.mark.parametrize("shape,out_hw,norm", [
+    ((96, 128, 3), (64, 64), (_MEAN, _STD)),
+    ((37, 53, 3), (50, 81), (_MEAN, _STD)),           # upsampling, odd
+    ((64, 128, 3), (64, 128), ((0.0,) * 3, (1.0,) * 3)),
+])
+def test_fused_preprocess_plain_matches_pallas_interpret(shape, out_hw, norm):
+    """Against fused_preprocess_pallas (interpret mode). Both run the two
+    band products in float32; they differ by the summation order and FMA
+    use of two products with at most two non-zero terms each, and of the
+    epilogue: atol 1e-5 in normalised units (values reach ±2.7)."""
+    img = _img(27, shape)
+    ref = np.asarray(pk.fused_preprocess_pallas(
+        jnp.asarray(img), out_hw[0], out_hw[1], *norm))
+    got = ck.fused_preprocess(convert.tensor(img), out_hw[0], out_hw[1],
+                              *norm).numpy()
+    assert got.shape == (3,) + out_hw and got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,out_hw", [((96, 128, 3), (64, 64)),
+                                          ((37, 53, 3), (50, 81)),
+                                          ((9, 7, 3), (1, 1))])
+def test_fused_preprocess_two_tap_form_matches_plain(shape, out_hw):
+    """The CUDA kernel's arithmetic (two taps per pass, every op rounded
+    on its own) against the dense products: the same sums up to their
+    rounding, atol 2e-6 (a few ULP at |x| <= 2.7)."""
+    img = convert.tensor(_img(28, shape))
+    plain = ck._fused_preprocess_plain(img, *out_hw, _MEAN, _STD)
+    taps = ck._fused_preprocess_taps(img, *out_hw, _MEAN, _STD)
+    np.testing.assert_allclose(taps.numpy(), plain.numpy(), rtol=0,
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize("n_in,n_out", [(1080, 640), (97, 131), (53, 53),
+                                        (7, 1), (2, 9)])
+def test_resize_taps_rebuild_the_matrix(n_in, n_out):
+    """The taps are the non-zero entries of the bilinear matrix rows, so
+    border rows (clamped and merged taps) agree exactly."""
+    from kornia_tpu_torch.ops.resize import _resize_matrix
+    idx, wt = ck._resize_taps(n_in, n_out)
+    m = np.zeros((n_out, n_in), np.float32)
+    for i in range(n_out):
+        m[i, idx[i, 0]] += wt[i, 0]
+        m[i, idx[i, 1]] += wt[i, 1]
+    np.testing.assert_array_equal(m, _resize_matrix(n_in, n_out))
+    assert (idx[:, 0] <= idx[:, 1]).all()
+
+
+def test_new_wrappers_count_no_cpu_launch():
+    ck.reset_launch_counts()
+    img, xy = _frame_and_keypoints(29, 40, 60, 5)
+    ck.windows(convert.tensor(img), convert.tensor(xy))
+    ck.lane_gather(torch.zeros(3, 128), torch.zeros(3, 128,
+                                                    dtype=torch.int32))
+    ck.fused_preprocess(convert.tensor(_img(30, (20, 30, 3))), 8, 8)
+    assert all(v == 0 for v in ck.LAUNCHES.values())
+    assert set(ck.LAUNCHES) == set(ck.SOURCES) and len(ck.SOURCES) == 9
 
 
 # --------------------------------------------------------------------------
