@@ -9,18 +9,30 @@ Phases (any failure raises, so the script exits non-zero):
 2. Kernels vs their plain PyTorch versions on the card, at main-path
    shapes: the 8 pyramid levels of a 480×752 frame, 2000 keypoints (with
    border keypoints and pairs that straddle two levels). All three must be
-   bit-equal (max_abs_err 0).
+   bit-equal (max_abs_err 0); K3 by both its entries: brief_rotated
+   (windows + cos/sin + pattern → bits, which the path runs) against its
+   plain version, brief_sample (the index form) against its own, and
+   brief_rotated's samples against brief_sample on _brief_tap_coords'
+   indices.
 3. The slice at full size on a seed-made scene with known pose: two
    480×752 views of two textured, non-coplanar planes; ORB (OrbConfig())
    on both, Hamming matching, the two-view bootstrap (TwoViewParams()).
    Launch counts for the pair must be fast_harris 16, windows_paired 4,
-   brief_sample 2; rotation error ≤ 0.5°, translation direction ≤ 5°,
-   ≥ 100 inliers. The same pair is then run on the CPU and the shares of
-   pyramid pixels, selected keypoints and descriptor bits that differ
-   are printed (keypoints: ≤ 1%).
-4. Times (CUDA events, warm-up, median of 20): each kernel, its plain
-   version and one PyTorch library call computing the same function where
-   there is one; each stage and the whole pair.
+   brief_sample 2 (both brief_rotated); the descriptors of both frames
+   must equal the index form's on the same windows and angles; rotation
+   error ≤ 0.5°, translation direction ≤ 5°, ≥ 100 inliers. The same
+   pair is then run on the CPU and the shares of pyramid pixels, selected
+   keypoints and descriptor bits that differ are printed (keypoints:
+   ≤ 1%).
+4. Times: of each kernel, its plain version and one PyTorch library call
+   computing the same function where there is one, two times each: the
+   device time (torch.profiler over 20 back-to-back calls: the summed
+   device time of the kernels the call launches, taken only from a trace
+   that holds the device record of every one of them) and the call time (CUDA
+   events around one call, median of 20: what one caller waits, Python
+   wrapper and launch latency included); per wrapper the host
+   microseconds per call (1000 calls without a synchronise). Each stage
+   and the whole pair by call time.
 5. rectify (the warping slice's path): a raw, distorted EuRoC-size stereo
    pair of the same scene (0.11 m baseline, < 1° relative rotation,
    K_EUROC and radtan distortion) → StereoRectifier.from_calib →
@@ -30,7 +42,14 @@ Phases (any failure raises, so the script exits non-zero):
    scale 0.5), warp_perspective, undistort_image and remap (bilinear and
    nearest, zeros and border): one K7 launch each, each bit-equal to the
    plain version, timed beside the plain version and
-   torch.nn.functional.grid_sample on the same map.
+   torch.nn.functional.grid_sample on the same map (on a ready f32 NCHW
+   tensor, and with the conversion from and to u8 HWC). warp_affine with a
+   matrix made on the card runs under torch.cuda.set_sync_debug_mode
+   ("error"): it must not wait for the device, and must equal the call
+   with the same matrix on the host bit for bit. Then the traffic that
+   route is for, 50 frames whose matrix comes out of device work still in
+   the queue: ms per frame with the matrix left on the card and with it
+   copied to the host first, behind no, 0.4 ms and 2.7 ms of queued work.
 7. lane_shift: K8 at the shapes the JAX package's sheared branch gives it
    for the 1080p 30° warp (s = 1920, ht = 3944, 3 channels).
 8. shear: warp_affine(method="shear") at 1080p RGB, 25° (canvas 3072):
@@ -39,7 +58,8 @@ Phases (any failure raises, so the script exits non-zero):
 9. orb_variants (the third slice): the other describe forms of ORB on the
    480×752 frame with OrbConfig(): describe="unpaired" (K4 windows 2, K3
    brief_sample 1 on (K, 48, 128) windows, fast_harris 8) with descriptors
-   and angles equal to the paired run's; brief="lane_gather" (K5
+   and angles equal to the paired run's and to the index form's;
+   brief="lane_gather" (K5
    lane_gather 4), bit-equal descriptors again; OrbConfig(n_features=2001)
    (an odd budget sum); describe="gather"; the quadtree pipeline (windows
    16, brief_sample 8; keypoints kept per level); harris_at_windows at the
@@ -133,7 +153,10 @@ def card() -> str:
 
 
 def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms (CUDA events around each call)."""
+    """The call time of ``fn`` in ms: what one caller waits for one call
+    (CUDA events around each single call, median). For a kernel of a few
+    microseconds this is the Python wrapper and the launch latency, not
+    the kernel: :func:`device_ms` reads that."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -147,6 +170,124 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
+    """The device time of ``fn`` in ms per call: the summed device time of
+    every kernel and device copy it launches, from torch.profiler over
+    ``reps`` back-to-back calls. It reads a hand kernel, its plain version
+    and a library call alike. Inputs under 50 MB stay in L2 between the
+    calls. ``fn`` must enqueue the same work each call.
+
+    The tracer loses the device records of a trace's first launches (1
+    to 6 of them, on the H100 machine), so a trace opens with calls
+    that are not read: a few milliseconds of them, counted. The host's
+    records of what it enqueued (``cudaLaunchKernel``,
+    ``cudaMemcpyAsync``, ...) must divide evenly among all the calls; the
+    last ``reps`` calls' share of them are the ones read, and each must
+    have its device record (same correlation id). Else the trace is taken
+    again with more calls before and more quiet around it, and the
+    function fails if no trace is complete."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    for pad in (0.005, 0.02, 0.1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            fn()
+            calls = 1
+            until = time.perf_counter() + pad
+            while time.perf_counter() < until:
+                fn()
+                calls += 1
+            for _ in range(reps):
+                fn()
+            calls += reps
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        events = prof.events()
+        enqueued = sorted((e for e in events
+                           if e.device_type == DeviceType.CPU
+                           and e.name.startswith(_ENQUEUES)),
+                          key=lambda e: e.time_range.start)
+        on_device = {e.id: e for e in events
+                     if e.device_type == DeviceType.CUDA}
+        per_call, rest = divmod(len(enqueued), calls)
+        read = enqueued[(calls - reps) * per_call:]
+        TRACE_STATS["traces"] += 1
+        TRACE_STATS["lost"] += len(enqueued) - len(on_device)
+        if per_call and not rest and all(e.id in on_device for e in read):
+            return sum(on_device[e.id].time_range.elapsed_us()
+                       for e in read) / reps / 1e3
+        TRACE_STATS["again"] += 1
+        log(f"device_ms: {len(enqueued)} launches and copies enqueued in "
+            f"{calls} calls, {len(on_device)} device records, "
+            f"{sum(e.id not in on_device for e in read)} of the "
+            f"{len(read)} that are read missing; measuring again")
+    raise AssertionError("device_ms: no profiler trace held every device "
+                         "record of the calls that are read")
+
+
+# the host-side records of work enqueued to the device, by prefix
+_ENQUEUES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
+             "cuMemcpy", "cuMemset")
+# device_ms traces; those that had to be taken again; device records lost
+# in all (of calls that are not read, unless the trace was taken again)
+TRACE_STATS = {"traces": 0, "again": 0, "lost": 0}
+
+
+def host_us(fn, calls: int = 1000, per: int = 1) -> float:
+    """Host microseconds per wrapper call: ``calls`` calls of ``fn`` (each
+    ``per`` wrapper calls) without a synchronise. Where the kernel outlasts
+    its enqueue the launch queue fills and this reads the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e6 / (calls * per)
+
+
+def kernel_times(kernel, plain, library=None, per: int = 1,
+                 parts=None) -> dict:
+    """Device and call times of a kernel wrapper, its plain version and
+    its library call; ``ms`` and ``library_ms`` are the call times under
+    the names the earlier rows used. ``parts``: the single wrapper calls
+    of ``kernel`` where it makes several on unlike inputs; their device
+    times are read one by one and summed."""
+    row = {"device_ms": sum(device_ms(f) for f in parts or [kernel]),
+           "call_ms": cuda_ms(kernel),
+           "host_us": host_us(kernel, per=per),
+           "plain_device_ms": device_ms(plain), "plain_ms": cuda_ms(plain),
+           "library_device_ms": None, "library_call_ms": None}
+    if library is not None:
+        row["library_device_ms"] = device_ms(library)
+        row["library_call_ms"] = cuda_ms(library)
+    row["ms"] = row["call_ms"]
+    row["library_ms"] = row["library_call_ms"]
+    return row
+
+
+def fmt_times(row: dict, library: str = "library") -> str:
+    text = (f"kernel device {row['device_ms']:.4f} ms / call "
+            f"{row['call_ms']:.4f} ms (host {row['host_us']:.1f} us per "
+            f"call), plain device {row['plain_device_ms']:.4f} / call "
+            f"{row['plain_ms']:.4f} ms")
+    if row["library_call_ms"] is None:
+        return text + f", {library} none"
+    return (text + f", {library} device {row['library_device_ms']:.4f} / "
+            f"call {row['library_call_ms']:.4f} ms")
+
+
+TIME_KEYS = ("device_ms", "call_ms", "host_us", "ms", "plain_ms",
+             "plain_device_ms", "library_device_ms", "library_call_ms",
+             "library_ms")
 
 
 # --------------------------------------------------------------------------
@@ -341,25 +482,98 @@ def bound(nbytes, ops=0):
 
 
 class Record:
-    """Record the arguments of every call of one kernel wrapper while
-    the block runs (the calls themselves go through)."""
+    """Record the arguments of every call of one function of ``mod`` (a
+    kernel wrapper of cuda_kernels by default) while the block runs; the
+    calls themselves go through."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, mod=ck):
         self.name = name
+        self.mod = mod
         self.calls = []
 
     def __enter__(self):
-        self.orig = getattr(ck, self.name)
+        self.orig = getattr(self.mod, self.name)
 
         def rec(*args, **kwargs):
             self.calls.append((args, kwargs))
             return self.orig(*args, **kwargs)
 
-        setattr(ck, self.name, rec)
+        setattr(self.mod, self.name, rec)
         return self
 
     def __exit__(self, *exc):
-        setattr(ck, self.name, self.orig)
+        setattr(self.mod, self.name, self.orig)
+
+
+def brief_index_form(windows, angle, seed=7, pattern="rublee2011",
+                     brief="sample"):
+    """BRIEF bits by the index form that ``brief_rotated`` replaced on the
+    path: ``_brief_tap_coords`` (about twenty PyTorch ops), the
+    ``brief_sample`` kernel on (K, T) int32 rows and cols, and the compare.
+    (K/2, 40, 128) windows are the paired layout, (K, 48, 128) the
+    unpaired one. Returns (bits, samples)."""
+    k = angle.shape[0]
+    if windows.shape[1] == ck.PAIR_WIN_H:
+        rows, cols = orb._brief_tap_coords(angle, seed, pattern, half_w=32)
+        rows = rows.reshape(k // 2, 1024).contiguous()
+        lane = torch.tensor([0, 64], dtype=torch.int32, device=angle.device)
+        cols = (cols.reshape(k // 2, 2, 512)
+                + lane[None, :, None]).reshape(k // 2, 1024).contiguous()
+    else:
+        rows, cols = orb._brief_tap_coords(angle, seed, pattern)
+        rows, cols = rows.contiguous(), cols.contiguous()
+    s = ck.brief_sample(windows.contiguous(), rows, cols).reshape(k, 512)
+    return (s[:, :256] < s[:, 256:]).to(torch.uint8), s
+
+
+class IndexFormBrief:
+    """While the block runs, ORB describes through :func:`brief_index_form`
+    (the path before ``brief_rotated``), for a before/after stage time in
+    one run."""
+
+    def __enter__(self):
+        self.saved = (orb.brief_from_windows_paired, orb.brief_from_windows)
+        orb.brief_from_windows_paired = \
+            lambda *a, **kw: brief_index_form(*a, **kw)[0]
+        orb.brief_from_windows = \
+            lambda *a, **kw: brief_index_form(*a, **kw)[0]
+
+    def __exit__(self, *exc):
+        orb.brief_from_windows_paired, orb.brief_from_windows = self.saved
+
+
+def check_brief_calls(calls, label):
+    """Every recorded ``brief_from_windows(_paired)`` call: the path's
+    bits (through ``brief_rotated``) equal the index form's on the same
+    windows and angles, and kernel and plain version agree in bits and
+    samples. Returns the number of descriptor bits compared."""
+    n = 0
+    for args, kwargs in calls:
+        if kwargs.get("brief", "sample") != "sample" or \
+                (len(args) > 4 and args[4] != "sample"):
+            continue
+        windows, angle = args[0].contiguous(), args[1]
+        seed = args[2] if len(args) > 2 else kwargs.get("seed", 7)
+        pattern = args[3] if len(args) > 3 else kwargs.get("pattern",
+                                                           "rublee2011")
+        layout = ("paired" if windows.shape[1] == ck.PAIR_WIN_H
+                  else "unpaired")
+        rot = (windows, torch.cos(angle), torch.sin(angle),
+               orb._pattern_on(pattern, seed, angle.device), layout)
+        bits = ck.brief_rotated(*rot)
+        samples = ck.brief_rotated(*rot, out="samples")
+        old_bits, old_samples = brief_index_form(windows, angle, seed,
+                                                 pattern)
+        if not (torch.equal(bits, old_bits)
+                and torch.equal(samples, old_samples)
+                and torch.equal(bits, ck._brief_rotated_plain(*rot))
+                and torch.equal(samples, ck._brief_rotated_plain(
+                    *rot, out="samples"))):
+            raise AssertionError(f"brief_rotated ({label}, {layout}, "
+                                 f"{tuple(windows.shape)}) differs from the "
+                                 "index form or its plain version")
+        n += bits.numel()
+    return n
 
 
 def counted(fn):
@@ -424,8 +638,6 @@ def remap_case(args, kwargs):
     nbytes = (int(touched.sum()) * c * esize + k_out.numel() * esize
               + (sx.numel() * 8 if form == "data" else 0))
     bms, by = bound(nbytes)
-    ms = cuda_ms(lambda: ck.remap(*args, **kwargs))
-    plain = cuda_ms(lambda: ck._remap_plain(*args, **kwargs))
     lib_in = img.permute(2, 0, 1)[None].float().contiguous()
     grid = _grid(sx, sy, h, w)
     pad = "border" if kwargs.get("border") else "zeros"
@@ -435,10 +647,32 @@ def remap_case(args, kwargs):
         return torch.nn.functional.grid_sample(
             lib_in, grid, mode=mode, padding_mode=pad, align_corners=True)
 
+    def lib_whole():
+        """grid_sample as a caller with an HWC image would run it: to f32
+        NCHW, sample, back to HWC in the image's type."""
+        o = torch.nn.functional.grid_sample(
+            img.permute(2, 0, 1)[None].float(), grid, mode=mode,
+            padding_mode=pad, align_corners=True)[0].permute(1, 2, 0)
+        if img.dtype == torch.uint8:
+            return o.round().clamp(0, 255).to(torch.uint8)
+        return o.contiguous()
+
     lib_dev = float((lib()[0].permute(1, 2, 0) - p_out.float()).abs().mean())
-    return {"launches": 1, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "library_ms": cuda_ms(lib), "bound_ms": bms, "bound_by": by,
-            "bytes": nbytes, "library_mean_abs_dev": lib_dev}
+    row = {"launches": 1, "max_abs_err": err, "bound_ms": bms,
+           "bound_by": by, "bytes": nbytes, "library_mean_abs_dev": lib_dev,
+           "library_whole_device_ms": device_ms(lib_whole),
+           "library_whole_call_ms": cuda_ms(lib_whole)}
+    row.update(kernel_times(lambda: ck.remap(*args, **kwargs),
+                            lambda: ck._remap_plain(*args, **kwargs), lib))
+    return row
+
+
+def fmt_remap(row: dict) -> str:
+    return (f"{fmt_times(row, 'grid_sample on ready f32 NCHW')} (mean |dev| "
+            f"{row['library_mean_abs_dev']:.4f}; with the conversion from "
+            f"and to HWC device {row['library_whole_device_ms']:.4f} / call "
+            f"{row['library_whole_call_ms']:.4f} ms), bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}, {row['bytes']} B)")
 
 
 def phase_rectify(card_line):
@@ -491,11 +725,7 @@ def phase_rectify(card_line):
     row["max_abs_err"] = max(c["max_abs_err"] for c in cases)
     row["launches"] = launches["remap"]
     log(f"K7 remap on the rectify path ({H}x{W} u8, data maps): bit-equal "
-        f"on both views; kernel {row['ms']:.4f} ms, plain "
-        f"{row['plain_ms']:.4f} ms, grid_sample {row['library_ms']:.4f} ms "
-        f"(mean |dev| {row['library_mean_abs_dev']:.4f}), bound "
-        f"{row['bound_ms']:.5f} ms ({row['bound_by']}, {row['bytes']} B) "
-        f"[{card_line}]")
+        f"on both views; {fmt_remap(row)} [{card_line}]")
 
     def stage(name, fn):
         log(f"stage {name}: {cuda_ms(fn):.3f} ms [{card_line}]")
@@ -541,6 +771,95 @@ def phase_warp(card_line):
           lambda mode=mode, pad=pad: interpolation.remap(
               x, mx, my, mode=mode, padding_mode=pad, device=DEV))
          for mode in ("bilinear", "nearest") for pad in ("zeros", "border")]
+    # a matrix made on the card: the entry point must not wait for the
+    # device (the inverse map is computed there and the kernel reads the
+    # coefficients from device memory); the same matrix from the host
+    # goes by value
+    m_card = warp.get_rotation_matrix2d(ctr, 10.0, 1.0, device=DEV)
+    m_host = m_card.cpu()
+    c_card = warp_exact.affine_coefs(m_card)
+    if not (c_card.is_cuda and torch.equal(
+            c_card.cpu(), warp_exact.affine_coefs(m_host))):
+        raise AssertionError("affine coefficients computed on the card "
+                             "differ from the host's")
+
+    def from_card():
+        return warp.warp_affine(x, m_card, HW_1080P, device=DEV)
+
+    def from_host():
+        return warp.warp_affine(x, m_host, HW_1080P, device=DEV)
+
+    from_card()                                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out_card, launches = counted(from_card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    only(launches, {"remap": 1})
+    if not torch.equal(out_card, from_host()):
+        raise AssertionError("warp_affine with a card-made matrix differs "
+                             "from the host-matrix call")
+    def by_copy():
+        """The route before: the card's matrix copied to the host (which
+        waits for the device), inverted there."""
+        return warp.warp_affine(x, m_card.cpu(), HW_1080P, device=DEV)
+
+    log(f"warp_affine rot10 with a matrix made on the card ran under "
+        f"torch.cuda.set_sync_debug_mode('error'): no wait for the device, "
+        f"coefficients and image bit-equal to the host-matrix call; entry "
+        f"point call {cuda_ms(from_card):.4f} ms (host "
+        f"{host_us(from_card):.1f} us); the same matrix first copied to "
+        f"the host, as before: {cuda_ms(by_copy):.4f} ms (host "
+        f"{host_us(by_copy):.1f} us); a matrix that is on the host already: "
+        f"{cuda_ms(from_host):.4f} ms (host {host_us(from_host):.1f} us) "
+        f"[{card_line}]")
+    # the traffic the card route is for: frame after frame, a matrix that
+    # comes out of device work still in the queue (a tracker's estimate).
+    # The copy route waits for that work on every frame, the card route
+    # lets the host run ahead.
+    for size in (0, 2048, 4096):
+        a = torch.randn(max(size, 1), max(size, 1), device=DEV)
+        work_ms = cuda_ms(lambda: a @ a) if size else 0.0
+
+        def frames(route, n=50):
+            for _ in range(n):
+                m = m_card + (a @ a)[0, 0] * 0.0 if size else m_card
+                out = route(m)
+            return out
+
+        def per_frame(route):
+            frames(route, 5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = frames(route)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / 50, out
+
+        on_card, o1 = per_frame(
+            lambda m: warp.warp_affine(x, m, HW_1080P, device=DEV))
+        copied, o2 = per_frame(
+            lambda m: warp.warp_affine(x, m.cpu(), HW_1080P, device=DEV))
+        if not (torch.equal(o1, out_card) and torch.equal(o2, out_card)):
+            raise AssertionError("pipelined warp_affine differs")
+        log(f"warp_affine pipeline, 50 frames, {work_ms:.3f} ms of queued "
+            f"device work ({size}x{size} f32 product) before each matrix: "
+            f"matrix left on the card {on_card:.4f} ms per frame, copied "
+            f"to the host first {copied:.4f} ms per frame [{card_line}]")
+    hom_card = torch.as_tensor(hom, device=DEV)
+    c_h = torch.linalg.inv(torch.as_tensor(hom)).reshape(9)
+    c_c = torch.linalg.inv_ex(hom_card).inverse.reshape(9).cpu()
+    ulp = int((c_c.view(torch.int32) - c_h.view(torch.int32)).abs().max())
+    if not torch.equal(
+            warp.warp_perspective(x, hom_card, HW_1080P, device=DEV),
+            ck._remap_plain(x, HW_1080P, "persp", coefs=c_c.to(DEV))):
+        raise AssertionError("warp_perspective with a card-made homography "
+                             "differs from the plain version on its own "
+                             "coefficients")
+    log(f"warp_perspective with the homography on the card: inverse on the "
+        f"card at most {ulp} ULP from the host's in the nine coefficients; "
+        f"bit-equal to the plain version on the same coefficients")
+
     rows = []
     for name, fn in cases:
         out, launches = counted(fn)
@@ -552,12 +871,8 @@ def phase_warp(card_line):
         row = remap_case(*rec.calls[0])
         row["case"] = name
         stage_ms = cuda_ms(fn)
-        log(f"K7 {name} ({hh}x{ww}x3 u8): launches 1, bit-equal; kernel "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"grid_sample {row['library_ms']:.4f} ms (mean |dev| "
-            f"{row['library_mean_abs_dev']:.4f}), bound "
-            f"{row['bound_ms']:.5f} ms ({row['bound_by']}, {row['bytes']} B);"
-            f" entry point {stage_ms:.4f} ms [{card_line}]")
+        log(f"K7 {name} ({hh}x{ww}x3 u8): launches 1, bit-equal; "
+            f"{fmt_remap(row)}; entry point {stage_ms:.4f} ms [{card_line}]")
         rows.append(row)
     return rows
 
@@ -600,8 +915,6 @@ def phase_lane_shift(card_line):
                              f"{err}, {tuple(out.shape)}")
     nbytes = src.numel() * 4 + shift.numel() * 4 + out.numel() * 4
     bms, by = bound(nbytes)
-    ms = cuda_ms(lambda: ck.lane_shift(src, shift, ht))
-    pms = cuda_ms(lambda: ck._lane_shift_plain(src, shift, ht))
     j = torch.arange(ht, dtype=torch.float32, device=DEV)
     r = torch.arange(s, dtype=torch.float32, device=DEV)
     grid = _grid(j[None, :] - shift.float()[:, None],
@@ -614,15 +927,16 @@ def phase_lane_shift(card_line):
             align_corners=True)
 
     dev = float((lib()[0] - plain).abs().mean())
-    lms = cuda_ms(lib)
+    row = {"launches": launches["lane_shift"], "max_abs_err": err,
+           "bound_ms": bms, "bound_by": by}
+    row.update(kernel_times(lambda: ck.lane_shift(src, shift, ht),
+                            lambda: ck._lane_shift_plain(src, shift, ht),
+                            lib))
     log(f"K8 lane_shift (3 x {s} x {s} f32 -> 3 x {s} x {ht}, shifts "
         f"{int(shift.min())}..{int(shift.max())}): launches 1, bit-equal; "
-        f"kernel {ms:.4f} ms, plain {pms:.4f} ms, grid_sample nearest "
-        f"{lms:.4f} ms (mean |dev| {dev:.4f}), bound {bms:.5f} ms ({by}, "
-        f"{nbytes} B) [{card_line}]")
-    return {"launches": launches["lane_shift"], "max_abs_err": err,
-            "ms": ms, "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
-            "bound_by": by}
+        f"{fmt_times(row, 'grid_sample nearest')} (mean |dev| {dev:.4f}), "
+        f"bound {bms:.5f} ms ({by}, {nbytes} B) [{card_line}]")
+    return row
 
 
 def phase_shear(card_line):
@@ -654,8 +968,6 @@ def phase_shear(card_line):
     b, c, _ = canvas.shape
     nbytes = canvas.numel() * 4 * 2 + shifts.numel() * 4
     bms, by = bound(nbytes)
-    ms = cuda_ms(lambda: ck.shear_x(canvas, shifts))
-    pms = cuda_ms(lambda: ck._shear_x_plain(canvas, shifts))
     xs = torch.arange(c, dtype=torch.float32, device=DEV)
     grid = _grid(xs[None, :] + shifts[:, None], xs[:, None].expand(c, c),
                  c, c)
@@ -666,20 +978,21 @@ def phase_shear(card_line):
             lib_in, grid.expand(lib_in.shape[0], c, c, 2), mode="bilinear",
             padding_mode="zeros", align_corners=True)
 
-    lms = cuda_ms(lib)
+    row = {"launches": launches["shear_x"], "max_abs_err": err,
+           "bound_ms": bms, "bound_by": by}
+    row.update(kernel_times(lambda: ck.shear_x(canvas, shifts),
+                            lambda: ck._shear_x_plain(canvas, shifts), lib))
     exact = warp.warp_affine(x, m, HW_1080P, device=DEV)
     inner = (slice(hh // 5, hh - hh // 5), slice(ww // 6, ww - ww // 6))
     dev = (out[inner].float() - exact[inner].float()).abs()
     log(f"K9 shear_x ({b} x {c} x {c} f32 canvas): launches 6 per warp, "
-        f"all 6 inputs bit-equal; one pass: kernel {ms:.4f} ms, plain "
-        f"{pms:.4f} ms, grid_sample {lms:.4f} ms, bound {bms:.5f} ms ({by}, "
+        f"all 6 inputs bit-equal; one pass: "
+        f"{fmt_times(row, 'grid_sample')}, bound {bms:.5f} ms ({by}, "
         f"{nbytes} B) [{card_line}]")
     log(f"shear route vs exact K7 warp at 25 deg (inner region): mean |diff| "
         f"{float(dev.mean()):.3f}, max {float(dev.max()):.0f} of 255; whole "
         f"shear warp {cuda_ms(fn):.3f} ms [{card_line}]")
-    return {"launches": launches["shear_x"], "max_abs_err": err, "ms": ms,
-            "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
-            "bound_by": by}
+    return row
 
 
 # --------------------------------------------------------------------------
@@ -718,16 +1031,14 @@ def windows_case(args, kwargs, card_line, label):
     touched[ri, ci] = True
     nbytes = int(touched.sum()) * 4 + xy.numel() * 4 + got.numel() * 4
     bms, by = bound(nbytes)
-    row = {"case": label, "max_abs_err": err,
-           "ms": cuda_ms(lambda: ck.windows(*args, **kwargs)),
-           "plain_ms": cuda_ms(lambda: ck._windows_plain(*args, **kwargs)),
-           "library_ms": cuda_ms(lambda: src[ri, ci]), "bound_ms": bms,
+    row = {"case": label, "max_abs_err": err, "bound_ms": bms,
            "bound_by": by}
+    row.update(kernel_times(lambda: ck.windows(*args, **kwargs),
+                            lambda: ck._windows_plain(*args, **kwargs),
+                            lambda: src[ri, ci]))
     log(f"K4 windows {label} ({tuple(src.shape)} f32 -> {tuple(got.shape)}):"
-        f" bit-equal; kernel {row['ms']:.4f} ms, plain "
-        f"{row['plain_ms']:.4f} ms, advanced indexing "
-        f"{row['library_ms']:.4f} ms, bound {bms:.5f} ms ({by}, {nbytes} B) "
-        f"[{card_line}]")
+        f" bit-equal; {fmt_times(row, 'advanced indexing')}, bound "
+        f"{bms:.5f} ms ({by}, {nbytes} B) [{card_line}]")
     return row
 
 
@@ -741,7 +1052,8 @@ def phase_orb_variants(card_line, img1):
         return orb.orb_detect_and_describe(frame, cfg, device=DEV, **kw)
 
     paired = run()
-    unp, n_unp = counted(lambda: run(describe="unpaired"))
+    with Record("brief_from_windows", orb) as rec_desc:
+        unp, n_unp = counted(lambda: run(describe="unpaired"))
     log(f"orb unpaired launches: {n_unp}")
     only(n_unp, {"fast_harris": 8, "windows": 2, "brief_sample": 1})
     for name in ("xy", "mask", "angle", "descriptors"):
@@ -767,10 +1079,19 @@ def phase_orb_variants(card_line, img1):
         f"{int(paired.mask.sum()) * 256} bits differ from the window forms "
         "(angles from gathered patches, another summation order)")
 
-    quad, n_quad = counted(lambda: orb.orb_detect_and_describe_quadtree(
-        frame, cfg, device=DEV))
+    with rec_desc:
+        quad, n_quad = counted(lambda: orb.orb_detect_and_describe_quadtree(
+            frame, cfg, device=DEV))
     log(f"orb quadtree launches: {n_quad}")
     only(n_quad, {"windows": 16, "brief_sample": 8})
+    n_bits = check_brief_calls(rec_desc.calls, "unpaired and quadtree")
+    if len(rec_desc.calls) != 9 or n_bits != 2 * cfg.n_features * 256:
+        raise AssertionError("recorded describe calls of the unpaired and "
+                             "quadtree forms")
+    log(f"unpaired and quadtree descriptors: {n_bits} bits over 9 "
+        f"brief_rotated calls (level budgets "
+        f"{sorted({int(a[1].shape[0]) for a, _ in rec_desc.calls})}) equal "
+        f"the index form's on the same windows and angles")
     kept = [int(quad.mask[quad.octave == i].sum())
             for i in range(cfg.n_levels)]
     log(f"orb quadtree: keypoints kept per level {kept} of budgets "
@@ -797,7 +1118,7 @@ def phase_orb_variants(card_line, img1):
                              "map")
 
     # the kernels on the very inputs of the unpaired path
-    with Record("windows") as rec_w, Record("brief_sample") as rec_b, \
+    with Record("windows") as rec_w, Record("brief_rotated") as rec_b, \
             Record("lane_gather") as rec_l:
         run(describe="unpaired")
         run(brief="lane_gather")
@@ -807,15 +1128,40 @@ def phase_orb_variants(card_line, img1):
     cases = [windows_case(a, kw, card_line, f"orb {what} canvas")
              for (a, kw), what in zip(rec_w.calls[:2], ("gray", "blurred"))]
     a, kw = rec_b.calls[0]
-    if not torch.equal(ck.brief_sample(*a, **kw),
-                       ck._brief_sample_plain(*a, **kw)):
-        raise AssertionError("brief_sample on (K, 48, 128) windows differs "
+    if not torch.equal(ck.brief_rotated(*a, **kw),
+                       ck._brief_rotated_plain(*a, **kw)):
+        raise AssertionError("brief_rotated on (K, 48, 128) windows differs "
                              "from its plain version")
-    log(f"K3 brief_sample on {tuple(a[0].shape)} windows, "
-        f"{a[1].shape[1]} taps: bit-equal; kernel "
-        f"{cuda_ms(lambda: ck.brief_sample(*a, **kw)):.4f} ms, plain "
-        f"{cuda_ms(lambda: ck._brief_sample_plain(*a, **kw)):.4f} ms "
-        f"[{card_line}]")
+    ang_u = unp.angle
+    _, s_u = brief_index_form(a[0], ang_u)
+    flat_u = a[0].reshape(a[0].shape[0], -1)
+    rows_u, cols_u = orb._brief_tap_coords(ang_u, cfg.pattern_seed,
+                                           cfg.pattern)
+    idx_u = rows_u.long() * 128 + cols_u.long()
+    if not torch.equal(torch.gather(flat_u, 1, idx_u), s_u):
+        raise AssertionError("K3 library gather disagrees (unpaired)")
+    k3u = kernel_times(lambda: ck.brief_rotated(*a, **kw),
+                       lambda: ck._brief_rotated_plain(*a, **kw),
+                       lambda: torch.gather(flat_u, 1, idx_u))
+    # the window values the taps touch, each once; cos, sin, pattern, bits
+    uniq_u = torch.unique(idx_u + torch.arange(
+        idx_u.shape[0], device=DEV)[:, None] * (48 * 128)).numel()
+    rest = ang_u.numel() * 8 + 256 * 16 + ang_u.numel() * 256
+    bms, by = bound(uniq_u * 4 + rest)
+    staged_ms = bound(a[0].numel() * 4 + rest)[0]
+    k3u.update({"case": "brief_rotated, unpaired, 2000 x (48, 128) windows",
+                "max_abs_err": 0.0, "bound_ms": bms, "bound_by": by,
+                "staged_ms": staged_ms})
+    chain_dev = device_ms(lambda: brief_index_form(a[0], ang_u))
+    chain_call = cuda_ms(lambda: brief_index_form(a[0], ang_u))
+    log(f"K3 brief_rotated on {tuple(a[0].shape)} windows (unpaired): "
+        f"bit-equal; "
+        f"{fmt_times(k3u, 'torch.gather (int64 indices ready)')}, bound "
+        f"{bms:.5f} ms ({by}, the {uniq_u} window values the taps touch; "
+        f"every window staged whole: {staged_ms:.5f} ms); the index-form "
+        f"chain (_brief_tap_coords + "
+        f"brief_sample + compare) device {chain_dev:.4f} ms / call "
+        f"{chain_call:.4f} ms [{card_line}]")
     k4 = dict(cases[0])
     k4["cases"] = cases
     k4["paths"] = {"orb unpaired": n_unp["windows"],
@@ -837,15 +1183,14 @@ def phase_orb_variants(card_line, img1):
     nbytes = src.numel() * 4 * 3
     bms, by = bound(nbytes)
     k5 = {"launches": n_lg["lane_gather"], "max_abs_err": err,
-          "ms": cuda_ms(lambda: ck.lane_gather(src, idx)),
-          "plain_ms": cuda_ms(lambda: ck._lane_gather_plain(src, idx)),
-          "library_ms": cuda_ms(lambda: torch.gather(src, 1, idx64)),
           "bound_ms": bms, "bound_by": by}
+    k5.update(kernel_times(lambda: ck.lane_gather(src, idx),
+                           lambda: ck._lane_gather_plain(src, idx),
+                           lambda: torch.gather(src, 1, idx64)))
     log(f"K5 lane_gather ({tuple(src.shape)} f32 + i32 idx): launches 4 per "
-        f"describe, all 4 bit-equal; kernel {k5['ms']:.4f} ms, plain "
-        f"{k5['plain_ms']:.4f} ms, torch.gather (int64 indices ready) "
-        f"{k5['library_ms']:.4f} ms, bound {bms:.5f} ms ({by}, {nbytes} B) "
-        f"[{card_line}]")
+        f"describe, all 4 bit-equal; "
+        f"{fmt_times(k5, 'torch.gather (int64 indices ready)')}, bound "
+        f"{bms:.5f} ms ({by}, {nbytes} B) [{card_line}]")
 
     def stage(name, fn):
         log(f"stage {name}: {cuda_ms(fn):.3f} ms [{card_line}]")
@@ -860,7 +1205,7 @@ def phase_orb_variants(card_line, img1):
                                                        device=DEV))
     stage("harris_at_windows (level-0 keypoints)",
           lambda: responses.harris_at_windows(gray_f, xy0))
-    return k4, k5, paired
+    return k4, k5, k3u, paired
 
 
 def phase_lk(card_line, img1, feats):
@@ -1005,18 +1350,17 @@ def phase_preprocess(card_line):
     nbytes = (int(touched.sum()) * 3 + out.numel() * 4
               + (yi.size + xi.size) * 8)
     bms, by = bound(nbytes, out.numel() * 11)
-    row = {"max_abs_err": err,
-           "ms": cuda_ms(lambda: ck.fused_preprocess(*args)),
-           "plain_ms": cuda_ms(lambda: ck._fused_preprocess_plain(*args)),
-           "library_ms": cuda_ms(lib_resize), "bound_ms": bms,
-           "bound_by": by}
+    row = {"max_abs_err": err, "bound_ms": bms, "bound_by": by}
+    row.update(kernel_times(lambda: ck.fused_preprocess(*args),
+                            lambda: ck._fused_preprocess_plain(*args),
+                            lib_resize))
     log(f"K6 preprocess ({hh}x{ww}x3 u8 -> 3x640x640 f32, ImageNet "
         f"mean/std): launches 1; bit-equal to the two-tap formula in "
         f"PyTorch ops; vs the plain version (dense f32 matmuls) max |diff| "
-        f"{err:.3e} (largest relative {ulp:.2f} eps); kernel "
-        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-        f"F.interpolate on ready f32 NCHW {row['library_ms']:.4f} ms "
-        f"(with u8->f32, CHW and normalise {cuda_ms(lib_all):.4f} ms; max "
+        f"{err:.3e} (largest relative {ulp:.2f} eps); "
+        f"{fmt_times(row, 'F.interpolate on ready f32 NCHW')} "
+        f"(with u8->f32, CHW and normalise device {device_ms(lib_all):.4f} "
+        f"/ call {cuda_ms(lib_all):.4f} ms; max "
         f"|dev| from plain {lib_dev:.3e}), bound {bms:.5f} ms ({by}, "
         f"{nbytes} B); entry point {cuda_ms(lambda: pre(x)):.4f} ms "
         f"[{card_line}]")
@@ -1163,7 +1507,25 @@ def main():
     if not torch.equal(b_k, b_p):
         raise AssertionError("brief_sample differs from its plain version")
     errs["brief_sample"] = float((b_k - b_p).abs().max())
-    log(f"K3 brief_sample: bit-equal, {tuple(b_k.shape)} taps")
+    log(f"K3 brief_sample (the index form): bit-equal, {tuple(b_k.shape)} "
+        f"taps")
+    rot = (w_k, torch.cos(ang), torch.sin(ang),
+           orb._pattern_on(cfg.pattern, cfg.pattern_seed, DEV), "paired")
+    bits_k = ck.brief_rotated(*rot)
+    samp_k = ck.brief_rotated(*rot, out="samples")
+    bits_p = ck._brief_rotated_plain(*rot)
+    samp_p = ck._brief_rotated_plain(*rot, out="samples")
+    torch.cuda.synchronize()
+    if not (torch.equal(bits_k, bits_p) and torch.equal(samp_k, samp_p)):
+        raise AssertionError("brief_rotated differs from its plain version")
+    if not torch.equal(samp_k, b_k.reshape(k, 512)):
+        raise AssertionError("brief_rotated samples differ from the index "
+                             "form's")
+    errs["brief_rotated"] = max(float((samp_k - samp_p).abs().max()),
+                                max_err(bits_k, bits_p))
+    log(f"K3 brief_rotated: bits {tuple(bits_k.shape)} and samples "
+        f"{tuple(samp_k.shape)} bit-equal to the plain version, samples "
+        f"bit-equal to brief_sample on _brief_tap_coords' indices")
 
     # 3. the slice at full size
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -1171,12 +1533,19 @@ def main():
     torch.cuda.synchronize()
     ck.reset_launch_counts()
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    f1, f2, m, res = run_pair(img1, img2, "cuda", gen)
+    with Record("brief_from_windows_paired", orb) as rec_pair:
+        f1, f2, m, res = run_pair(img1, img2, "cuda", gen)
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
     log(f"launches for the pair: {launches}")
     only(launches, {"fast_harris": 16, "windows_paired": 4,
                     "brief_sample": 2})
+    n_bits = check_brief_calls(rec_pair.calls, "pair")
+    if len(rec_pair.calls) != 2 or n_bits != 2 * cfg.n_features * 256:
+        raise AssertionError("recorded describe calls of the pair")
+    log(f"pair descriptors: both frames' {n_bits} bits through "
+        f"brief_rotated equal the index form's (brief_sample on "
+        f"_brief_tap_coords) on the same windows and angles")
     for f in (f1, f2):
         for name, t in f._asdict().items():
             if t.dtype.is_floating_point and not torch.isfinite(t).all():
@@ -1232,11 +1601,6 @@ def main():
 
     # 4. times
     thr = cfg.fast_threshold_low
-    t_k1 = cuda_ms(lambda: [ck.fast_harris(lv, thr) for lv in levels])
-    t_k1p = cuda_ms(lambda: [ck._fast_harris_plain(lv, thr)
-                             for lv in levels])
-    t_k2 = cuda_ms(lambda: ck.windows_paired(canvas, xy_c, W))
-    t_k2p = cuda_ms(lambda: ck._windows_paired_plain(canvas, xy_c, W))
     hc, wc = canvas.shape
     xy_pad = xy_c.long()
     ri = (xy_pad[:, 1, None] + torch.arange(40, device=DEV)).clamp(max=hc - 1)
@@ -1247,14 +1611,30 @@ def main():
     lib_k2 = canvas[ri2, ci2].reshape(-1, 40, 128)
     if not torch.equal(lib_k2, w_k):
         raise AssertionError("K2 library gather disagrees")
-    t_k2l = cuda_ms(lambda: canvas[ri2, ci2])
-    t_k3 = cuda_ms(lambda: ck.brief_sample(w_k, rows, cols))
-    t_k3p = cuda_ms(lambda: ck._brief_sample_plain(w_k, rows, cols))
     flat_idx = (rows.long() * 128 + cols.long())
     wflat = w_k.reshape(w_k.shape[0], -1)
     if not torch.equal(torch.gather(wflat, 1, flat_idx), b_k):
         raise AssertionError("K3 library gather disagrees")
-    t_k3l = cuda_ms(lambda: torch.gather(wflat, 1, flat_idx))
+    t_k1 = kernel_times(
+        lambda: [ck.fast_harris(lv, thr) for lv in levels],
+        lambda: [ck._fast_harris_plain(lv, thr) for lv in levels],
+        per=len(levels),
+        parts=[lambda lv=lv: ck.fast_harris(lv, thr) for lv in levels])
+    t_k2 = kernel_times(
+        lambda: ck.windows_paired(canvas, xy_c, W),
+        lambda: ck._windows_paired_plain(canvas, xy_c, W),
+        lambda: canvas[ri2, ci2])
+    t_k3i = kernel_times(
+        lambda: ck.brief_sample(w_k, rows, cols),
+        lambda: ck._brief_sample_plain(w_k, rows, cols),
+        lambda: torch.gather(wflat, 1, flat_idx))
+    t_k3 = kernel_times(
+        lambda: ck.brief_rotated(*rot),
+        lambda: ck._brief_rotated_plain(*rot),
+        lambda: torch.gather(wflat, 1, flat_idx))
+    chain_dev = device_ms(lambda: brief_index_form(w_k, ang))
+    chain_call = cuda_ms(lambda: brief_index_form(w_k, ang))
+    trig_dev = device_ms(lambda: (torch.cos(ang), torch.sin(ang)))
 
     # bounds from this run's inputs
     px = sum(a * b for a, b in shapes)
@@ -1271,27 +1651,61 @@ def main():
                 + w_k.numel() * 4)
     uniq = torch.unique(flat_idx + torch.arange(
         flat_idx.shape[0], device=DEV)[:, None] * 5120).numel()
-    k3_bytes = uniq * 4 + rows.numel() * 4 * 2 + b_k.numel() * 4
+    k3i_bytes = uniq * 4 + rows.numel() * 4 * 2 + b_k.numel() * 4
+    # brief_rotated touches the same taps (its samples equal the index
+    # form's): those window values once, cos, sin, the pattern, the bits.
+    # What its design moves, every window staged whole, is reported apart.
+    k3_bytes = uniq * 4 + ang.numel() * 8 + 256 * 16 + bits_k.numel()
+    k3_staged = (w_k.numel() * 4 + ang.numel() * 8 + 256 * 16
+                 + bits_k.numel())
 
     rows_out = []
-    for name, ms, plain, lib, (bms, by) in (
-            ("fast_harris", t_k1, t_k1p, None, bound(k1_bytes, k1_ops)),
-            ("windows_paired", t_k2, t_k2p, t_k2l, bound(k2_bytes)),
-            ("brief_sample", t_k3, t_k3p, t_k3l, bound(k3_bytes))):
+    for name, times, (bms, by) in (
+            ("fast_harris", t_k1, bound(k1_bytes, k1_ops)),
+            ("windows_paired", t_k2, bound(k2_bytes)),
+            ("brief_sample", t_k3, bound(k3_bytes))):
         src, rep = KERNELS[name]
         rows_out.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name], "max_abs_err": errs[name],
-            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib})
-        log(f"time {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"library {lib if lib is None else f'{lib:.4f} ms'}, bound "
-            f"{bms:.4f} ms ({by}) [{card_line}]")
+            "bound_ms": bms, "bound_by": by, **times})
+        log(f"time {name}: {fmt_times(times)}, bound {bms:.5f} ms ({by}) "
+            f"[{card_line}]")
+    k3 = rows_out[-1]
+    k3["max_abs_err"] = max(errs["brief_sample"], errs["brief_rotated"])
+    k3["entries"] = {"brief_rotated": errs["brief_rotated"],
+                     "brief_sample": errs["brief_sample"]}
+    bms, by = bound(k3i_bytes)
+    k3["cases"] = [
+        {"case": "brief_rotated, paired, 1000 x (40, 128) windows",
+         "max_abs_err": errs["brief_rotated"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "staged_ms": bound(k3_staged)[0],
+         **t_k3},
+        {"case": "brief_sample (index form), 1000 x 1024 taps",
+         "max_abs_err": errs["brief_sample"], "bound_ms": bms,
+         "bound_by": by, **t_k3i}]
+    log(f"  brief_sample's row is its brief_rotated entry: bound from "
+        f"{k3_bytes} B (the {uniq} window values the taps touch, cos, sin, "
+        f"pattern, bits); the design stages every window whole, {k3_staged} "
+        f"B = {bound(k3_staged)[0]:.5f} ms at the memory rate")
+    log(f"time brief_sample, the index form alone (ready int32 rows and "
+        f"cols): {fmt_times(t_k3i, 'torch.gather (int64 indices ready)')}, "
+        f"bound {bms:.5f} ms ({by}) [{card_line}]")
+    log(f"time BRIEF chain before (_brief_tap_coords + brief_sample + "
+        f"compare, 2000 keypoints paired): device {chain_dev:.4f} ms / call "
+        f"{chain_call:.4f} ms; after: torch.cos + torch.sin device "
+        f"{trig_dev:.4f} ms, brief_rotated device {t_k3['device_ms']:.4f} "
+        f"ms / call {t_k3['call_ms']:.4f} ms [{card_line}]")
     log("  (fast_harris times and bound cover the 8 levels of one frame; "
-        "windows_paired and brief_sample one call at 2000 keypoints)")
+        "windows_paired and brief_sample (its brief_rotated entry, which "
+        "the path runs) one call at 2000 keypoints; the library call of "
+        "brief_sample is torch.gather on ready int64 indices, which "
+        "computes less; every "
+        "input is under 50 MB, so repeated calls find it in L2, as the real "
+        "callers find the windows just written and the frame just uploaded)")
 
-    def stage(name, fn):
-        ms = cuda_ms(fn)
+    def stage(name, fn, reps=REPS):
+        ms = cuda_ms(fn, reps=reps)
         log(f"stage {name}: {ms:.3f} ms [{card_line}]")
         return ms
 
@@ -1310,9 +1724,23 @@ def main():
             orb._extract_windows_packed_paired(blurs, xy_ints), a,
             cfg.pattern_seed, cfg.pattern)
 
-    stage("describe (1 frame)", describe)
-    stage("orb_detect_and_describe (1 frame)",
-          lambda: orb.orb_detect_and_describe(img1, cfg, device="cuda"))
+    def one_frame():
+        return orb.orb_detect_and_describe(img1, cfg, device="cuda")
+
+    # before / after in turns, so that both see the same machine
+    with IndexFormBrief():
+        stage("describe (1 frame), BRIEF by the index form", describe, 100)
+    stage("describe (1 frame)", describe, 100)
+    stage("describe (1 frame)", describe, 100)
+    with IndexFormBrief():
+        stage("describe (1 frame), BRIEF by the index form", describe, 100)
+        stage("orb_detect_and_describe (1 frame), BRIEF by the index form",
+              one_frame)
+    stage("orb_detect_and_describe (1 frame)", one_frame)
+    stage("orb_detect_and_describe (1 frame)", one_frame)
+    with IndexFormBrief():
+        stage("orb_detect_and_describe (1 frame), BRIEF by the index form",
+              one_frame)
     stage("match_descriptors", lambda: matching.match_descriptors(
         f1.descriptors, f2.descriptors, a_mask=f1.mask, b_mask=f2.mask,
         max_distance=64, ratio=0.8, device="cuda"))
@@ -1336,7 +1764,10 @@ def main():
     k9 = phase_shear(card_line)
 
     # 9-11. the third slice
-    k4, k5, feats = phase_orb_variants(card_line, img1)
+    k4, k5, k3u, feats = phase_orb_variants(card_line, img1)
+    k3["cases"].append({k: k3u[k] for k in ("case", "max_abs_err", "bound_ms",
+                                            "bound_by", "staged_ms")
+                        + TIME_KEYS})
     lk_cases, lk_paths, lk_remaps = phase_lk(card_line, img1, feats)
     k4["cases"] += lk_cases
     k4["paths"].update(lk_paths)
@@ -1345,8 +1776,7 @@ def main():
     k7["paths"] = {"rectify": k7["launches"], **lk_remaps}
     k7["launches"] = sum(k7["paths"].values())
     k6 = phase_preprocess(card_line)
-    keep = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+    keep = ("launches", "max_abs_err", "bound_ms", "bound_by") + TIME_KEYS
     for name, row in (("windows", k4), ("lane_gather", k5),
                       ("preprocess", k6), ("remap", k7), ("lane_shift", k8),
                       ("shear_x", k9)):
@@ -1367,6 +1797,11 @@ def main():
                                  f"{row['launches']}, max_abs_err "
                                  f"{row['max_abs_err']}")
 
+    log(f"device times: {TRACE_STATS['traces']} profiler traces, "
+        f"{TRACE_STATS['again']} of them taken again; the tracer lost "
+        f"{TRACE_STATS['lost']} device records, none of them of a call "
+        f"that a kept trace reads; every time taken has the "
+        f"device record of each launch and copy of its {REPS} calls")
     log(json.dumps({"kernels": rows_out}))
     log(card_line)
     print(json.dumps({"ok": True, "device": {

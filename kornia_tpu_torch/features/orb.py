@@ -10,12 +10,15 @@ picks them by environment variable and backend):
 * ``"paired"`` (the default for an even budget sum): all levels in one
   edge-replicated canvas, keypoints 2i and 2i+1 share one (40, 128) window
   (``cuda_kernels.windows_paired``), intensity-centroid orientation on
-  those windows, 1024 BRIEF taps per window (``cuda_kernels.brief_sample``);
+  those windows, then ``cuda_kernels.brief_rotated``: one kernel that
+  rotates the pattern by each keypoint's (cos, sin), samples the window's
+  1024 taps and compares, windows in, descriptor bits out;
 * ``"unpaired"`` (odd budget sums): one (48, 128) window per keypoint from
   the same kind of canvas (``cuda_kernels.windows``); BRIEF either by
-  ``brief="sample"`` (``cuda_kernels.brief_sample``, 512 taps per window) or
-  by ``brief="lane_gather"`` (four ``cuda_kernels.lane_gather`` passes and a
-  one-hot row reduction);
+  ``brief="sample"`` (``cuda_kernels.brief_rotated`` on the 48-row layout,
+  512 taps per window) or by ``brief="lane_gather"`` (tap coordinates in
+  PyTorch ops, four ``cuda_kernels.lane_gather`` passes and a one-hot row
+  reduction);
 * ``"gather"``: per-level patch gathers in plain PyTorch, no windows.
 
 :func:`orb_detect_and_describe_quadtree` distributes keypoints with the
@@ -78,6 +81,14 @@ def _resolve_pattern(pattern: str, seed: int) -> np.ndarray:
     if pattern == "seeded":
         return brief_pattern(seed)
     raise ValueError(f"unknown BRIEF pattern {pattern!r}")
+
+
+@functools.lru_cache(maxsize=None)
+def _pattern_on(pattern: str, seed: int, device) -> torch.Tensor:
+    """The (256, 4) int32 pattern on ``device`` (a torch.device or its
+    name), uploaded once per (pattern, seed, device)."""
+    return torch.from_numpy(_resolve_pattern(pattern, seed)).to(
+        device).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -251,7 +262,7 @@ def _brief_tap_coords(angle: torch.Tensor, seed: int, pattern: str,
     the 40-row paired layout. The row clip at 40 is active only for a
     seeded pattern tap at ±20 rows, where the two layouts differ as they do
     in the reference."""
-    pat = torch.from_numpy(_resolve_pattern(pattern, seed)).to(angle.device)
+    pat = _pattern_on(pattern, seed, angle.device)
     ca, sa = torch.cos(angle), torch.sin(angle)
     px = torch.cat([pat[:, 0], pat[:, 2]]).to(torch.float32)
     py = torch.cat([pat[:, 1], pat[:, 3]]).to(torch.float32)
@@ -273,15 +284,11 @@ def brief_from_windows_paired(windows: torch.Tensor, angle: torch.Tensor,
                               pattern: str = "rublee2011") -> torch.Tensor:
     """Rotated BRIEF-256 (K, 256) u8 bits from paired (K/2, 40, 128)
     blurred windows and (K,) angles: each window's 1024 taps (keypoint
-    2i's 512 at lane base 32, 2i+1's at 96) in one sampling pass."""
-    k = angle.shape[0]
-    rows, cols = _brief_tap_coords(angle, seed, pattern, half_w=32)
-    rows = rows.reshape(k // 2, 1024).contiguous()
-    lane = torch.tensor([0, 64], dtype=torch.int32, device=angle.device)
-    cols = (cols.reshape(k // 2, 2, 512) + lane[None, :, None]).reshape(
-        k // 2, 1024).contiguous()
-    s = ck.brief_sample(windows, rows, cols).reshape(k, 512)
-    return (s[:, :256] < s[:, 256:]).to(torch.uint8)
+    2i's 512 about lane 32, 2i+1's about lane 96) rotated, sampled and
+    compared in one ``cuda_kernels.brief_rotated`` pass."""
+    return ck.brief_rotated(
+        windows.contiguous(), torch.cos(angle), torch.sin(angle),
+        _pattern_on(pattern, seed, angle.device), "paired")
 
 
 def brief_from_windows(windows: torch.Tensor, angle: torch.Tensor,
@@ -289,31 +296,32 @@ def brief_from_windows(windows: torch.Tensor, angle: torch.Tensor,
                        brief: str = "sample") -> torch.Tensor:
     """Rotated BRIEF-256 (K, 256) u8 bits from (K, 48, 128) blurred windows.
 
-    ``brief="sample"``: one sampling pass over the 512 taps of each window.
+    ``brief="sample"``: one ``cuda_kernels.brief_rotated`` pass (rotation,
+    the 512 taps of each window, the compare).
     ``brief="lane_gather"``: per group of 128 taps, a lane gather of the tap
     columns from every window row, then a one-hot reduction over the rows
     (orb.py:239-251). Both give the same bits."""
     k = windows.shape[0]
-    rows, cols = _brief_tap_coords(angle, seed, pattern)
     if brief == "sample":
-        s = ck.brief_sample(windows.contiguous(), rows.contiguous(),
-                            cols.contiguous())
-    elif brief == "lane_gather":
-        src = windows.reshape(k * _WIN_H, _WIN_W)
-        iota_y = torch.arange(_WIN_H, device=windows.device)[None, :, None]
-        zero = torch.zeros((), dtype=windows.dtype, device=windows.device)
-        samples = []
-        for g in range(4):
-            cg = cols[:, g * 128: (g + 1) * 128]           # (K, 128)
-            idx = cg[:, None, :].expand(k, _WIN_H, 128).reshape(-1, 128)
-            gathered = ck.lane_gather(src, idx.contiguous()).reshape(
-                k, _WIN_H, 128)
-            rg = rows[:, g * 128: (g + 1) * 128]           # (K, 128)
-            oh = iota_y == rg[:, None, :]
-            samples.append(torch.sum(torch.where(oh, gathered, zero), dim=1))
-        s = torch.cat(samples, dim=1)                      # (K, 512)
-    else:
+        return ck.brief_rotated(
+            windows.contiguous(), torch.cos(angle), torch.sin(angle),
+            _pattern_on(pattern, seed, angle.device), "unpaired")
+    if brief != "lane_gather":
         raise ValueError(f"unknown BRIEF formulation {brief!r}")
+    rows, cols = _brief_tap_coords(angle, seed, pattern)
+    src = windows.reshape(k * _WIN_H, _WIN_W)
+    iota_y = torch.arange(_WIN_H, device=windows.device)[None, :, None]
+    zero = torch.zeros((), dtype=windows.dtype, device=windows.device)
+    samples = []
+    for g in range(4):
+        cg = cols[:, g * 128: (g + 1) * 128]           # (K, 128)
+        idx = cg[:, None, :].expand(k, _WIN_H, 128).reshape(-1, 128)
+        gathered = ck.lane_gather(src, idx.contiguous()).reshape(
+            k, _WIN_H, 128)
+        rg = rows[:, g * 128: (g + 1) * 128]           # (K, 128)
+        oh = iota_y == rg[:, None, :]
+        samples.append(torch.sum(torch.where(oh, gathered, zero), dim=1))
+    s = torch.cat(samples, dim=1)                      # (K, 512)
     return (s[:, :256] < s[:, 256:]).to(torch.uint8)
 
 
@@ -322,8 +330,7 @@ def brief_describe(blurred_f: torch.Tensor, xy: torch.Tensor,
                    pattern: str = "rublee2011") -> torch.Tensor:
     """Rotated BRIEF-256 (K, 256) u8 bits by per-tap gathers from the
     blurred frame."""
-    pat = torch.from_numpy(_resolve_pattern(pattern, seed)).to(angle.device)
-    pat = pat.to(torch.float32)
+    pat = _pattern_on(pattern, seed, angle.device).to(torch.float32)
     ca, sa = torch.cos(angle), torch.sin(angle)
     h, w = blurred_f.shape
     cx = torch.round(xy[:, 0]).to(torch.int64)[:, None]

@@ -13,6 +13,9 @@ fast_harris     pallas_kernels.py::fast_score_pallas        fast_harris.cu
 windows_paired  pallas_kernels.py::                         windows_paired.cu
                 extract_windows_prepared_paired
 brief_sample    pallas_kernels.py::brief_sample_pallas      brief_sample.cu
+brief_rotated   the same kernel, with the tap rotation,     brief_sample.cu
+                clamps and A < B compare of orb.py around
+                it fused in (counted as brief_sample)
 windows         pallas_kernels.py::extract_windows_prepared windows.cu
                 (and extract_windows_pallas)
 lane_gather     pallas_kernels.py::lane_gather              lane_gather.cu
@@ -117,31 +120,38 @@ def build(names: Sequence[str] = SOURCES) -> float:
     return time.perf_counter() - t0
 
 
+# C entry points of a library beside ``kt_<library>``
+_EXTRA_ENTRIES = {"brief_sample": ("brief_rotated",)}
+
+
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signature of every entry of library ``name``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    sig = {
+    sigs = {
         "fast_harris": [p, p, p, i, i, f, ctypes.POINTER(f), f, p],
         "windows_paired": [p, p, p, i, i, i, i, i, i, p],
         "brief_sample": [p, p, p, p, i, i, i, i, p],
+        "brief_rotated": [p, p, p, p, p, i, i, i, p],
         "windows": [p, p, p, i, i, i, i, i, i, i, i, p],
         "lane_gather": [p, p, p, ctypes.c_longlong, p],
         "preprocess": [p, i, p, p, p, p, ctypes.POINTER(f),
                        ctypes.POINTER(f), p, i, i, p],
-        "remap": [p, i, i, i, i, p, i, i, i, p, p, ctypes.POINTER(f), i, i,
-                  f, p],
+        "remap": [p, i, i, i, i, p, i, i, i, p, p, ctypes.POINTER(f), p, i,
+                  i, f, p],
         "lane_shift": [p, p, p, i, i, i, i, p],
         "shear_x": [p, p, p, i, i, i, p],
-    }[name]
-    fn = getattr(lib, "kt_" + name)
-    fn.argtypes = sig
-    fn.restype = ctypes.c_int
+    }
+    for entry in (name,) + _EXTRA_ENTRIES.get(name, ()):
+        fn = getattr(lib, "kt_" + entry)
+        fn.argtypes = sigs[entry]
+        fn.restype = ctypes.c_int
     return lib
 
 
-def _kernel(name: str):
+def _kernel(name: str, entry: str | None = None):
     if name not in _LIBS:
         build()
-    return getattr(_LIBS[name], "kt_" + name)
+    return getattr(_LIBS[name], "kt_" + (entry or name))
 
 
 def _check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int):
@@ -331,6 +341,106 @@ def brief_sample(windows: torch.Tensor, rows: torch.Tensor,
         k, wh, ww, taps, _stream(windows))
     _launched("brief_sample", rc)
     return out
+
+
+BRIEF_LAYOUTS = {"unpaired": 0, "paired": 1}
+_UNPAIRED_WIN_H = 48
+_UNPAIRED_CY = 24
+
+
+def _brief_rotated_shape(windows, cos, sin, pattern, layout, out):
+    """Checks shared by the kernel and plain routes of
+    :func:`brief_rotated`; returns the keypoint count K."""
+    if layout not in BRIEF_LAYOUTS:
+        raise ValueError(f"brief_rotated: unknown layout {layout!r}")
+    if out not in ("bits", "samples"):
+        raise ValueError(f"brief_rotated: unknown output {out!r}")
+    paired = layout == "paired"
+    wh = PAIR_WIN_H if paired else _UNPAIRED_WIN_H
+    if windows.ndim != 3 or tuple(windows.shape[1:]) != (wh, 128):
+        raise ValueError(f"brief_rotated: {layout} windows must be "
+                         f"(Kw, {wh}, 128), got {tuple(windows.shape)}")
+    k = int(cos.shape[0])
+    if cos.ndim != 1 or sin.shape != cos.shape:
+        raise ValueError("brief_rotated: cos and sin must be (K,)")
+    if k != int(windows.shape[0]) * (2 if paired else 1):
+        raise ValueError(f"brief_rotated: {k} keypoints do not fill "
+                         f"{int(windows.shape[0])} {layout} windows")
+    if tuple(pattern.shape) != (256, 4):
+        raise ValueError("brief_rotated: pattern must be (256, 4)")
+    return k
+
+
+def _brief_rotated_plain(windows: torch.Tensor, cos: torch.Tensor,
+                         sin: torch.Tensor, pattern: torch.Tensor,
+                         layout: str, out: str = "bits") -> torch.Tensor:
+    """The kernel's contract in PyTorch ops: the tap arithmetic of
+    features/orb.py::_brief_tap_coords (every product, difference and sum
+    a separately rounded f32 op, round half to even, the layout's clamps),
+    the gather of :func:`_brief_sample_plain`, and ``A < B``."""
+    k = _brief_rotated_shape(windows, cos, sin, pattern, layout, out)
+    pat = pattern.to(torch.float32)
+    px = torch.cat([pat[:, 0], pat[:, 2]])
+    py = torch.cat([pat[:, 1], pat[:, 3]])
+    ca, sa = cos[:, None], sin[:, None]
+    dx = torch.round(px[None, :] * ca - py[None, :] * sa).to(torch.int32)
+    dy = torch.round(px[None, :] * sa + py[None, :] * ca).to(torch.int32)
+    if layout == "paired":
+        lane = torch.tensor([0, 64], dtype=torch.int32, device=cos.device)
+        cols = (torch.clamp(32 + dx, 0, 63).reshape(k // 2, 2, 512)
+                + lane[None, :, None]).reshape(k // 2, 1024)
+        rows = torch.clamp(PAIR_CY + dy, 0, PAIR_WIN_H - 1).reshape(
+            k // 2, 1024)
+    else:
+        cols = torch.clamp(_WIN_CX + dx, 0, 127)
+        rows = torch.clamp(_UNPAIRED_CY + dy, 0, _UNPAIRED_WIN_H - 1)
+    s = _brief_sample_plain(windows, rows, cols).reshape(k, 512)
+    if out == "samples":
+        return s
+    return (s[:, :256] < s[:, 256:]).to(torch.uint8)
+
+
+def brief_rotated(windows: torch.Tensor, cos: torch.Tensor,
+                  sin: torch.Tensor, pattern: torch.Tensor, layout: str,
+                  out: str = "bits") -> torch.Tensor:
+    """Rotated BRIEF-256 straight from the blurred windows.
+
+    ``windows``: (K/2, 40, 128) f32 for ``layout="paired"`` (keypoints 2i
+    and 2i+1 share window i, centred at (20, 32) and (20, 96), each clamped
+    to its 64 lanes) or (K, 48, 128) for ``"unpaired"`` (centre (24, 64));
+    ``cos``/``sin``: (K,) f32 of the keypoint angles; ``pattern``: (256, 4)
+    int32 (x1, y1, x2, y2) on the windows' device; both must start on a
+    16-byte boundary, as every tensor that is not a slice does. Tap t of
+    keypoint k sits
+    at ``round(px·cos − py·sin)``, ``round(px·sin + py·cos)`` from its
+    centre. ``out="bits"``: (K, 256) u8 ``A < B``; ``out="samples"``:
+    (K, 512) f32 ``[A(256), B(256)]``, as :func:`brief_sample` gives them."""
+    if windows.device.type == "cpu":
+        return _brief_rotated_plain(windows, cos, sin, pattern, layout, out)
+    _check(windows, "brief_rotated windows", torch.float32, 3)
+    _check(cos, "brief_rotated cos", torch.float32, 1)
+    _check(sin, "brief_rotated sin", torch.float32, 1)
+    _check(pattern, "brief_rotated pattern", torch.int32, 2)
+    k = _brief_rotated_shape(windows, cos, sin, pattern, layout, out)
+    if not (cos.device == sin.device == pattern.device == windows.device):
+        raise ValueError("brief_rotated: every input must be on the "
+                         "windows' device")
+    if windows.data_ptr() % 16 or pattern.data_ptr() % 16:
+        raise ValueError("brief_rotated: windows and pattern must start on "
+                         "a 16-byte boundary (the kernel copies them in "
+                         "16-byte pieces)")
+    samples = out == "samples"
+    res = torch.empty((k, 512) if samples else (k, 256),
+                      dtype=torch.float32 if samples else torch.uint8,
+                      device=windows.device)
+    if k == 0:
+        return res
+    rc = _kernel("brief_sample", "brief_rotated")(
+        windows.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        pattern.data_ptr(), res.data_ptr(), k, BRIEF_LAYOUTS[layout],
+        int(samples), _stream(windows))
+    _launched("brief_sample", rc)
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -631,13 +741,18 @@ def remap(img: torch.Tensor, out_hw: Tuple[int, int], form: str,
     """Sample (H, W, C) u8 or f32 ``img`` into (Ho, Wo, C) of its dtype.
 
     ``form`` is "data" (``map_x``/``map_y``: (Ho, Wo) f32 on the image's
-    device) or "affine"/"persp" (``coefs``: 9 f32 values on the CPU, the
-    destination → source map ``[c1x c2x c0x c1y c2y c0y p1 p2 p0]``)."""
+    device) or "affine"/"persp" (``coefs``: the 9 f32 values of the
+    destination → source map ``[c1x c2x c0x c1y c2y c0y p1 p2 p0]``, as a
+    sequence, a numpy array or a tensor). Coefficients on the image's CUDA
+    device stay there: the kernel reads them from device memory and the
+    call does not wait for the device. Any others go by value."""
     if form not in REMAP_FORMS:
         raise ValueError(f"remap: unknown map form {form!r}")
     ho, wo = (int(v) for v in out_hw)
     if form != "data":
-        coefs = torch.as_tensor(coefs, dtype=torch.float32).reshape(9).cpu()
+        coefs = torch.as_tensor(coefs, dtype=torch.float32).reshape(9)
+        if coefs.device != img.device:
+            coefs = coefs.cpu()
     if img.device.type == "cpu":
         return _remap_plain(img, (ho, wo), form, coefs, map_x, map_y,
                             nearest, border, fill)
@@ -654,17 +769,20 @@ def remap(img: torch.Tensor, out_hw: Tuple[int, int], form: str,
                 raise ValueError(f"remap {nm}: expected ({ho}, {wo}) on "
                                  f"{img.device}")
             ptrs[i] = t.data_ptr()
-        cvals = [0.0] * 9
-    else:
-        cvals = coefs.tolist()
+    cvals, cdev = [0.0] * 9, None
+    if form != "data":
+        if coefs.device.type == "cuda":
+            cdev = coefs.data_ptr()
+        else:
+            cvals = coefs.tolist()
     out = torch.empty((ho, wo, c), dtype=img.dtype, device=img.device)
     if out.numel() == 0:
         return out
     rc = _kernel("remap")(
         img.data_ptr(), int(img.dtype == torch.uint8), h, w, c,
         out.data_ptr(), ho, wo, REMAP_FORMS[form], ptrs[0], ptrs[1],
-        (ctypes.c_float * 9)(*cvals), int(bool(nearest)), int(bool(border)),
-        float(fill), _stream(img))
+        (ctypes.c_float * 9)(*cvals), cdev, int(bool(nearest)),
+        int(bool(border)), float(fill), _stream(img))
     _launched("remap", rc)
     return out
 

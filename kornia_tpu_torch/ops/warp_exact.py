@@ -7,7 +7,14 @@ selects, lane rolls, DMA staging, a rot90 + integer pre-shear
 scalar-gather fallback. A per-pixel sampler on Hopper takes every map
 directly, so here each entry point prepares the map as the Pallas path
 does and makes one K7 launch (``cuda_kernels.remap``, csrc/remap.cu).
-No map is refused and nothing falls back.
+No map is refused and nothing falls back. A warp matrix that is a CUDA
+tensor is inverted on the card and the kernel reads the coefficients from
+device memory: such a call never waits for the device. That pays where
+the matrix comes out of device work still in the queue (a tracker's
+estimate, frame after frame): the host runs ahead instead of stalling on
+every frame. On an idle card the dozen small ops of the inversion cost
+more host time than the wait they spare, so a caller that holds the
+matrix on the host passes it from there (chip_smoke.py times both).
 
 The contract is the Pallas path's (warp_pallas.py:783-825, 1145-1195):
 nearest rounds with ``floor(map + 0.5)`` (the gather route rounds half to
@@ -23,6 +30,7 @@ contract, its plain version and its tests.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -82,10 +90,13 @@ def remap_exact(img, map_x, map_y, mode: str = "bilinear",
 
 
 def _matrix(m, rows: int) -> torch.Tensor:
-    """A (rows, 3) matrix as a float32 CPU tensor: the map's coefficients
-    are host parameters of the kernel launch."""
+    """A (rows, 3) matrix as a float32 tensor on the device it came from:
+    a numpy array or a CPU tensor stays on the host and its coefficients
+    go to the kernel by value; a CUDA tensor stays on the card, the
+    coefficients are computed there and the kernel reads them from device
+    memory, so nothing waits for the device."""
     if isinstance(m, torch.Tensor):
-        t = m.detach().to(device="cpu", dtype=torch.float32)
+        t = m.detach().to(dtype=torch.float32)
     else:
         t = torch.as_tensor(np.asarray(m), dtype=torch.float32)
     if tuple(t.shape) != (rows, 3):
@@ -95,21 +106,28 @@ def _matrix(m, rows: int) -> torch.Tensor:
 
 
 def affine_coefs(m) -> torch.Tensor:
-    """Destination → source coefficients of the 2×3 source → destination
-    matrix ``m``, inverted by adjugate / determinant in f32 as
-    warp_pallas.py:1163-1175 does (|det| < 1e-12 → 1e-12)."""
+    """The nine destination → source coefficients of the 2×3 source →
+    destination matrix ``m``, inverted by adjugate / determinant in f32 as
+    warp_pallas.py:1163-1175 does (|det| < 1e-12 → 1e-12), on the matrix's
+    own device. Every step is one IEEE f32 operation on either device
+    (the translation's two-term products are written out, not a matmul),
+    so a CUDA matrix gives the host's coefficients bit for bit; no step
+    copies to or from the card."""
     mm = _matrix(m, 2)
-    a = mm[:, :2]
-    det = a[0, 0] * a[1, 1] - a[0, 1] * a[1, 0]
-    tiny = torch.tensor(1e-12, dtype=torch.float32)
-    det = torch.where(det.abs() < tiny, tiny, det)
-    ainv = torch.stack([torch.stack([a[1, 1], -a[0, 1]]),
-                        torch.stack([-a[1, 0], a[0, 0]])]) / det
-    tinv = -ainv @ mm[:, 2]
-    zero = torch.zeros((), dtype=torch.float32)
-    return torch.stack([ainv[0, 0], ainv[0, 1], tinv[0],
-                        ainv[1, 0], ainv[1, 1], tinv[1],
-                        zero, zero, zero + 1.0])
+    a00, a01, a10, a11 = mm[0, 0], mm[0, 1], mm[1, 0], mm[1, 1]
+    det = a00 * a11 - a01 * a10
+    det = torch.where(det.abs() < 1e-12, 1e-12, det)
+    ainv = torch.stack([a11, -a01, -a10, a00]).reshape(2, 2) / det
+    prod = (-ainv) * mm[:, 2]                 # rows: (-i_r0)·t0, (-i_r1)·t1
+    tinv = prod[:, 0] + prod[:, 1]
+    return torch.cat([torch.cat([ainv, tinv[:, None]], dim=1).reshape(6),
+                      _last_row(str(mm.device))])
+
+
+@functools.lru_cache(maxsize=None)
+def _last_row(device: str) -> torch.Tensor:
+    """[0, 0, 1] on ``device``, made once."""
+    return torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=device)
 
 
 def warp_affine_exact(img, m, dsize: Tuple[int, int],
@@ -132,9 +150,15 @@ def warp_perspective_exact(img, m, dsize: Tuple[int, int],
                            ) -> torch.Tensor:
     """Exact cv2.warpPerspective by the 3×3 source → destination
     homography ``m``; the kernel divides by the inverse's third row,
-    clamped to |den| ≥ 1e-8 (warp_pallas.py:922)."""
+    clamped to |den| ≥ 1e-8 (warp_pallas.py:922). A CUDA ``m`` is inverted
+    on the card without a wait (so a singular one is not reported, and the
+    inverse may differ from the host's in its last bits)."""
     dev = resolve_device(device)
-    coefs = torch.linalg.inv(_matrix(m, 3)).reshape(9)
+    mm = _matrix(m, 3)
+    if mm.device.type == "cpu":
+        coefs = torch.linalg.inv(mm).reshape(9)
+    else:
+        coefs = torch.linalg.inv_ex(mm).inverse.reshape(9)
     return _sample(img, dev, tuple(dsize), "persp", coefs=coefs, mode=mode,
                    padding_mode=padding_mode, fill_value=fill_value)
 

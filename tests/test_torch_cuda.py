@@ -386,3 +386,215 @@ def test_cuda_slice3_entry_points_launch_kernels(cuda_dev):
         img, pp.PreprocessorConfig(out_size=(64, 64),
                                    resize_mode=pp.ResizeMode.LETTERBOX)))
     assert n == {"preprocess": 1} and out.shape == (1, 3, 64, 64)
+
+
+# --------------------------------------------------------------------------
+# K7 with four pixels per thread, word-wise row stores, device coefs
+# --------------------------------------------------------------------------
+
+
+def _remap_inputs(form, h, w, ho, wo, dev, seed=15):
+    mx = my = coefs = None
+    if form == "data":
+        mx, my = (convert.tensor(a, dev)
+                  for a in _smooth_maps(h, w, ho, wo, seed))
+    elif form == "affine":
+        coefs = torch.tensor([0.94, -0.34, 20.5, 0.34, 0.94, -12.25, 0, 0, 1])
+    else:
+        coefs = torch.tensor([1.02, 0.05, -4.0, 0.02, 0.98, 3.0, 1e-3, -8e-4,
+                              1.0])
+    return dict(coefs=coefs, map_x=mx, map_y=my)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["data", "affine", "persp"])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("wo", [31, 128, 132, 133, 135, 260])
+def test_cuda_remap_row_copy_bit_equal(cuda_dev, form, dtype, c, wo):
+    """K7 against its plain version: C = 1 and 3 (rows copied out of the
+    shared tile word by word) and 4 (direct stores); output widths under
+    one tile, of exactly one, 4n, 4n+1 and 4n+3 wide (rows of u8 outputs
+    that do not start on a 4-byte boundary, a ragged right edge) and over
+    two tiles; every form, mode and padding."""
+    rng = np.random.default_rng(26)
+    shape = (75, 170, c)
+    img = rng.integers(0, 256, shape).astype(dtype)
+    if dtype == np.float32:
+        img = img * np.float32(0.37) + rng.random(shape).astype(np.float32)
+    x = convert.tensor(img, cuda_dev)
+    out_hw = (61, wo)
+    maps = _remap_inputs(form, 75, 170, *out_hw, cuda_dev)
+    for nearest in (False, True):
+        for border, fill in ((False, 0.0), (False, 17.25), (True, 0.0)):
+            kw = dict(nearest=nearest, border=border, fill=fill, **maps)
+            ck.reset_launch_counts()
+            got = ck.remap(x, out_hw, form, **kw)
+            want = ck._remap_plain(x, out_hw, form, **kw)
+            torch.cuda.synchronize()
+            assert ck.LAUNCHES["remap"] == 1
+            assert got.dtype == x.dtype and got.shape == want.shape
+            assert torch.equal(got, want), (nearest, border, fill)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("c", [1, 3])
+def test_cuda_remap_views_and_wild_maps_bit_equal(cuda_dev, dtype, c):
+    """A data map that leaves the image on every side; a wild map (random
+    source positions, so neighbouring pixels share no taps); an image and
+    maps that start off a 16-byte boundary (slices of larger buffers)."""
+    rng = np.random.default_rng(27)
+    h, w, ho, wo = 90, 121, 70, 200
+    big = rng.integers(0, 256, h * w * c + 7).astype(dtype)
+    x = convert.tensor(big, cuda_dev)[3:3 + h * w * c].reshape(h, w, c)
+    yy, xx = np.mgrid[0:ho, 0:wo].astype(np.float32)
+    leave_x = xx * (w + 40.0) / wo - 20.0 + 0.01 * yy
+    leave_y = yy * (h + 40.0) / ho - 20.0 - 0.02 * xx
+    wild_x = rng.uniform(-5, w + 5, (ho, wo)).astype(np.float32)
+    wild_y = rng.uniform(-5, h + 5, (ho, wo)).astype(np.float32)
+    for mx, my in ((leave_x, leave_y), (wild_x, wild_y)):
+        flat = np.concatenate([np.zeros(1, np.float32), mx.ravel(),
+                               my.ravel()]).astype(np.float32)
+        t = convert.tensor(flat, cuda_dev)          # maps 4 bytes off 16
+        tx = t[1:1 + ho * wo].reshape(ho, wo)
+        ty = t[1 + ho * wo:].reshape(ho, wo)
+        for nearest in (False, True):
+            for border in (False, True):
+                kw = dict(map_x=tx, map_y=ty, nearest=nearest, border=border,
+                          fill=3.5)
+                got = ck.remap(x, (ho, wo), "data", **kw)
+                want = ck._remap_plain(x, (ho, wo), "data", **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (nearest, border)
+
+
+@pytest.mark.cuda
+def test_cuda_remap_device_coefficients(cuda_dev):
+    """Coefficients as a CUDA tensor: the kernel reads them from device
+    memory, the call does not wait for the device, and a warp_affine whose
+    matrix was made on the card equals the one with the same matrix on the
+    host bit for bit (coefficients too). warp_perspective inverts on the
+    card; its coefficients may differ from the host inverse in the last
+    bits, and kernel and plain version agree on the same coefficients."""
+    from kornia_tpu_torch.ops import warp, warp_exact
+    img = convert.tensor(_img(28, (120, 160, 3)), cuda_dev)
+    worst = 0
+    for ang, sc in ((10.0, 1.0), (30.0, 1.0), (-73.0, 0.6), (179.0, 1.3)):
+        m_dev = warp.get_rotation_matrix2d((85.0, 37.5), ang, sc,
+                                           device=cuda_dev)
+        m_host = m_dev.cpu()
+        c_dev = warp_exact.affine_coefs(m_dev)
+        assert c_dev.is_cuda
+        assert torch.equal(c_dev.cpu(), warp_exact.affine_coefs(m_host))
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            on_card = warp.warp_affine(img, m_dev, (100, 150))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        from_host = warp.warp_affine(img, m_host, (100, 150))
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["remap"] == 2
+        assert torch.equal(on_card, from_host)
+
+        hom = torch.eye(3, device=cuda_dev)
+        hom[:2] = m_dev
+        hom[2, :2] = torch.tensor([2e-4, -1.5e-4], device=cuda_dev)
+        c_host = torch.linalg.inv(hom.cpu()).reshape(9)
+        c_card = torch.linalg.inv_ex(hom).inverse.reshape(9)
+        ulp = (c_card.cpu().view(torch.int32)
+               - c_host.view(torch.int32)).abs().max()
+        worst = max(worst, int(ulp))
+        got = warp.warp_perspective(img, hom, (100, 150))
+        kw = dict(coefs=c_card)
+        assert torch.equal(got, ck.remap(img, (100, 150), "persp", **kw))
+        assert torch.equal(got, ck._remap_plain(img, (100, 150), "persp",
+                                                **kw))
+    print(f"perspective coefficients, card inverse vs host inverse: at most "
+          f"{worst} ULP apart")
+    assert worst <= 64
+
+
+# --------------------------------------------------------------------------
+# K3 with the rotation, the clamps and the compare fused in
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern,seed", [("rublee2011", 7), ("seeded", 7),
+                                          ("seeded", 1)])
+@pytest.mark.parametrize("layout,k", [("paired", 0), ("paired", 2),
+                                      ("paired", 64), ("unpaired", 0),
+                                      ("unpaired", 7), ("unpaired", 64)])
+def test_cuda_brief_rotated_bit_equal(cuda_dev, pattern, seed, layout, k):
+    """brief_rotated against its plain version, bits and samples, and its
+    samples against the index form (_brief_tap_coords + brief_sample):
+    both layouts, the learned and two seeded patterns (seed 1 has the
+    (14, 14) tap that reaches the paired layout's row clip), an odd K on
+    the unpaired layout, K = 0."""
+    from kornia_tpu_torch.features import orb
+    rng = np.random.default_rng(29)
+    paired = layout == "paired"
+    wh = 40 if paired else 48
+    win = convert.tensor(rng.standard_normal(
+        (k // 2 if paired else k, wh, 128)).astype(np.float32), cuda_dev)
+    ang = convert.tensor(rng.uniform(-np.pi, np.pi, k).astype(np.float32),
+                         cuda_dev)
+    if k:
+        ang[:2] = torch.tensor([0.0, np.pi / 4], device=cuda_dev)
+    pat = orb._pattern_on(pattern, seed, cuda_dev)
+    args = (win, torch.cos(ang), torch.sin(ang), pat, layout)
+    ck.reset_launch_counts()
+    bits = ck.brief_rotated(*args)
+    samples = ck.brief_rotated(*args, out="samples")
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["brief_sample"] == (2 if k else 0)
+    assert bits.shape == (k, 256) and bits.dtype == torch.uint8
+    assert torch.equal(bits, ck._brief_rotated_plain(*args))
+    assert torch.equal(samples, ck._brief_rotated_plain(*args,
+                                                        out="samples"))
+    rows, cols = orb._brief_tap_coords(ang, seed, pattern,
+                                       half_w=32 if paired else None)
+    if paired:
+        lane = torch.tensor([0, 64], dtype=torch.int32, device=cuda_dev)
+        rows = rows.reshape(k // 2, 1024)
+        cols = (cols.reshape(k // 2, 2, 512)
+                + lane[None, :, None]).reshape(k // 2, 1024)
+    index_form = ck.brief_sample(win, rows.contiguous(), cols.contiguous())
+    assert torch.equal(samples, index_form.reshape(k, 512))
+
+
+@pytest.mark.cuda
+def test_cuda_brief_rotated_rejects_bad_input(cuda_dev):
+    from kornia_tpu_torch.features import orb
+    pat = orb._pattern_on("rublee2011", 7, cuda_dev)
+    win = torch.zeros((2, 40, 128), device=cuda_dev)
+    c = torch.ones(4, device=cuda_dev)
+    with pytest.raises(ValueError, match="do not fill"):
+        ck.brief_rotated(win, c[:3], c[:3], pat, "paired")
+    with pytest.raises(ValueError, match="must be"):
+        ck.brief_rotated(win, c, c, pat, "unpaired")
+    with pytest.raises(ValueError):
+        ck.brief_rotated(win, c.double(), c.double(), pat, "paired")
+    with pytest.raises(ValueError):
+        ck.brief_rotated(win, c, c, pat.cpu(), "paired")
+    with pytest.raises(ValueError, match="unknown layout"):
+        ck.brief_rotated(win, c, c, pat, "both")
+    # contiguous slices that start 4 bytes off a 16-byte boundary: refused
+    # before the launch (the kernel copies 16-byte pieces), and the device
+    # is still usable afterwards
+    buf = torch.zeros(2 * 40 * 128 + 4, device=cuda_dev)
+    off = buf[1:1 + 2 * 40 * 128].reshape(2, 40, 128)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte"):
+        ck.brief_rotated(off, c, c, pat, "paired")
+    pbuf = torch.zeros(256 * 4 + 4, dtype=torch.int32, device=cuda_dev)
+    pbuf[1:1 + 1024] = pat.reshape(-1)
+    with pytest.raises(ValueError, match="16-byte"):
+        ck.brief_rotated(win, c, c, pbuf[1:1 + 1024].reshape(256, 4),
+                         "paired")
+    torch.cuda.synchronize()
+    assert torch.equal(ck.brief_rotated(win, c, c, pat, "paired"),
+                       ck._brief_rotated_plain(win, c, c, pat, "paired"))

@@ -174,6 +174,106 @@ def test_brief_sample_plain_matches_pallas_interpret():
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+_ROTATED_CASES = [(layout, k) for layout in ("paired", "unpaired")
+                  for k in (0, 2, 64)] + [("unpaired", 7)]
+
+
+def _rotated_inputs(layout, k, pattern, seed):
+    from kornia_tpu_torch.features import orb as torb
+    rng = np.random.default_rng(31)
+    paired = layout == "paired"
+    win = convert.tensor(rng.standard_normal(
+        (k // 2 if paired else k, 40 if paired else 48, 128)).astype(
+        np.float32))
+    ang = rng.uniform(-np.pi, np.pi, k).astype(np.float32)
+    ang[:2] = (0.0, np.pi / 4)[:k]
+    return win, convert.tensor(ang), torb._pattern_on(pattern, seed, "cpu")
+
+
+@pytest.mark.parametrize("pattern,seed", [("rublee2011", 7), ("seeded", 7),
+                                          ("seeded", 1)])
+@pytest.mark.parametrize("layout,k", _ROTATED_CASES)
+def test_brief_rotated_plain_samples_match_the_index_form(layout, k, pattern,
+                                                          seed):
+    """``_brief_rotated_plain(out="samples")`` equals the index form it
+    replaces on the path, ``_brief_sample_plain(windows,
+    *_brief_tap_coords(...))``, exactly: both layouts, the learned pattern
+    and two seeded ones (seed 1 has the (14, 14) tap that reaches the
+    paired layout's row clip), K = 0, an odd K on the unpaired layout."""
+    from kornia_tpu_torch.features import orb as torb
+    win, ang, pat = _rotated_inputs(layout, k, pattern, seed)
+    paired = layout == "paired"
+    rows, cols = torb._brief_tap_coords(ang, seed, pattern,
+                                        half_w=32 if paired else None)
+    if paired:
+        lane = torch.tensor([0, 64], dtype=torch.int32)
+        rows = rows.reshape(k // 2, 1024)
+        cols = (cols.reshape(k // 2, 2, 512)
+                + lane[None, :, None]).reshape(k // 2, 1024)
+    want = ck._brief_sample_plain(win, rows, cols).reshape(k, 512)
+    args = (win, torch.cos(ang), torch.sin(ang), pat, layout)
+    got = ck._brief_rotated_plain(*args, out="samples")
+    assert got.shape == (k, 512) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    bits = ck.brief_rotated(*args)
+    assert bits.shape == (k, 256) and bits.dtype == torch.uint8
+    assert torch.equal(bits, (want[:, :256] < want[:, 256:]).to(torch.uint8))
+
+
+@pytest.mark.parametrize("pattern,seed", [("rublee2011", 7), ("seeded", 1)])
+@pytest.mark.parametrize("layout", ["paired", "unpaired"])
+def test_brief_rotated_bits_match_reference(layout, pattern, seed):
+    """``out="bits"`` through the port's two callers equals the reference's
+    ``brief_from_windows_paired`` / ``brief_from_windows`` on the same
+    windows and angles, exactly (0 of 64 x 256 bits flip here; a one-ULP
+    cos/sin difference could move a tap that rotates onto an exact .5)."""
+    from kornia_tpu_torch.features import orb as torb
+    win, ang, _ = _rotated_inputs(layout, 64, pattern, seed)
+    if layout == "paired":
+        want = jorb.brief_from_windows_paired(
+            jnp.asarray(win.numpy()), jnp.asarray(ang.numpy()), seed, pattern)
+        got = torb.brief_from_windows_paired(win, ang, seed, pattern)
+    else:
+        want = jorb.brief_from_windows(
+            jnp.asarray(win.numpy()), jnp.asarray(ang.numpy()), seed, pattern)
+        got = torb.brief_from_windows(win, ang, seed, pattern)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_brief_rotated_rejects_bad_shapes_and_counts_no_cpu_launch():
+    win, ang, pat = _rotated_inputs("paired", 4, "rublee2011", 7)
+    c, s = torch.cos(ang), torch.sin(ang)
+    ck.reset_launch_counts()
+    ck.brief_rotated(win, c, s, pat, "paired")
+    assert ck.LAUNCHES["brief_sample"] == 0
+    with pytest.raises(ValueError, match="do not fill"):
+        ck.brief_rotated(win, c[:3], s[:3], pat, "paired")
+    with pytest.raises(ValueError, match="must be"):
+        ck.brief_rotated(win, c, s, pat, "unpaired")
+    with pytest.raises(ValueError, match="unknown layout"):
+        ck.brief_rotated(win, c, s, pat, "both")
+    with pytest.raises(ValueError, match="unknown output"):
+        ck.brief_rotated(win, c, s, pat, "paired", out="bytes")
+    with pytest.raises(ValueError, match="pattern"):
+        ck.brief_rotated(win, c, s, pat[:128], "paired")
+
+
+@pytest.mark.parametrize("form", ["affine", "persp"])
+def test_remap_coefs_as_tensor_list_and_numpy_agree(form):
+    """``ck.remap`` takes the nine coefficients as a tensor, a list or a
+    numpy array (any float type) and gives identical results."""
+    img = convert.tensor(_img(32, (40, 56, 3)))
+    vals = [0.94, -0.34, 20.5, 0.34, 0.94, -12.25, 0.0, 0.0, 1.0]
+    if form == "persp":
+        vals[6:8] = [1e-3, -8e-4]
+    want = ck.remap(img, (33, 47), form,
+                    coefs=torch.tensor(vals, dtype=torch.float32))
+    for coefs in (vals, np.asarray(vals), np.asarray(vals, np.float32),
+                  torch.tensor(vals, dtype=torch.float64).reshape(3, 3)):
+        assert torch.equal(ck.remap(img, (33, 47), form, coefs=coefs), want)
+    assert want.shape == (33, 47, 3) and want.dtype == torch.uint8
+
+
 # --------------------------------------------------------------------------
 # K4: one window per keypoint
 # --------------------------------------------------------------------------
