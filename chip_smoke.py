@@ -1,29 +1,36 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR``: DIR holds the parent commit's tree (e.g. unpacked by
+``git archive``); its own kernel wrappers (``ops/cuda_kernels.py``) are
+loaded, its K1 and K9 built from its sources, and timed against this
+tree's in turns, on the same inputs, as "parent" times.
 
 Phases (any failure raises, so the script exits non-zero):
 
-1. Device: requires CUDA, prints the card's name and power limit, builds the
-   CUDA kernels from kornia_tpu_torch/ops/csrc/ and prints the build time.
+1. Device: requires CUDA, prints the card's name, power limit, SM count and
+   maximum SM clock (the operation bounds' issue rates), builds the CUDA
+   kernels from kornia_tpu_torch/ops/csrc/ and prints the build time.
 2. Kernels vs their plain PyTorch versions on the card, at main-path
-   shapes: the 8 pyramid levels of a 480×752 frame, 2000 keypoints (with
-   border keypoints and pairs that straddle two levels). All three must be
-   bit-equal (max_abs_err 0); K3 by both its entries: brief_rotated
-   (windows + cos/sin + pattern → bits, which the path runs) against its
-   plain version, brief_sample (the index form) against its own, and
-   brief_rotated's samples against brief_sample on _brief_tap_coords'
-   indices.
+   shapes: the 8 pyramid levels of both 480×752 views (K1: all levels in
+   one launch, bit-equal to the plain version and to the one-level calls),
+   2000 keypoints (with border keypoints and pairs that straddle two
+   levels). All must be bit-equal (max_abs_err 0); K3 by both its entries:
+   brief_rotated (windows + cos/sin + pattern → bits, which the path runs)
+   against its plain version, brief_sample (the index form) against its
+   own, and brief_rotated's samples against brief_sample on
+   _brief_tap_coords' indices.
 3. The slice at full size on a seed-made scene with known pose: two
    480×752 views of two textured, non-coplanar planes; ORB (OrbConfig())
    on both, Hamming matching, the two-view bootstrap (TwoViewParams()).
-   Launch counts for the pair must be fast_harris 16, windows_paired 4,
-   brief_sample 2 (both brief_rotated); the descriptors of both frames
-   must equal the index form's on the same windows and angles; rotation
-   error ≤ 0.5°, translation direction ≤ 5°, ≥ 100 inliers. The same
-   pair is then run on the CPU and the shares of pyramid pixels, selected
-   keypoints and descriptor bits that differ are printed (keypoints:
-   ≤ 1%).
+   Launch counts for the pair must be fast_harris 2 (one a frame),
+   windows_paired 4, brief_rotated 2; both frames' ORB features must equal
+   those of the route with one K1 launch per level, and their descriptors
+   the index form's on the same windows and angles; rotation error ≤ 0.5°,
+   translation direction ≤ 5°, ≥ 100 inliers. The same pair is then run on
+   the CPU and the shares of pyramid pixels, selected keypoints and
+   descriptor bits that differ are printed (keypoints: ≤ 1%).
 4. Times: of each kernel, its plain version and one PyTorch library call
    computing the same function where there is one, two times each: the
    device time (torch.profiler over 20 back-to-back calls: the summed
@@ -32,7 +39,8 @@ Phases (any failure raises, so the script exits non-zero):
    events around one call, median of 20: what one caller waits, Python
    wrapper and launch latency included); per wrapper the host
    microseconds per call (1000 calls without a synchronise). Each stage
-   and the whole pair by call time.
+   and the whole pair by call time. K1 all levels in one launch against
+   one launch per level (and the parent's kernel with --parent).
 5. rectify (the warping slice's path): a raw, distorted EuRoC-size stereo
    pair of the same scene (0.11 m baseline, < 1° relative rotation,
    K_EUROC and radtan distortion) → StereoRectifier.from_calib →
@@ -52,17 +60,20 @@ Phases (any failure raises, so the script exits non-zero):
    copied to the host first, behind no, 0.4 ms and 2.7 ms of queued work.
 7. lane_shift: K8 at the shapes the JAX package's sheared branch gives it
    for the 1080p 30° warp (s = 1920, ht = 3944, 3 channels).
-8. shear: warp_affine(method="shear") at 1080p RGB, 25° (canvas 3072):
-   6 K9 launches, each input held to the plain version.
+8. shear: warp_affine(method="shear") at 1080p RGB, 25° (canvas 3072): K9
+   row mode shear_x 4 launches, column mode shear_y 2, each call held to
+   its plain version; each column pass takes a row pass's output as it is
+   and hands its own to the next row pass (no transpose copy). One pass of
+   each mode timed, beside the transposing chain the column mode replaced.
 
 9. orb_variants (the third slice): the other describe forms of ORB on the
    480×752 frame with OrbConfig(): describe="unpaired" (K4 windows 2, K3
-   brief_sample 1 on (K, 48, 128) windows, fast_harris 8) with descriptors
-   and angles equal to the paired run's and to the index form's;
-   brief="lane_gather" (K5
-   lane_gather 4), bit-equal descriptors again; OrbConfig(n_features=2001)
-   (an odd budget sum); describe="gather"; the quadtree pipeline (windows
-   16, brief_sample 8; keypoints kept per level); harris_at_windows at the
+   brief_rotated 1 on (K, 48, 128) windows, fast_harris 1) with
+   descriptors and angles equal to the paired run's and to the index
+   form's; brief="lane_gather" (K5 lane_gather 4), bit-equal descriptors
+   again; OrbConfig(n_features=2001) (an odd budget sum);
+   describe="gather"; the quadtree pipeline (windows 16, brief_rotated 8;
+   keypoints kept per level); harris_at_windows at the
    level-0 keypoints (windows 1) against the dense central-gradient map.
 10. lk: frame 2 = warp_affine (K7) of frame 1 by a 2° rotation about the
    centre plus a (6, −4) px shift; the valid ORB keypoints of frame 1 are
@@ -83,8 +94,10 @@ before it a JSON object with one entry per kernel; the last line is
 
 from __future__ import annotations
 
+import argparse
 import inspect
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -104,7 +117,11 @@ H, W = 480, 752
 SEED = 0
 REPS = 20
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
-F32_OPS_PER_S = 67e12       # float32 outside the tensor cores
+# thread-operations a Hopper SM issues per clock outside the tensor cores
+# (an FMA counts as one): times the SM count and the maximum SM clock of
+# the card, read in main(), they are the operation bounds' peak rates
+OPS_PER_SM_CLOCK = {"f32": 128, "int32": 64}
+RATES = {}                  # ops per second by type, set in main()
 K_EUROC = np.array([[458.654, 0.0, 367.215], [0.0, 457.296, 248.375],
                     [0.0, 0.0, 1.0]])
 # radtan k1 k2 p1 p2 k3 of tests/test_geometry.py:71-72
@@ -130,6 +147,8 @@ KERNELS = {
                    "kornia_tpu/ops/warp_pallas.py:835"),
     "shear_x": ("kornia_tpu_torch/ops/csrc/shear_x.cu",
                 "kornia_tpu/ops/warp_shear.py:53"),
+    "shear_y": ("kornia_tpu_torch/ops/csrc/shear_x.cu",
+                "kornia_tpu/ops/warp_shear.py:53"),
 }
 HW_1080P = (1080, 1920)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -144,12 +163,25 @@ def log(*args):
     print(*args, flush=True)
 
 
-def card() -> str:
+def smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def card() -> str:
+    return smi("name,power.limit")
+
+
+def issue_rates():
+    """(SMs, max SM clock in MHz): the f32 and int32 issue rates of the
+    card into RATES."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(smi("clocks.max.sm").split()[0])
+    for kind, per in OPS_PER_SM_CLOCK.items():
+        RATES[kind] = per * sms * mhz * 1e6
+    return sms, mhz
 
 
 def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
@@ -240,10 +272,10 @@ _ENQUEUES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
 TRACE_STATS = {"traces": 0, "again": 0, "lost": 0}
 
 
-def host_us(fn, calls: int = 1000, per: int = 1) -> float:
-    """Host microseconds per wrapper call: ``calls`` calls of ``fn`` (each
-    ``per`` wrapper calls) without a synchronise. Where the kernel outlasts
-    its enqueue the launch queue fills and this reads the kernel."""
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call: ``calls`` calls of ``fn`` without a
+    synchronise. Where the kernel outlasts its enqueue the launch queue
+    fills and this reads the kernel."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -251,19 +283,15 @@ def host_us(fn, calls: int = 1000, per: int = 1) -> float:
         fn()
     dt = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return dt * 1e6 / (calls * per)
+    return dt * 1e6 / calls
 
 
-def kernel_times(kernel, plain, library=None, per: int = 1,
-                 parts=None) -> dict:
+def kernel_times(kernel, plain, library=None) -> dict:
     """Device and call times of a kernel wrapper, its plain version and
     its library call; ``ms`` and ``library_ms`` are the call times under
-    the names the earlier rows used. ``parts``: the single wrapper calls
-    of ``kernel`` where it makes several on unlike inputs; their device
-    times are read one by one and summed."""
-    row = {"device_ms": sum(device_ms(f) for f in parts or [kernel]),
-           "call_ms": cuda_ms(kernel),
-           "host_us": host_us(kernel, per=per),
+    the names the earlier rows used."""
+    row = {"device_ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
+           "host_us": host_us(kernel),
            "plain_device_ms": device_ms(plain), "plain_ms": cuda_ms(plain),
            "library_device_ms": None, "library_call_ms": None}
     if library is not None:
@@ -288,6 +316,11 @@ def fmt_times(row: dict, library: str = "library") -> str:
 TIME_KEYS = ("device_ms", "call_ms", "host_us", "ms", "plain_ms",
              "plain_device_ms", "library_device_ms", "library_call_ms",
              "library_ms")
+# times of the route a redesign replaced, taken in the same run: "before"
+# with this tree's code, "parent" with the parent tree's kernels (--parent)
+BEFORE_KEYS = ("before_device_ms", "before_call_ms", "parent_device_ms",
+               "parent_call_ms", "parent_chain_device_ms",
+               "parent_chain_call_ms")
 
 
 # --------------------------------------------------------------------------
@@ -474,29 +507,34 @@ def device_share(label, fn, card_line):
 # --------------------------------------------------------------------------
 
 
-def bound(nbytes, ops=0):
-    """(least ms, what bounds it) at the card's published peaks."""
+def bound(nbytes, int_ops=0, f32_ops=0):
+    """(least ms, what bounds it): the bytes at the published memory rate,
+    or the integer and the f32 operations at their issue rates (two pipes
+    that run side by side, so the slower of the two), whichever is
+    longer."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / F32_OPS_PER_S * 1e3
+    to = max(int_ops / RATES["int32"], f32_ops / RATES["f32"]) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 class Record:
-    """Record the arguments of every call of one function of ``mod`` (a
-    kernel wrapper of cuda_kernels by default) while the block runs; the
-    calls themselves go through."""
+    """Record the arguments (``calls``) and results (``outs``) of every
+    call of one function of ``mod`` (a kernel wrapper of cuda_kernels by
+    default) while the block runs; the calls themselves go through."""
 
     def __init__(self, name: str, mod=ck):
         self.name = name
         self.mod = mod
         self.calls = []
+        self.outs = []
 
     def __enter__(self):
         self.orig = getattr(self.mod, self.name)
 
         def rec(*args, **kwargs):
             self.calls.append((args, kwargs))
-            return self.orig(*args, **kwargs)
+            self.outs.append(self.orig(*args, **kwargs))
+            return self.outs[-1]
 
         setattr(self.mod, self.name, rec)
         return self
@@ -587,10 +625,50 @@ def counted(fn):
 
 
 def only(launches, want):
-    full = {name: 0 for name in ck.SOURCES}
+    full = {name: 0 for name in ck.LAUNCHES}
     full.update(want)
     if launches != full:
         raise AssertionError(f"launch counts {launches} != {full}")
+
+
+class PerLevelK1:
+    """While the block runs, ORB takes K1's maps from one launch per level
+    (the route before ``fast_harris_levels``)."""
+
+    def __enter__(self):
+        self.saved = ck.fast_harris_levels
+        ck.fast_harris_levels = lambda levels, thr: [
+            self.saved([lv], thr)[0] for lv in levels]
+
+    def __exit__(self, *exc):
+        ck.fast_harris_levels = self.saved
+
+
+def load_parent(root: str):
+    """The parent tree's kernel wrappers, for before/after times in one
+    run: ``root``'s own ``kornia_tpu_torch/ops/cuda_kernels.py`` loaded
+    under another module name, with its K1 and K9 built from ``root``'s
+    sources into ``root``'s build directory."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "parent_cuda_kernels",
+        os.path.join(root, "kornia_tpu_torch", "ops", "cuda_kernels.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.build(("fast_harris", "shear_x"))
+    return mod
+
+
+def in_turns(new, old):
+    """Device and call ms of two functions on one machine, taken in the
+    order old, new, new, old: ({"device": [..], "call": [..]} of new, the
+    same of old), each list in the order taken."""
+    t = {"new": {"device": [], "call": []}, "old": {"device": [], "call": []}}
+    for which in ("old", "new", "new", "old"):
+        fn = new if which == "new" else old
+        t[which]["device"].append(device_ms(fn))
+        t[which]["call"].append(cuda_ms(fn))
+    return t["new"], t["old"]
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -700,8 +778,8 @@ def phase_rectify(card_line):
     path()                                          # warm-up
     (g1, g2, f1, f2, m), launches = counted(path)
     log(f"rectify path launches: {launches}")
-    only(launches, {"remap": 2, "fast_harris": 16, "windows_paired": 4,
-                    "brief_sample": 2})
+    only(launches, {"remap": 2, "fast_harris": 2, "windows_paired": 4,
+                    "brief_rotated": 2})
     x1, x2, mk = matching.matched_points(f1.xy, f2.xy, m)
     dy = (x1[:, 1] - x2[:, 1]).abs()[mk].double()
     disp = (x1[:, 0] - x2[:, 0])[mk].double()
@@ -939,8 +1017,9 @@ def phase_lane_shift(card_line):
     return row
 
 
-def phase_shear(card_line):
-    """warp_affine(method="shear") at 1080p RGB, 25°: six K9 passes."""
+def phase_shear(card_line, parent=None):
+    """warp_affine(method="shear") at 1080p RGB, 25°: four K9 row passes
+    and two column passes. Returns (shear_x row, shear_y row)."""
     hh, ww = HW_1080P
     img = np.random.default_rng(SEED + 3).integers(0, 256, (hh, ww, 3),
                                                    np.uint8)
@@ -952,47 +1031,99 @@ def phase_shear(card_line):
 
     fn()                                            # warm-up
     out, launches = counted(fn)
-    only(launches, {"shear_x": 6})
+    only(launches, {"shear_x": 4, "shear_y": 2})
     if out.dtype != torch.uint8 or tuple(out.shape) != (hh, ww, 3):
         raise AssertionError("shear warp output shape/dtype")
-    with Record("shear_x") as rec:
+    with Record("shear_x") as rec_x, Record("shear_y") as rec_y:
         fn()
-    err = 0.0
-    for args, kw in rec.calls:
-        e = max_err(ck.shear_x(*args, **kw), ck._shear_x_plain(*args, **kw))
-        if e != 0.0:
-            raise AssertionError(f"shear_x differs from its plain version: "
-                                 f"{e}")
-        err = max(err, e)
-    canvas, shifts = rec.calls[0][0]
+    # no canvas copy around a column pass: it reads a row pass's output as
+    # it is, and the next row pass reads its output as it is
+    x_in = {a[0].data_ptr() for a, _ in rec_x.calls}
+    x_out = {o.data_ptr() for o in rec_x.outs}
+    for (a, _), o in zip(rec_y.calls, rec_y.outs):
+        if a[0].data_ptr() not in x_out or o.data_ptr() not in x_in:
+            raise AssertionError("a column pass's canvas was copied")
+    errs = {}
+    for name, rec, plain in (("shear_x", rec_x, ck._shear_x_plain),
+                             ("shear_y", rec_y, ck._shear_y_plain)):
+        errs[name] = 0.0
+        for (args, kw), got in zip(rec.calls, rec.outs):
+            e = max_err(got, plain(*args, **kw))
+            if e != 0.0:
+                raise AssertionError(f"{name} differs from its plain "
+                                     f"version: {e}")
+    canvas, shifts = rec_x.calls[0][0]
+    canvas_y, shifts_y = rec_y.calls[0][0]
     b, c, _ = canvas.shape
     nbytes = canvas.numel() * 4 * 2 + shifts.numel() * 4
     bms, by = bound(nbytes)
     xs = torch.arange(c, dtype=torch.float32, device=DEV)
-    grid = _grid(xs[None, :] + shifts[:, None], xs[:, None].expand(c, c),
-                 c, c)
-    lib_in = canvas[None] if canvas.ndim == 2 else canvas[:, None]
+    grids = {
+        "shear_x": _grid(xs[None, :] + shifts[:, None],
+                         xs[:, None].expand(c, c), c, c),
+        "shear_y": _grid(xs[None, :].expand(c, c),
+                         xs[:, None] + shifts_y[None, :], c, c)}
 
-    def lib():
-        return torch.nn.functional.grid_sample(
-            lib_in, grid.expand(lib_in.shape[0], c, c, 2), mode="bilinear",
+    def lib(name, src):
+        inp = src[:, None]
+        return lambda: torch.nn.functional.grid_sample(
+            inp, grids[name].expand(b, c, c, 2), mode="bilinear",
             padding_mode="zeros", align_corners=True)
 
-    row = {"launches": launches["shear_x"], "max_abs_err": err,
-           "bound_ms": bms, "bound_by": by}
-    row.update(kernel_times(lambda: ck.shear_x(canvas, shifts),
-                            lambda: ck._shear_x_plain(canvas, shifts), lib))
+    def chain(kernel=ck.shear_x):
+        """The column pass before: the row pass on the transpose, between
+        two transpose copies (the second one made by the next row pass)."""
+        return lambda: kernel(canvas_y.transpose(-1, -2).contiguous(),
+                              shifts_y).transpose(-1, -2).contiguous()
+
+    rows = {}
+    for name, kern, plain, (cv, sh) in (
+            ("shear_x", ck.shear_x, ck._shear_x_plain, (canvas, shifts)),
+            ("shear_y", ck.shear_y, ck._shear_y_plain,
+             (canvas_y, shifts_y))):
+        row = {"launches": launches[name], "max_abs_err": errs[name],
+               "bound_ms": bms, "bound_by": by}
+        row.update(kernel_times(lambda k=kern, a=cv, s=sh: k(a, s),
+                                lambda p=plain, a=cv, s=sh: p(a, s),
+                                lib(name, cv)))
+        rows[name] = row
+        log(f"K9 {name} ({b} x {c} x {c} f32 canvas, "
+            f"{'row' if name == 'shear_x' else 'column'} mode): launches "
+            f"{launches[name]} per warp, all bit-equal; one pass: "
+            f"{fmt_times(row, 'grid_sample')}, bound {bms:.5f} ms ({by}, "
+            f"{nbytes} B) [{card_line}]")
+    col = rows["shear_y"]
+    col["before_device_ms"] = device_ms(chain())
+    col["before_call_ms"] = cuda_ms(chain())
+    log(f"K9 column pass before (transpose copy + row pass + transpose "
+        f"copy): device {col['before_device_ms']:.4f} ms / call "
+        f"{col['before_call_ms']:.4f} ms; column mode / row mode device "
+        f"{col['device_ms'] / rows['shear_x']['device_ms']:.3f} "
+        f"[{card_line}]")
+    if parent is not None:
+        if not torch.equal(parent.shear_x(canvas, shifts), rec_x.outs[0]):
+            raise AssertionError("parent shear_x differs")
+        new, old = in_turns(lambda: ck.shear_x(canvas, shifts),
+                            lambda: parent.shear_x(canvas, shifts))
+        cnew, cold = in_turns(chain(), chain(parent.shear_x))
+        rows["shear_x"]["parent_device_ms"] = old["device"]
+        rows["shear_x"]["parent_call_ms"] = old["call"]
+        col["parent_chain_device_ms"] = cold["device"]
+        col["parent_chain_call_ms"] = cold["call"]
+        log(f"K9 in turns (parent, new, new, parent), one row pass: device "
+            f"new {new['device']} parent {old['device']} ms, call new "
+            f"{new['call']} parent {old['call']} ms; the column pass before "
+            f"with the parent's kernel: device {cold['device']} ms, call "
+            f"{cold['call']} ms (with this tree's: {cnew['device']}, "
+            f"{cnew['call']}) [{card_line}]")
     exact = warp.warp_affine(x, m, HW_1080P, device=DEV)
     inner = (slice(hh // 5, hh - hh // 5), slice(ww // 6, ww - ww // 6))
     dev = (out[inner].float() - exact[inner].float()).abs()
-    log(f"K9 shear_x ({b} x {c} x {c} f32 canvas): launches 6 per warp, "
-        f"all 6 inputs bit-equal; one pass: "
-        f"{fmt_times(row, 'grid_sample')}, bound {bms:.5f} ms ({by}, "
-        f"{nbytes} B) [{card_line}]")
     log(f"shear route vs exact K7 warp at 25 deg (inner region): mean |diff| "
         f"{float(dev.mean()):.3f}, max {float(dev.max()):.0f} of 255; whole "
-        f"shear warp {cuda_ms(fn):.3f} ms [{card_line}]")
-    return row
+        f"shear warp device {device_ms(fn):.3f} ms, call {cuda_ms(fn):.3f} "
+        f"ms [{card_line}]")
+    return rows["shear_x"], col
 
 
 # --------------------------------------------------------------------------
@@ -1055,24 +1186,24 @@ def phase_orb_variants(card_line, img1):
     with Record("brief_from_windows", orb) as rec_desc:
         unp, n_unp = counted(lambda: run(describe="unpaired"))
     log(f"orb unpaired launches: {n_unp}")
-    only(n_unp, {"fast_harris": 8, "windows": 2, "brief_sample": 1})
+    only(n_unp, {"fast_harris": 1, "windows": 2, "brief_rotated": 1})
     for name in ("xy", "mask", "angle", "descriptors"):
         if not torch.equal(getattr(unp, name), getattr(paired, name)):
             raise AssertionError(f"unpaired ORB {name} differs from paired")
     lg, n_lg = counted(lambda: run(brief="lane_gather"))
     log(f"orb lane_gather launches: {n_lg}")
-    only(n_lg, {"fast_harris": 8, "windows": 2, "lane_gather": 4})
+    only(n_lg, {"fast_harris": 1, "windows": 2, "lane_gather": 4})
     if not torch.equal(lg.descriptors, paired.descriptors):
         raise AssertionError("lane_gather BRIEF differs from paired")
     log("orb variants: unpaired xy/mask/angle/descriptors and lane_gather "
         "descriptors bit-equal to the paired run "
         f"({int(paired.mask.sum())} keypoints)")
     odd, n_odd = counted(lambda: run(orb.OrbConfig(n_features=2001)))
-    only(n_odd, {"fast_harris": 8, "windows": 2, "brief_sample": 1})
+    only(n_odd, {"fast_harris": 1, "windows": 2, "brief_rotated": 1})
     if tuple(odd.descriptors.shape) != (2001, 256):
         raise AssertionError("odd budget sum: descriptor shape")
     gat, n_gat = counted(lambda: run(describe="gather"))
-    only(n_gat, {"fast_harris": 8})
+    only(n_gat, {"fast_harris": 1})
     flips = int((gat.descriptors != paired.descriptors)[paired.mask].sum())
     log(f"orb n_features=2001: {int(odd.mask.sum())} keypoints, launches "
         f"{n_odd}; describe=gather: {flips} of "
@@ -1083,7 +1214,7 @@ def phase_orb_variants(card_line, img1):
         quad, n_quad = counted(lambda: orb.orb_detect_and_describe_quadtree(
             frame, cfg, device=DEV))
     log(f"orb quadtree launches: {n_quad}")
-    only(n_quad, {"windows": 16, "brief_sample": 8})
+    only(n_quad, {"windows": 16, "brief_rotated": 8})
     n_bits = check_brief_calls(rec_desc.calls, "unpaired and quadtree")
     if len(rec_desc.calls) != 9 or n_bits != 2 * cfg.n_features * 256:
         raise AssertionError("recorded describe calls of the unpaired and "
@@ -1349,7 +1480,7 @@ def phase_preprocess(card_line):
     touched[np.ix_(np.unique(yi), np.unique(xi))] = True
     nbytes = (int(touched.sum()) * 3 + out.numel() * 4
               + (yi.size + xi.size) * 8)
-    bms, by = bound(nbytes, out.numel() * 11)
+    bms, by = bound(nbytes, f32_ops=out.numel() * 11)
     row = {"max_abs_err": err, "bound_ms": bms, "bound_by": by}
     row.update(kernel_times(lambda: ck.fused_preprocess(*args),
                             lambda: ck._fused_preprocess_plain(*args),
@@ -1422,6 +1553,11 @@ def phase_preprocess(card_line):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="the parent commit's tree: time its K1 and K9 "
+                         "against this tree's, in turns")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; a GPU is "
                  "required")
@@ -1429,6 +1565,9 @@ def main():
     log(f"card: {card_line}")
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+    sms, mhz = issue_rates()
+    log(f"issue rates: {sms} SMs at {mhz:.0f} MHz max: f32 "
+        f"{RATES['f32']:.4e}, int32 {RATES['int32']:.4e} ops/s")
 
     # 1. build
     build_s = ck.build()
@@ -1436,36 +1575,58 @@ def main():
         f"one nvcc each, in parallel)")
     for name, text in ck.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "stack" in line:
                 log(f"  {name}: {line.strip()}")
+    parent = None
+    if args.parent:
+        t0 = time.perf_counter()
+        parent = load_parent(args.parent)
+        log(f"parent K1 and K9 from {args.parent}: built in "
+            f"{time.perf_counter() - t0:.2f} s")
 
     img1, img2, r_gt, t_gt = render_scene()
     cfg = orb.OrbConfig()
+    thr = cfg.fast_threshold_low
     budgets = orb._level_budgets(cfg)
     g1 = torch.as_tensor(img1, device=DEV)
     levels = orb._pyramid(g1, cfg)
+    levels2 = orb._pyramid(torch.as_tensor(img2, device=DEV), cfg)
     shapes = [tuple(lv.shape) for lv in levels]
     log(f"levels: {shapes}; budgets {budgets}")
 
     # 2. kernels vs plain versions on the card
     errs = {}
     k1_err = 0.0
-    for lv in levels:
-        s_k, h_k = ck.fast_harris(lv, cfg.fast_threshold_low)
-        s_p, h_p = ck._fast_harris_plain(lv, cfg.fast_threshold_low)
-        torch.cuda.synchronize()
-        if not torch.equal(s_k, s_p):
-            raise AssertionError(f"fast_harris score/NMS differs at {lv.shape}")
-        if not torch.equal(h_k, h_p):
-            raise AssertionError(f"fast_harris Harris differs at {lv.shape}: "
-                                 f"{float((h_k - h_p).abs().max())}")
-        k1_err = max(k1_err, float((s_k - s_p).abs().max()),
-                     float((h_k - h_p).abs().max()))
+    for view in (levels, levels2):
+        for (s_k, h_k), lv in zip(ck.fast_harris_levels(view, thr), view):
+            s_p, h_p = ck._fast_harris_plain(lv, thr)
+            s_1, h_1 = ck.fast_harris(lv, thr)
+            torch.cuda.synchronize()
+            if not torch.equal(s_k, s_p):
+                raise AssertionError(f"fast_harris score/NMS differs at "
+                                     f"{lv.shape}")
+            if not torch.equal(h_k, h_p):
+                raise AssertionError(f"fast_harris Harris differs at "
+                                     f"{lv.shape}: "
+                                     f"{float((h_k - h_p).abs().max())}")
+            if not (torch.equal(s_k, s_1) and torch.equal(h_k, h_1)):
+                raise AssertionError(f"fast_harris_levels differs from the "
+                                     f"one-level call at {lv.shape}")
+            if parent is not None and not all(
+                    torch.equal(a, b) for a, b in zip(
+                        parent.fast_harris(lv, thr), (s_k, h_k))):
+                raise AssertionError(f"parent fast_harris differs at "
+                                     f"{lv.shape}")
+            k1_err = max(k1_err, float((s_k - s_p).abs().max()),
+                         float((h_k - h_p).abs().max()))
     errs["fast_harris"] = k1_err
-    log(f"K1 fast_harris: score, NMS and Harris bit-equal on all "
-        f"{len(levels)} levels")
+    log(f"K1 fast_harris_levels: score, NMS and Harris of all "
+        f"{len(levels)} levels of both views in one launch each, bit-equal "
+        f"to the plain version and to the one-level calls"
+        + (" and to the parent's kernel" if parent is not None else ""))
 
-    sels = [orb._select_level(lv, b, cfg) for lv, b in zip(levels, budgets)]
+    sels = [orb._select_level(lv, b, cfg, mp) for lv, b, mp in zip(
+        levels, budgets, ck.fast_harris_levels(levels, thr))]
     xy_ints = [torch.round(s[0]).to(torch.int32) for s in sels]
     # force border keypoints into every level: corners and edges
     for i, (xy, lv) in enumerate(zip(xy_ints, levels)):
@@ -1538,8 +1699,8 @@ def main():
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
     log(f"launches for the pair: {launches}")
-    only(launches, {"fast_harris": 16, "windows_paired": 4,
-                    "brief_sample": 2})
+    only(launches, {"fast_harris": 2, "windows_paired": 4,
+                    "brief_rotated": 2})
     n_bits = check_brief_calls(rec_pair.calls, "pair")
     if len(rec_pair.calls) != 2 or n_bits != 2 * cfg.n_features * 256:
         raise AssertionError("recorded describe calls of the pair")
@@ -1566,6 +1727,20 @@ def main():
     if not (rerr <= 0.5 and terr <= 5.0 and n_inl >= 100):
         raise AssertionError("pose outside the bounds (0.5 deg, 5 deg, "
                              ">= 100 inliers)")
+    with PerLevelK1():
+        q1, q2, qm, qres = run_pair(
+            img1, img2, "cuda", torch.Generator(device=DEV).manual_seed(SEED))
+    for fa, fb in ((f1, q1), (f2, q2)):
+        for name in fa._fields:
+            if not torch.equal(getattr(fa, name), getattr(fb, name)):
+                raise AssertionError(f"ORB {name} differs from the route "
+                                     f"with one K1 launch per level")
+    if not (torch.equal(m.idx, qm.idx) and int(qres.n_inliers) == n_inl):
+        raise AssertionError("matches or inliers differ from the route with "
+                             "one K1 launch per level")
+    log("pair: both frames' ORB features (xy, score, angle, octave, "
+        "descriptors, mask), the matches and the inliers equal the route "
+        "with one K1 launch per level")
 
     t0 = time.perf_counter()
     c1, c2, cm, _ = run_pair(img1, img2, "cpu")
@@ -1600,7 +1775,6 @@ def main():
                              "CPU run")
 
     # 4. times
-    thr = cfg.fast_threshold_low
     hc, wc = canvas.shape
     xy_pad = xy_c.long()
     ri = (xy_pad[:, 1, None] + torch.arange(40, device=DEV)).clamp(max=hc - 1)
@@ -1616,10 +1790,19 @@ def main():
     if not torch.equal(torch.gather(wflat, 1, flat_idx), b_k):
         raise AssertionError("K3 library gather disagrees")
     t_k1 = kernel_times(
-        lambda: [ck.fast_harris(lv, thr) for lv in levels],
-        lambda: [ck._fast_harris_plain(lv, thr) for lv in levels],
-        per=len(levels),
-        parts=[lambda lv=lv: ck.fast_harris(lv, thr) for lv in levels])
+        lambda: ck.fast_harris_levels(levels, thr),
+        lambda: [ck._fast_harris_plain(lv, thr) for lv in levels])
+    k1_new, k1_per_level = in_turns(
+        lambda: ck.fast_harris_levels(levels, thr),
+        lambda: [ck.fast_harris(lv, thr) for lv in levels])
+    t_k1["before_device_ms"] = k1_per_level["device"]
+    t_k1["before_call_ms"] = k1_per_level["call"]
+    if parent is not None:
+        k1_new_p, k1_parent = in_turns(
+            lambda: ck.fast_harris_levels(levels, thr),
+            lambda: [parent.fast_harris(lv, thr) for lv in levels])
+        t_k1["parent_device_ms"] = k1_parent["device"]
+        t_k1["parent_call_ms"] = k1_parent["call"]
     t_k2 = kernel_times(
         lambda: ck.windows_paired(canvas, xy_c, W),
         lambda: ck._windows_paired_plain(canvas, xy_c, W),
@@ -1638,11 +1821,15 @@ def main():
 
     # bounds from this run's inputs
     px = sum(a * b for a, b in shapes)
-    # per pixel: 16 ring differences, 4 doubling steps of min and max over
-    # 16 arcs (128), 2×15 to reduce the arcs, 3 for max/threshold, 9 for
-    # the NMS; Harris: 4 for the gradients, 3 products, 3×(5+5) multiplies
-    # and 3×(4+4) adds for the window, 6 for det/trace/response
-    k1_ops = px * (16 + 128 + 30 + 3 + 9 + 4 + 3 + 54 + 6)
+    # per pixel, the fewest card operations: integer, 16 ring differences;
+    # per side (min for brighter, max for darker) 16 arcs of 3 and 16 arcs
+    # of 9 (three arcs of 3), then the best of the 16 arcs in 8, each one
+    # three-way min/max (one sm_90a instruction, at the int32 rate); 3 for
+    # the score and threshold. f32: 9 for the NMS; Harris: 4 for the
+    # gradients, 3 products, 3×(5+5) multiplies and 3×(4+4) adds for the
+    # window, 6 for det/trace/response.
+    k1_int = px * (16 + 2 * (16 + 16 + 8) + 3)
+    k1_f32 = px * (9 + 4 + 3 + 54 + 6)
     k1_bytes = px * (1 + 4 + 4)
     # canvas values the windows cover, each read once
     touched = torch.zeros_like(canvas, dtype=torch.bool)
@@ -1660,18 +1847,40 @@ def main():
                  + bits_k.numel())
 
     rows_out = []
-    for name, times, (bms, by) in (
-            ("fast_harris", t_k1, bound(k1_bytes, k1_ops)),
-            ("windows_paired", t_k2, bound(k2_bytes)),
-            ("brief_sample", t_k3, bound(k3_bytes))):
+    # K3's row is its brief_rotated entry, which the path runs
+    for name, n_launch, times, (bms, by) in (
+            ("fast_harris", launches["fast_harris"], t_k1,
+             bound(k1_bytes, k1_int, k1_f32)),
+            ("windows_paired", launches["windows_paired"], t_k2,
+             bound(k2_bytes)),
+            ("brief_sample", launches["brief_rotated"], t_k3,
+             bound(k3_bytes))):
         src, rep = KERNELS[name]
         rows_out.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name], "max_abs_err": errs[name],
+            "launches": n_launch, "max_abs_err": errs[name],
             "bound_ms": bms, "bound_by": by, **times})
         log(f"time {name}: {fmt_times(times)}, bound {bms:.5f} ms ({by}) "
             f"[{card_line}]")
+    k1 = rows_out[0]
+    k1_bounds = (bound(k1_bytes)[0], k1_int / RATES["int32"] * 1e3,
+                 k1_f32 / RATES["f32"] * 1e3)
+    log(f"time fast_harris, all {len(levels)} levels of one frame in turns "
+        f"(one launch per level, one launch, one launch, one launch per "
+        f"level): one launch device {k1_new['device']} ms / call "
+        f"{k1_new['call']} ms; one launch per level device "
+        f"{k1_per_level['device']} ms / call {k1_per_level['call']} ms"
+        + (f"; the parent's kernel, one launch per level, in turns with "
+           f"one launch: device {k1_parent['device']} ms / call "
+           f"{k1_parent['call']} ms (one launch {k1_new_p['device']} / "
+           f"{k1_new_p['call']})" if parent is not None else "")
+        + f"; bound {k1['bound_ms']:.5f} ms ({k1['bound_by']}: bytes "
+        f"{k1_bounds[0]:.5f}, {k1_int} int32 ops {k1_bounds[1]:.5f}, "
+        f"{k1_f32} f32 ops {k1_bounds[2]:.5f} ms at the issue rates) "
+        f"[{card_line}]")
     k3 = rows_out[-1]
+    k3["launches_by_entry"] = {"brief_rotated": launches["brief_rotated"],
+                               "brief_sample": launches["brief_sample"]}
     k3["max_abs_err"] = max(errs["brief_sample"], errs["brief_rotated"])
     k3["entries"] = {"brief_rotated": errs["brief_rotated"],
                      "brief_sample": errs["brief_sample"]}
@@ -1710,9 +1919,18 @@ def main():
         return ms
 
     stage("pyramid (1 frame)", lambda: orb._pyramid(g1, cfg))
-    stage("detect+select, 8 levels (1 frame)",
-          lambda: [orb._select_level(lv, b, cfg)
-                   for lv, b in zip(levels, budgets)])
+
+    def select(per_level):
+        maps = ([None] * len(levels) if per_level
+                else ck.fast_harris_levels(levels, thr))
+        return [orb._select_level(lv, b, cfg, mp)
+                for lv, b, mp in zip(levels, budgets, maps)]
+
+    # before / after in turns, so that both see the same machine
+    for per_level in (True, False, False, True):
+        stage("detect+select, 8 levels (1 frame), "
+              + ("one K1 launch per level" if per_level
+                 else "one K1 launch"), lambda: select(per_level))
     stage("blur, 8 levels (1 frame)",
           lambda: [gaussian_blur(g, (7, 7), 2.0) for g in grays_f])
     blurs = [gaussian_blur(g, (7, 7), 2.0) for g in grays_f]
@@ -1749,8 +1967,16 @@ def main():
         x1, x2, K_EUROC, K_EUROC, mask=mk, params=twoview.TwoViewParams(),
         generator=torch.Generator(device=DEV).manual_seed(SEED),
         device="cuda"))
-    stage("whole pair", lambda: run_pair(
-        img1, img2, "cuda", torch.Generator(device=DEV).manual_seed(SEED)))
+    def pair():
+        return run_pair(img1, img2, "cuda",
+                        torch.Generator(device=DEV).manual_seed(SEED))
+
+    for per_level in (True, False, False, True):
+        if per_level:
+            with PerLevelK1():
+                stage("whole pair, one K1 launch per level", pair)
+        else:
+            stage("whole pair", pair)
     device_share("whole pair", lambda: run_pair(
         img1, img2, "cuda", torch.Generator(device=DEV).manual_seed(SEED)),
         card_line)
@@ -1761,7 +1987,7 @@ def main():
     k7["max_abs_err"] = max([k7["max_abs_err"]]
                             + [c["max_abs_err"] for c in k7["cases"]])
     k8 = phase_lane_shift(card_line)
-    k9 = phase_shear(card_line)
+    k9, k9y = phase_shear(card_line, parent)
 
     # 9-11. the third slice
     k4, k5, k3u, feats = phase_orb_variants(card_line, img1)
@@ -1776,14 +2002,15 @@ def main():
     k7["paths"] = {"rectify": k7["launches"], **lk_remaps}
     k7["launches"] = sum(k7["paths"].values())
     k6 = phase_preprocess(card_line)
-    keep = ("launches", "max_abs_err", "bound_ms", "bound_by") + TIME_KEYS
+    keep = ("launches", "max_abs_err", "bound_ms", "bound_by") + TIME_KEYS \
+        + BEFORE_KEYS
     for name, row in (("windows", k4), ("lane_gather", k5),
                       ("preprocess", k6), ("remap", k7), ("lane_shift", k8),
-                      ("shear_x", k9)):
+                      ("shear_x", k9), ("shear_y", k9y)):
         src, rep = KERNELS[name]
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": rep}
-        entry.update({k: row[k] for k in keep})
+        entry.update({k: row[k] for k in keep if k in row})
         if "cases" in row:
             entry["cases"] = [{k: c[k] for k in ("case",) + keep if k in c}
                               for c in row["cases"]]

@@ -1,9 +1,10 @@
 """ORB detector + descriptor (port of kornia_tpu/features/orb.py).
 
-Per pyramid level: the FAST score, its 3×3 NMS and the dense Harris map
-come from one CUDA kernel (``cuda_kernels.fast_harris``), then the two-tier
-gate and the packed per-cell top-k pick candidates and a stable top-k takes
-the level budget. The describe stage has three forms, chosen by the
+The FAST score, its 3×3 NMS and the dense Harris map of every pyramid
+level come from one CUDA kernel launch
+(``cuda_kernels.fast_harris_levels``); then per level the two-tier gate and
+the packed per-cell top-k pick candidates and a stable top-k takes the
+level budget. The describe stage has three forms, chosen by the
 ``describe=`` argument of :func:`orb_detect_and_describe` (the reference
 picks them by environment variable and backend):
 
@@ -143,15 +144,18 @@ def _pyramid(gray_u8: torch.Tensor, cfg: OrbConfig) -> List[torch.Tensor]:
     return levels
 
 
-def _level_candidates(level_img: torch.Tensor, budget: int, cfg: OrbConfig):
+def _level_candidates(level_img: torch.Tensor, budget: int, cfg: OrbConfig,
+                      maps=None):
     """Per-cell-capped candidates of one octave: (xy (C, 2), score (C,)
-    with −inf in the invalid slots)."""
+    with −inf in the invalid slots). ``maps``: the level's (NMS'd score,
+    Harris map) from ``cuda_kernels.fast_harris_levels``; None computes
+    them for this level alone."""
     lh, lw = level_img.shape
     n_cells = (-(-lh // cfg.cell_size)) * (-(-lw // cfg.cell_size))
     per_cell = max(2, -(-2 * budget // n_cells))
-    # FAST score + NMS and the Harris map come from one kernel pass; the
-    # Harris map goes unused when harris_rescore is off
-    s_lo, hmap = ck.fast_harris(level_img, cfg.fast_threshold_low)
+    # the Harris map goes unused when harris_rescore is off
+    s_lo, hmap = (maps if maps is not None
+                  else ck.fast_harris(level_img, cfg.fast_threshold_low))
     sel = _two_tier_gate(s_lo, cfg.fast_threshold_high, cfg.cell_size)
     common = dict(cell_size=cfg.cell_size,
                   threshold_high=cfg.fast_threshold_high,
@@ -165,11 +169,12 @@ def _level_candidates(level_img: torch.Tensor, budget: int, cfg: OrbConfig):
     return kps.xy, torch.where(kps.mask, kps.score, ninf)
 
 
-def _select_level(level_img: torch.Tensor, budget: int, cfg: OrbConfig):
+def _select_level(level_img: torch.Tensor, budget: int, cfg: OrbConfig,
+                  maps=None):
     """Detection + budgeted selection for one octave: (xy level coords,
     vals, valid). The top-k is stable: the lower index first on ties, as
-    ``lax.top_k``."""
-    xy_all, scores = _level_candidates(level_img, budget, cfg)
+    ``lax.top_k``. ``maps`` as for :func:`_level_candidates`."""
+    xy_all, scores = _level_candidates(level_img, budget, cfg, maps)
     vals, idx = stable_topk(scores, budget)
     xy = xy_all[idx]
     valid = torch.isfinite(vals)
@@ -397,8 +402,9 @@ def orb_detect_and_describe(gray_u8, cfg: OrbConfig = OrbConfig(),
     budgets = _level_budgets(cfg)
     describe = _resolve_describe(describe, brief, sum(budgets))
     levels = _pyramid(gray, cfg)
-    sels = [_select_level(img, budget, cfg)
-            for img, budget in zip(levels, budgets)]
+    maps = ck.fast_harris_levels(levels, cfg.fast_threshold_low)
+    sels = [_select_level(img, budget, cfg, m)
+            for img, budget, m in zip(levels, budgets, maps)]
     grays_f = [img.to(torch.float32) for img in levels]
     blurs = [gaussian_blur(g, (7, 7), 2.0) for g in grays_f]
     xy_ints = [torch.round(xy).to(torch.int32) for xy, _, _ in sels]

@@ -8,14 +8,15 @@ sm_90a and one wrapper here:
 ==============  ==========================================  =================
 wrapper         replaces                                    source
 ==============  ==========================================  =================
-fast_harris     pallas_kernels.py::fast_score_pallas        fast_harris.cu
-                (nms=True, harris=True)
+fast_harris_    pallas_kernels.py::fast_score_pallas        fast_harris.cu
+levels,         (nms=True, harris=True): all levels of a
+fast_harris     pyramid in one launch, or one level
 windows_paired  pallas_kernels.py::                         windows_paired.cu
                 extract_windows_prepared_paired
 brief_sample    pallas_kernels.py::brief_sample_pallas      brief_sample.cu
 brief_rotated   the same kernel, with the tap rotation,     brief_sample.cu
                 clamps and A < B compare of orb.py around
-                it fused in (counted as brief_sample)
+                it fused in
 windows         pallas_kernels.py::extract_windows_prepared windows.cu
                 (and extract_windows_pallas)
 lane_gather     pallas_kernels.py::lane_gather              lane_gather.cu
@@ -25,6 +26,9 @@ remap           warp_pallas.py::_make_kernel                remap.cu
                 (launched by _remap_chunks)
 lane_shift      warp_pallas.py::_lane_shift_pallas          lane_shift.cu
 shear_x         warp_shear.py::_shear_x                     shear_x.cu
+shear_y         the same kernel on the transpose            shear_x.cu
+                (warp_shear.py::_shear_y), as a column
+                pass on the canvas in its own layout
 ==============  ==========================================  =================
 
 Dispatch is by the tensor's device only: a CPU tensor runs the plain
@@ -34,7 +38,9 @@ Build: each source is compiled by ``nvcc`` into its own shared library with
 a plain C interface, loaded with ctypes, in ``kornia_tpu_torch/_build/``
 (git-ignored), named by the hash of the source, so an edited source is
 rebuilt. The first kernel call builds every library, one ``nvcc`` per
-source, all started together. ``LAUNCHES`` counts launches per wrapper.
+source, all started together. ``LAUNCHES`` counts launches per C entry
+point (``KERNELS``: one per library, and the extra entries of
+``_EXTRA_ENTRIES``).
 """
 
 from __future__ import annotations
@@ -65,7 +71,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# C entry points of a library beside ``kt_<library>``
+_EXTRA_ENTRIES = {"brief_sample": ("brief_rotated",), "shear_x": ("shear_y",)}
+KERNELS = SOURCES + tuple(e for v in _EXTRA_ENTRIES.values() for e in v)
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 BUILD_LOG: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -120,15 +130,11 @@ def build(names: Sequence[str] = SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-# C entry points of a library beside ``kt_<library>``
-_EXTRA_ENTRIES = {"brief_sample": ("brief_rotated",)}
-
-
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signature of every entry of library ``name``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
-        "fast_harris": [p, p, p, i, i, f, ctypes.POINTER(f), f, p],
+        "fast_harris": [i, p, p, p, p, p, f, ctypes.POINTER(f), f, p],
         "windows_paired": [p, p, p, i, i, i, i, i, i, p],
         "brief_sample": [p, p, p, p, i, i, i, i, p],
         "brief_rotated": [p, p, p, p, p, i, i, i, p],
@@ -140,6 +146,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                   i, f, p],
         "lane_shift": [p, p, p, i, i, i, i, p],
         "shear_x": [p, p, p, i, i, i, p],
+        "shear_y": [p, p, p, i, i, i, p],
     }
     for entry in (name,) + _EXTRA_ENTRIES.get(name, ()):
         fn = getattr(lib, "kt_" + entry)
@@ -193,23 +200,77 @@ def _fast_harris_plain(img: torch.Tensor, threshold: float):
     return score, hmap
 
 
+# levels one launch takes (the kernel's parameter table)
+FAST_HARRIS_MAX_LEVELS = 16
+
+
+@functools.lru_cache(maxsize=None)
+def _harris_window():
+    """The five Gaussian window taps (block 5, sigma 1) as the kernel's
+    ctypes argument, made once per process."""
+    return (ctypes.c_float * 5)(*[float(v) for v in gaussian_kernel1d(5, 1.0)])
+
+
+@functools.lru_cache(maxsize=64)
+def _level_table(shapes: Tuple[Tuple[int, int], ...]):
+    """The kernel's (hs, ws) ctypes arrays and the levels' element offsets
+    in the flat outputs, made once per pyramid shape."""
+    n = len(shapes)
+    offs = np.cumsum([0] + [h * w for h, w in shapes]).tolist()
+    return ((ctypes.c_int * n)(*[h for h, _ in shapes]),
+            (ctypes.c_int * n)(*[w for _, w in shapes]), offs)
+
+
+def fast_harris_levels(levels: Sequence[torch.Tensor], threshold: float
+                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """FAST score + NMS and the Harris map of every (H, W) u8 level of a
+    pyramid in ONE kernel launch: a list of (score, Harris) pairs, each
+    (H, W) f32, contiguous views of one flat buffer (every level's score
+    map, then every level's Harris map). At most 16 levels, all on one
+    device."""
+    levels = list(levels)
+    if not levels:
+        return []
+    dev = levels[0].device
+    if any(img.device != dev for img in levels):
+        raise ValueError("fast_harris_levels: every level must be on one "
+                         "device")
+    if len(levels) > FAST_HARRIS_MAX_LEVELS:
+        raise ValueError(f"fast_harris_levels: at most "
+                         f"{FAST_HARRIS_MAX_LEVELS} levels, got "
+                         f"{len(levels)}")
+    for i, img in enumerate(levels):
+        if img.dtype != torch.uint8 or img.ndim != 2:
+            raise ValueError(f"fast_harris level {i}: expected a 2-D "
+                             f"torch.uint8 tensor, got {img.ndim}-D "
+                             f"{img.dtype}")
+    if dev.type == "cpu":
+        return [_fast_harris_plain(img, threshold) for img in levels]
+    for i, img in enumerate(levels):
+        _check(img, f"fast_harris level {i}", torch.uint8, 2)
+    shapes = tuple(tuple(img.shape) for img in levels)
+    hs, ws, offs = _level_table(shapes)
+    total = offs[-1]
+    # one buffer: every level's score map, then every level's Harris map
+    out = torch.empty(2 * total, dtype=torch.float32, device=dev)
+    if total:
+        n = len(levels)
+        rc = _kernel("fast_harris")(
+            n, (ctypes.c_void_p * n)(*[img.data_ptr() for img in levels]),
+            hs, ws, out.data_ptr(), out.data_ptr() + 4 * total,
+            float(threshold), _harris_window(), _HARRIS_K,
+            _stream(levels[0]))
+        _launched("fast_harris", rc)
+    return [(out.as_strided((h, w), (w, 1), off),
+             out.as_strided((h, w), (w, 1), total + off))
+            for (h, w), off in zip(shapes, offs)]
+
+
 def fast_harris(img: torch.Tensor, threshold: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(H, W) u8 → (NMS'd FAST-9 score, Harris map), both (H, W) f32."""
-    if img.device.type == "cpu":
-        return _fast_harris_plain(img, threshold)
-    _check(img, "fast_harris img", torch.uint8, 2)
-    h, w = img.shape
-    score = torch.empty((h, w), dtype=torch.float32, device=img.device)
-    hmap = torch.empty_like(score)
-    if h == 0 or w == 0:
-        return score, hmap
-    win = (ctypes.c_float * 5)(*[float(v) for v in gaussian_kernel1d(5, 1.0)])
-    rc = _kernel("fast_harris")(
-        img.data_ptr(), score.data_ptr(), hmap.data_ptr(), h, w,
-        float(threshold), win, _HARRIS_K, _stream(img))
-    _launched("fast_harris", rc)
-    return score, hmap
+    """(H, W) u8 → (NMS'd FAST-9 score, Harris map), both (H, W) f32: the
+    one-level call of :func:`fast_harris_levels`."""
+    return fast_harris_levels([img], threshold)[0]
 
 
 # --------------------------------------------------------------------------
@@ -439,7 +500,7 @@ def brief_rotated(windows: torch.Tensor, cos: torch.Tensor,
         windows.data_ptr(), cos.data_ptr(), sin.data_ptr(),
         pattern.data_ptr(), res.data_ptr(), k, BRIEF_LAYOUTS[layout],
         int(samples), _stream(windows))
-    _launched("brief_sample", rc)
+    _launched("brief_rotated", rc)
     return res
 
 
@@ -831,7 +892,7 @@ def lane_shift(src: torch.Tensor, shifts: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# K9: fractional row shear
+# K9: fractional row and column shears
 # --------------------------------------------------------------------------
 
 
@@ -860,22 +921,50 @@ def _shear_x_plain(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     return torch.where(valid[:, None], out, zero)
 
 
-def shear_x(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
-    """(c, c) or (B, c, c) f32 canvas, (c,) f32 shifts → same shape."""
-    if img.device.type == "cpu":
-        return _shear_x_plain(img, shifts)
+def _shear_launch(entry: str, img: torch.Tensor,
+                  shifts: torch.Tensor) -> torch.Tensor:
+    """Checks and launch of one of the two modes of shear_x.cu."""
     if img.ndim not in (2, 3) or img.shape[-1] != img.shape[-2]:
-        raise ValueError("shear_x img: expected (c, c) or (B, c, c)")
-    _check(img, "shear_x img", torch.float32, img.ndim)
-    _check(shifts, "shear_x shifts", torch.float32, 1)
+        raise ValueError(f"{entry} img: expected (c, c) or (B, c, c)")
+    _check(img, f"{entry} img", torch.float32, img.ndim)
+    _check(shifts, f"{entry} shifts", torch.float32, 1)
     c = img.shape[-1]
     if shifts.shape[0] != c or shifts.device != img.device:
-        raise ValueError("shear_x: shifts must be (c,) on the canvas' device")
+        raise ValueError(f"{entry}: shifts must be (c,) on the canvas' "
+                         "device")
     b = img.shape[0] if img.ndim == 3 else 1
+    if max(b, c) > 65535:
+        raise ValueError(f"{entry}: the batch and the canvas side must be "
+                         "at most 65535")
     out = torch.empty_like(img)
     if out.numel() == 0:
         return out
-    rc = _kernel("shear_x")(img.data_ptr(), shifts.data_ptr(), out.data_ptr(),
-                            b, c, shear_slack(c), _stream(img))
-    _launched("shear_x", rc)
+    rc = _kernel("shear_x", entry)(img.data_ptr(), shifts.data_ptr(),
+                                   out.data_ptr(), b, c, shear_slack(c),
+                                   _stream(img))
+    _launched(entry, rc)
     return out
+
+
+def shear_x(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """(c, c) or (B, c, c) f32 canvas, (c,) f32 shifts (one per row) →
+    same shape."""
+    if img.device.type == "cpu":
+        return _shear_x_plain(img, shifts)
+    return _shear_launch("shear_x", img, shifts)
+
+
+def _shear_y_plain(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """out[..., y, x] = img[..., y + shifts[x], x]: the row shear of the
+    transpose, transposed back (contiguous, as the kernel's output)."""
+    return _shear_x_plain(img.transpose(-1, -2).contiguous(),
+                          shifts).transpose(-1, -2).contiguous()
+
+
+def shear_y(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """Column mode of :func:`shear_x`: (c, c) or (B, c, c) f32 canvas, (c,)
+    f32 shifts (one per column) → same shape, read and written in the
+    canvas' own layout."""
+    if img.device.type == "cpu":
+        return _shear_y_plain(img, shifts)
+    return _shear_launch("shear_y", img, shifts)

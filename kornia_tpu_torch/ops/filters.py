@@ -37,8 +37,13 @@ def gaussian_kernel1d(ksize: int, sigma: float) -> np.ndarray:
 
 
 def _reflect101_index(n: int, p: int) -> np.ndarray:
+    """Indices of an axis of n padded by p on each side, reflected about
+    the end pixels as often as p needs (numpy's "reflect", the reference's
+    jnp.pad): n = 1 repeats its pixel, n = 2 alternates."""
     i = np.arange(-p, n + p)
-    i = np.abs(i)
+    if n == 1:
+        return np.zeros_like(i)
+    i = np.mod(i, 2 * (n - 1))
     return np.where(i > n - 1, 2 * (n - 1) - i, i)
 
 

@@ -4,10 +4,11 @@ kornia_tpu/ops/warp_shear.py).
 The inverse map ``src = L·dst + t`` is decomposed as ``L = U·Σ·Vᵀ`` (closed
 form 2×2 SVD) and applied as a chain of sampling passes: each rotation is a
 90°-multiple canvas permutation plus three unit-diagonal shears
-(``_shear_x``, K9 in csrc/shear_x.cu, and ``_shear_y`` on the transpose),
-each axis scale a 1-D band matmul with a tent matrix built at run time
-from σ. It interpolates several times, so it is approximate (≈3% off the
-exact warp); ``warp_affine(method="shear")`` keeps it for A/B comparison.
+(``_shear_x`` and ``_shear_y``, K9's row and column modes in
+csrc/shear_x.cu), each axis scale a 1-D band matmul with a tent matrix
+built at run time from σ. It interpolates several times, so it is
+approximate (≈3% off the exact warp); ``warp_affine(method="shear")`` keeps
+it for A/B comparison.
 
 The decomposition's scalars (SVD angles, shear slopes, offsets and the
 per-row shifts) are float32 host parameters computed on the CPU, as the
@@ -55,9 +56,11 @@ def _shear_x(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
 
 
 def _shear_y(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
-    """out[..., y, x] = img[..., y + shifts[x], x]: the x-shear of the
-    transpose."""
-    return _shear_x(img.transpose(-1, -2), shifts).transpose(-1, -2)
+    """out[..., y, x] = img[..., y + shifts[x], x] (linear in y, zero
+    outside): K9's column mode on the canvas in its own layout, the
+    x-shear of the transpose without a transpose."""
+    return ck.shear_y(img.contiguous(),
+                      shifts.to(device=img.device, dtype=_F32).contiguous())
 
 
 def _rot90_case(n: int):

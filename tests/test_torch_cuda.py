@@ -29,7 +29,7 @@ def _img(seed, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(480, 752), (134, 210), (37, 45),
-                                   (5, 7)])
+                                   (5, 7), (1, 1), (2, 9)])
 def test_cuda_fast_harris_bit_equal(cuda_dev, shape):
     """Score, NMS and Harris maps bit-equal to the plain version, borders
     included (the kernel keeps the reference padding and op order)."""
@@ -40,6 +40,55 @@ def test_cuda_fast_harris_bit_equal(cuda_dev, shape):
     torch.cuda.synchronize()
     assert ck.LAUNCHES["fast_harris"] == 1
     assert torch.equal(s_k, s_p) and torch.equal(h_k, h_p)
+
+
+# around the 32 x 16 tile and the 4-px halo: 16k ± 1 rows, 32k ± 1 columns
+_EDGE_SHAPES = [(1, 1), (7, 7), (15, 31), (17, 33), (16, 32), (31, 63),
+                (33, 65), (49, 95), (47, 97)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", [
+    [(33, 65)], [(1, 1)], [(49, 95), (7, 7), (17, 33)], _EDGE_SHAPES[1:],
+    [(480, 752), (400, 627), (333, 522), (278, 435), (231, 363),
+     (193, 302), (161, 252), (134, 210)]])
+def test_cuda_fast_harris_levels_bit_equal(cuda_dev, shapes):
+    """All levels in one launch: every level bit-equal to the plain version
+    and to its one-level call, borders included; 1, 3 and 8 levels; one
+    level a view that starts off a 16-byte boundary."""
+    rng = np.random.default_rng(30)
+    levels = [convert.tensor(rng.integers(0, 256, s).astype(np.uint8),
+                             cuda_dev) for s in shapes]
+    h, w = shapes[0]
+    buf = convert.tensor(rng.integers(0, 256, h * w + 5).astype(np.uint8),
+                         cuda_dev)
+    levels[0] = buf[3:3 + h * w].view(h, w)
+    ck.reset_launch_counts()
+    got = ck.fast_harris_levels(levels, 7.0)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["fast_harris"] == 1 and len(got) == len(levels)
+    for (s_k, h_k), lv in zip(got, levels):
+        s_p, h_p = ck._fast_harris_plain(lv, 7.0)
+        s_1, h_1 = ck.fast_harris(lv, 7.0)
+        torch.cuda.synchronize()
+        assert s_k.shape == lv.shape and s_k.is_contiguous()
+        assert torch.equal(s_k, s_p) and torch.equal(h_k, h_p), lv.shape
+        assert torch.equal(s_k, s_1) and torch.equal(h_k, h_1), lv.shape
+
+
+@pytest.mark.cuda
+def test_cuda_fast_harris_levels_reject_bad_input(cuda_dev):
+    lv = torch.zeros((20, 30), dtype=torch.uint8, device=cuda_dev)
+    with pytest.raises(ValueError, match="at most 16"):
+        ck.fast_harris_levels([lv] * 17, 7.0)
+    with pytest.raises(ValueError, match="one device"):
+        ck.fast_harris_levels([lv, lv.cpu()], 7.0)
+    with pytest.raises(ValueError):
+        ck.fast_harris_levels([lv, lv.float()], 7.0)
+    ck.reset_launch_counts()
+    empty = ck.fast_harris_levels([lv[:0], lv[:, :0]], 7.0)
+    assert ck.LAUNCHES["fast_harris"] == 0
+    assert [tuple(s.shape) for s, _ in empty] == [(0, 30), (20, 0)]
 
 
 @pytest.mark.cuda
@@ -173,11 +222,51 @@ def test_cuda_shear_x_bit_equal(cuda_dev):
         assert torch.equal(got, want)
 
 
+def _shear_shifts(c, rng):
+    """Shift sets of the shear passes and beyond: slopes of both signs,
+    exact integers, rows past ±slack (zero), a spread too wide to stage in
+    the column mode, and random shifts of any size."""
+    ys = np.arange(c, dtype=np.float32)
+    slack = c // 4 + 192
+    wild = rng.uniform(-1.5 * slack, 1.5 * slack, c)
+    return [0.42 * ys - 60.3, -0.7071 * ys + 140.5,
+            np.full(c, 33.0), np.where(ys % 7 == 3, slack + 5.5, -3.25),
+            2.0 * ys - 400.0, wild, np.floor(wild)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [250, 256, 512])
+@pytest.mark.parametrize("b", [1, 3])
+def test_cuda_shear_row_and_column_modes_bit_equal(cuda_dev, c, b):
+    """K9's row mode (shear_x) and column mode (shear_y) against their
+    plain versions: widths that are and are not a multiple of 4, a batch,
+    invalid rows and columns, wild shifts, a canvas off a 16-byte
+    boundary (scalar loads and stores)."""
+    rng = np.random.default_rng(31)
+    img = convert.tensor(rng.standard_normal((b, c, c)).astype(np.float32),
+                         cuda_dev)
+    buf = torch.zeros(b * c * c + 1, device=cuda_dev)
+    off = buf[1:].view(b, c, c)
+    off.copy_(img)
+    for shifts in _shear_shifts(c, rng):
+        sh = convert.tensor(shifts.astype(np.float32), cuda_dev)
+        for x in (img, off, img[0]):
+            ck.reset_launch_counts()
+            row = ck.shear_x(x, sh)
+            col = ck.shear_y(x, sh)
+            torch.cuda.synchronize()
+            assert ck.LAUNCHES["shear_x"] == ck.LAUNCHES["shear_y"] == 1
+            assert torch.equal(row, ck._shear_x_plain(x, sh))
+            assert torch.equal(col, ck._shear_y_plain(x, sh))
+            assert torch.equal(col, ck._shear_x_plain(
+                x.transpose(-1, -2).contiguous(), sh).transpose(-1, -2))
+
+
 @pytest.mark.cuda
 def test_cuda_warp_entry_points_launch_kernels(cuda_dev):
     """The entry points reach the kernels: rectify/remap/warp_affine/
     warp_perspective/undistort_image one K7 launch each, the shear route
-    six K9 launches (three channels batched)."""
+    four K9 row and two K9 column launches (three channels batched)."""
     from kornia_tpu_torch.geometry import camera, stereo
     from kornia_tpu_torch.ops import interpolation, warp
     img = _img(18, (60, 80, 3))
@@ -199,7 +288,8 @@ def test_cuda_warp_entry_points_launch_kernels(cuda_dev):
     ck.reset_launch_counts()
     out = warp.warp_affine(img, m, (50, 70), method="shear")
     torch.cuda.synchronize()
-    assert ck.LAUNCHES["shear_x"] == 6 and out.shape == (50, 70, 3)
+    assert ck.LAUNCHES["shear_x"] == 4 and ck.LAUNCHES["shear_y"] == 2
+    assert out.shape == (50, 70, 3)
 
 
 def _border_keypoints(rng, h, w, k):
@@ -342,22 +432,22 @@ def test_cuda_slice3_entry_points_launch_kernels(cuda_dev):
         return out, {k: v for k, v in ck.LAUNCHES.items() if v}
 
     paired, n = run(lambda: orb.orb_detect_and_describe(gray, cfg))
-    assert n == {"fast_harris": 3, "windows_paired": 2, "brief_sample": 1}
+    assert n == {"fast_harris": 1, "windows_paired": 2, "brief_rotated": 1}
     unp, n = run(lambda: orb.orb_detect_and_describe(gray, cfg,
                                                      describe="unpaired"))
-    assert n == {"fast_harris": 3, "windows": 2, "brief_sample": 1}
+    assert n == {"fast_harris": 1, "windows": 2, "brief_rotated": 1}
     assert torch.equal(unp.descriptors, paired.descriptors)
     assert torch.equal(unp.angle, paired.angle)
     lg, n = run(lambda: orb.orb_detect_and_describe(gray, cfg,
                                                     brief="lane_gather"))
-    assert n == {"fast_harris": 3, "windows": 2, "lane_gather": 4}
+    assert n == {"fast_harris": 1, "windows": 2, "lane_gather": 4}
     assert torch.equal(lg.descriptors, paired.descriptors)
     odd, n = run(lambda: orb.orb_detect_and_describe(
         gray, dataclasses.replace(cfg, n_features=201)))
-    assert n == {"fast_harris": 3, "windows": 2, "brief_sample": 1}
+    assert n == {"fast_harris": 1, "windows": 2, "brief_rotated": 1}
     assert odd.descriptors.shape == (201, 256)
     _, n = run(lambda: orb.orb_detect_and_describe_quadtree(gray, cfg))
-    assert n == {"windows": 6, "brief_sample": 3}
+    assert n == {"windows": 6, "brief_rotated": 3}
     xy = torch.round(paired.xy[paired.octave == 0]).to(torch.int32)
     _, n = run(lambda: responses.harris_at_windows(
         torch.as_tensor(gray, device=cuda_dev).float(), xy))
@@ -550,7 +640,8 @@ def test_cuda_brief_rotated_bit_equal(cuda_dev, pattern, seed, layout, k):
     bits = ck.brief_rotated(*args)
     samples = ck.brief_rotated(*args, out="samples")
     torch.cuda.synchronize()
-    assert ck.LAUNCHES["brief_sample"] == (2 if k else 0)
+    assert ck.LAUNCHES["brief_rotated"] == (2 if k else 0)
+    assert ck.LAUNCHES["brief_sample"] == 0
     assert bits.shape == (k, 256) and bits.dtype == torch.uint8
     assert torch.equal(bits, ck._brief_rotated_plain(*args))
     assert torch.equal(samples, ck._brief_rotated_plain(*args,

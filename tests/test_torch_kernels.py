@@ -7,6 +7,7 @@ the Pallas kernel itself in interpret mode. The CUDA kernels themselves
 are held to their plain versions on the card by tests/test_torch_cuda.py.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -53,12 +54,14 @@ def _keypoints(seed, shapes, counts):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("shape", [(64, 96), (53, 97), (17, 23)])
+@pytest.mark.parametrize("shape", [(64, 96), (53, 97), (17, 23), (1, 1),
+                                   (2, 7), (4, 9)])
 def test_fast_harris_plain_matches_reference(shape):
     """Score and NMS maps are exact (the V measure is integer on u8), and
     so is the Harris map: the port keeps the reference's padding and its
     separately rounded multiply/add order, and XLA on the CPU contracts
-    nothing into FMAs here (measured: 0 differing pixels)."""
+    nothing into FMAs here (measured: 0 differing pixels). Levels of 1, 2
+    and 4 px: the window's reflect padding repeats as jnp.pad's does."""
     img = _img(1, shape)
     s_ref = np.asarray(jfast.nms_maxpool(jfast.fast_score(
         jnp.asarray(img), 7.0)))
@@ -90,6 +93,112 @@ def test_fast_harris_counts_no_cpu_launch():
     ck.reset_launch_counts()
     ck.fast_harris(convert.tensor(_img(3, (32, 32))), 7.0)
     assert ck.LAUNCHES["fast_harris"] == 0
+
+
+@pytest.mark.parametrize("shapes", [
+    [(120, 160), (100, 133), (83, 111)],
+    [(1, 1), (7, 7), (17, 33), (31, 63)],
+    [(33, 65)]])
+def test_fast_harris_levels_plain_equals_per_level(shapes):
+    """The all-levels call gives, level by level, what the one-level call
+    gives, in the levels' order, tiny levels (no FAST border zone at all)
+    included; it counts no launch on the CPU."""
+    levels = [convert.tensor(a) for a in _levels(4, shapes)]
+    ck.reset_launch_counts()
+    got = ck.fast_harris_levels(levels, 7.0)
+    assert ck.LAUNCHES["fast_harris"] == 0
+    assert len(got) == len(levels)
+    for (score, hmap), lv in zip(got, levels):
+        s1, h1 = ck.fast_harris(lv, 7.0)
+        assert score.shape == hmap.shape == lv.shape
+        assert torch.equal(score, s1) and torch.equal(hmap, h1)
+    assert ck.fast_harris_levels([], 7.0) == []
+
+
+@pytest.fixture(scope="module")
+def ref_pyramid():
+    """A 3-level pyramid of a seeded 120×160 frame, made by the reference's
+    resize, with its maps from the Pallas kernel (interpret mode) and from
+    the XLA composition."""
+    from kornia_tpu.ops import resize as jres
+    lv = [jnp.asarray(_img(5, (120, 160)))]
+    for i in (1, 2):
+        lv.append(jres.resize(lv[-1], (int(round(120 / 1.2 ** i)),
+                                       int(round(160 / 1.2 ** i)))))
+    pallas = [pk.fast_score_pallas(x, 7.0, 9, nms=True, harris=True)
+              for x in lv]
+    xla = [(jfast.nms_maxpool(jfast.fast_score(x, 7.0)),
+            jresp.harris_response(x.astype(jnp.float32), k=0.04,
+                                  block_size=5, sigma=1.0, grad="central"))
+           for x in lv]
+    got = ck.fast_harris_levels([convert.tensor(np.asarray(x)) for x in lv],
+                                7.0)
+    return got, pallas, xla, [np.asarray(x) for x in lv]
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_fast_harris_levels_matches_pallas_interpret_and_xla(ref_pyramid,
+                                                             level):
+    """Each level of the all-levels call: score/NMS and Harris equal to the
+    XLA composition at every pixel; against the Pallas kernel the score/NMS
+    map is exact and Harris ≥ 3 px from the border agrees to the
+    FMA-association tolerance of the one-level test above."""
+    got, pallas, xla, _ = ref_pyramid
+    score, hmap = (t.numpy() for t in got[level])
+    np.testing.assert_array_equal(score, np.asarray(xla[level][0]))
+    np.testing.assert_array_equal(hmap, np.asarray(xla[level][1]))
+    np.testing.assert_array_equal(score, np.asarray(pallas[level][0]))
+    hp = np.asarray(pallas[level][1])[3:-3, 3:-3]
+    assert np.abs(hmap[3:-3, 3:-3] - hp).max() <= 3e-6 * np.abs(hp).max()
+
+
+@pytest.mark.parametrize("describe", ["paired", "unpaired", "gather"])
+def test_orb_features_equal_the_per_level_route(ref_pyramid, monkeypatch,
+                                                describe):
+    """ORB's keypoints in every describe form, from one all-levels K1 call,
+    equal at every slot (xy, score, mask, octave) those of the reference's
+    per-level route, ``_select_level`` with its own FAST + Harris pass per
+    level, on the reference's 3-level pyramid of the same frame."""
+    from kornia_tpu_torch.features import orb as torb
+    levels = ref_pyramid[3]
+    cfg = jorb.OrbConfig(n_features=300, n_levels=len(levels))
+    tcfg = convert.orb_config(dataclasses.asdict(cfg))
+    budgets = jorb._level_budgets(cfg)
+    monkeypatch.setattr(torb, "_pyramid", lambda g, c: [
+        convert.tensor(lv) for lv in levels])
+    calls = []
+    all_levels = ck.fast_harris_levels
+
+    def counted(lvs, thr):
+        calls.append(len(lvs))
+        return all_levels(lvs, thr)
+
+    monkeypatch.setattr(ck, "fast_harris_levels", counted)
+    got = torb.orb_detect_and_describe(levels[0], tcfg, device="cpu",
+                                       describe=describe)
+    assert calls == [len(levels)]
+    sels = [jorb._select_level(jnp.asarray(lv), b, cfg)
+            for lv, b in zip(levels, budgets)]
+    want = {"xy": jnp.concatenate([s[0] * cfg.scale_factor**i
+                                   for i, s in enumerate(sels)]),
+            "score": jnp.concatenate([s[1] for s in sels]),
+            "mask": jnp.concatenate([s[2] for s in sels])}
+    for field, ref in want.items():
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(ref), field)
+    np.testing.assert_array_equal(got.octave.numpy(),
+                                  np.repeat(np.arange(len(levels)), budgets))
+
+
+@pytest.mark.parametrize("levels,match", [
+    ([np.zeros((8, 8), np.uint8)] * 17, "at most 16"),
+    ([np.zeros((8, 8), np.uint8), np.zeros((8, 8), np.float32)], "uint8"),
+    ([np.zeros((2, 8, 8), np.uint8)], "2-D")])
+def test_fast_harris_levels_rejects_bad_input_on_cpu(levels, match):
+    """The CPU route checks what the card route checks: at most 16 levels,
+    each a 2-D uint8 tensor."""
+    with pytest.raises(ValueError, match=match):
+        ck.fast_harris_levels([convert.tensor(a) for a in levels], 7.0)
 
 
 # --------------------------------------------------------------------------
@@ -245,7 +354,7 @@ def test_brief_rotated_rejects_bad_shapes_and_counts_no_cpu_launch():
     c, s = torch.cos(ang), torch.sin(ang)
     ck.reset_launch_counts()
     ck.brief_rotated(win, c, s, pat, "paired")
-    assert ck.LAUNCHES["brief_sample"] == 0
+    assert ck.LAUNCHES["brief_rotated"] == ck.LAUNCHES["brief_sample"] == 0
     with pytest.raises(ValueError, match="do not fill"):
         ck.brief_rotated(win, c[:3], s[:3], pat, "paired")
     with pytest.raises(ValueError, match="must be"):
@@ -456,7 +565,9 @@ def test_new_wrappers_count_no_cpu_launch():
                                                     dtype=torch.int32))
     ck.fused_preprocess(convert.tensor(_img(30, (20, 30, 3))), 8, 8)
     assert all(v == 0 for v in ck.LAUNCHES.values())
-    assert set(ck.LAUNCHES) == set(ck.SOURCES) and len(ck.SOURCES) == 9
+    assert len(ck.SOURCES) == 9
+    assert set(ck.LAUNCHES) == set(ck.KERNELS) == set(ck.SOURCES) | {
+        "brief_rotated", "shear_y"}
 
 
 # --------------------------------------------------------------------------

@@ -385,6 +385,33 @@ def test_shear_x_matches_pallas_interpret():
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("batch", [1, 3])
+def test_shear_y_matches_transpose_and_pallas_interpret(batch):
+    """The column mode against the row mode on the transpose (bit-equal),
+    and against the JAX package's _shear_y (interpret mode, on the
+    transpose) to 1 ULP: XLA's FMA contraction, as for _shear_x. Shifts of
+    both signs, exact integers and columns past ±slack (zero)."""
+    rng = np.random.default_rng(3)
+    c = 256
+    img = rng.standard_normal((batch, c, c)).astype(np.float32)
+    xs = np.arange(c, dtype=np.float32)
+    for shifts in ((0.3 * xs - 40).astype(np.float32),
+                   (-0.414 * xs + 60.7).astype(np.float32),
+                   np.where(xs < 100, 33.0, 400.0).astype(np.float32)):
+        got = warp_shear._shear_y(torch.tensor(img), torch.tensor(shifts))
+        want = ck._shear_x_plain(torch.tensor(img).transpose(-1, -2)
+                                 .contiguous(), torch.tensor(shifts))
+        assert torch.equal(got, want.transpose(-1, -2))
+        assert torch.equal(got, ck.shear_y(torch.tensor(img),
+                                           torch.tensor(shifts)))
+        ref = np.asarray(jws._shear_y(jnp.asarray(img[-1]),
+                                      jnp.asarray(shifts)))
+        np.testing.assert_allclose(got[-1].numpy(), ref, rtol=0,
+                                   atol=np.spacing(np.float32(4.0)))
+        assert (got[..., xs >= 100] == 0).all() if shifts[-1] == 400 \
+            else True
+
+
 def test_warp_affine_shear_matches_reference():
     """The whole shear route, u8 RGB and f32. u8: ≤ 1 LSB on < 1% of
     pixels; f32 (values up to 255): ≤ 4e-3. The deviations come from f32
@@ -592,4 +619,4 @@ def test_warp_kernels_count_no_cpu_launch(img_u8, smooth_maps):
     warp_exact.lane_shift(np.zeros((4, 4), np.float32),
                           np.zeros(4, np.int32), 8, device=CPU)
     assert ck.LAUNCHES["remap"] == ck.LAUNCHES["lane_shift"] == 0
-    assert ck.LAUNCHES["shear_x"] == 0
+    assert ck.LAUNCHES["shear_x"] == ck.LAUNCHES["shear_y"] == 0
