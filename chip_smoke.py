@@ -4,8 +4,9 @@
 
 ``--parent DIR``: DIR holds the parent commit's tree (e.g. unpacked by
 ``git archive``); its own kernel wrappers (``ops/cuda_kernels.py``) are
-loaded, its K1 and K9 built from its sources, and timed against this
-tree's in turns, on the same inputs, as "parent" times.
+loaded, its kernels built from its sources, and its K1, K5, K8 and K9 and
+the host time of every wrapper timed against this tree's in turns, on the
+same inputs, as "parent" times.
 
 Phases (any failure raises, so the script exits non-zero):
 
@@ -70,11 +71,17 @@ Phases (any failure raises, so the script exits non-zero):
    480×752 frame with OrbConfig(): describe="unpaired" (K4 windows 2, K3
    brief_rotated 1 on (K, 48, 128) windows, fast_harris 1) with
    descriptors and angles equal to the paired run's and to the index
-   form's; brief="lane_gather" (K5 lane_gather 4), bit-equal descriptors
-   again; OrbConfig(n_features=2001) (an odd budget sum);
+   form's; brief="lane_gather" (K5 lane_gather 4, each a broadcast-index
+   call: one (K, 128) index row per 48 window rows), bit-equal descriptors
+   again, K5 in both modes against its plain version and timed, and the
+   describe against the route with the expanded index, in turns;
+   OrbConfig(n_features=2001) (an odd budget sum);
    describe="gather"; the quadtree pipeline (windows 16, brief_rotated 8;
    keypoints kept per level); harris_at_windows at the
    level-0 keypoints (windows 1) against the dense central-gradient map.
+   Then ORB with OrbConfig(n_levels=17, scale_factor=1.1): fast_harris 2
+   (16 levels, then 1), features equal to the route with one K1 launch
+   per level.
 10. lk: frame 2 = warp_affine (K7) of frame 1 by a 2° rotation about the
    centre plus a (6, −4) px shift; the valid ORB keypoints of frame 1 are
    tracked with PyrLKParams() by "taps", "windows" and "gather". For
@@ -86,6 +93,9 @@ Phases (any failure raises, so the script exits non-zero):
    own arithmetic in PyTorch ops and within 2e-6 of the dense float32
    matrix products; the same image → 224×224 (tap weights that are not
    dyadic); one letterbox case (360×640 placed on the pad canvas).
+12. host: microseconds of host time per call of every wrapper on the
+   main path's recorded inputs (1000 calls, no synchronise), twice; with
+   --parent in turns with the parent tree's wrappers.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object with one entry per kernel; the last line is
@@ -95,6 +105,7 @@ before it a JSON object with one entry per kernel; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import inspect
 import json
 import os
@@ -321,6 +332,13 @@ TIME_KEYS = ("device_ms", "call_ms", "host_us", "ms", "plain_ms",
 BEFORE_KEYS = ("before_device_ms", "before_call_ms", "parent_device_ms",
                "parent_call_ms", "parent_chain_device_ms",
                "parent_chain_call_ms")
+# K5's broadcast case: torch.gather on the expanded index beside the
+# stride-0 one; every row: host us per call in turns (this tree's and, with
+# --parent, the parent's wrapper)
+EXTRA_KEYS = ("library2_device_ms", "library2_call_ms", "host_us_turns")
+# per wrapper, one call on the main path's recorded inputs through a
+# kernel module (this tree's ``ck`` or the parent's): name -> fn(module)
+HOST_CASES = {}
 
 
 # --------------------------------------------------------------------------
@@ -647,7 +665,7 @@ class PerLevelK1:
 def load_parent(root: str):
     """The parent tree's kernel wrappers, for before/after times in one
     run: ``root``'s own ``kornia_tpu_torch/ops/cuda_kernels.py`` loaded
-    under another module name, with its K1 and K9 built from ``root``'s
+    under another module name, with every kernel built from ``root``'s
     sources into ``root``'s build directory."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
@@ -655,7 +673,7 @@ def load_parent(root: str):
         os.path.join(root, "kornia_tpu_torch", "ops", "cuda_kernels.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.build(("fast_harris", "shear_x"))
+    mod.build()
     return mod
 
 
@@ -799,6 +817,8 @@ def phase_rectify(card_line):
     with Record("remap") as rec:
         rectify()
     cases = [remap_case(a, kw) for a, kw in rec.calls]
+    a7, kw7 = rec.calls[0]
+    HOST_CASES["remap"] = lambda mod: mod.remap(*a7, **kw7)
     row = dict(cases[0])
     row["max_abs_err"] = max(c["max_abs_err"] for c in cases)
     row["launches"] = launches["remap"]
@@ -971,8 +991,9 @@ def _sheared_branch_shifts(m: torch.Tensor, s: int):
     return shift.to(torch.int32)
 
 
-def phase_lane_shift(card_line):
-    """K8 at the 1080p 30° sheared-branch shapes, 3 channels."""
+def lane_shift_inputs():
+    """K8's inputs at the 1080p 30° sheared-branch shapes, 3 channels: the
+    (3, s, s) source, the (s,) int32 shifts and the output width."""
     hh, ww = HW_1080P
     s = max(hh, ww)
     ht = s + int(np.ceil(1.05 * s)) + 8
@@ -983,6 +1004,13 @@ def phase_lane_shift(card_line):
     # rot90 case 0: the transposed content, zero-padded to the s × s canvas
     xt = torch.as_tensor(img, device=DEV).float().permute(2, 1, 0)
     src = torch.nn.functional.pad(xt, (0, s - hh, 0, s - ww)).contiguous()
+    return src, shift, ht
+
+
+def phase_lane_shift(card_line, parent=None):
+    """K8 at the 1080p 30° sheared-branch shapes, 3 channels."""
+    src, shift, ht = lane_shift_inputs()
+    s = src.shape[-1]
     out, launches = counted(lambda: warp_exact.lane_shift(src, shift, ht,
                                                           device=DEV))
     only(launches, {"lane_shift": 1})
@@ -1014,6 +1042,17 @@ def phase_lane_shift(card_line):
         f"{int(shift.min())}..{int(shift.max())}): launches 1, bit-equal; "
         f"{fmt_times(row, 'grid_sample nearest')} (mean |dev| {dev:.4f}), "
         f"bound {bms:.5f} ms ({by}, {nbytes} B) [{card_line}]")
+    if parent is not None:
+        if not torch.equal(parent.lane_shift(src, shift, ht), out):
+            raise AssertionError("parent lane_shift differs")
+        new, old = in_turns(lambda: ck.lane_shift(src, shift, ht),
+                            lambda: parent.lane_shift(src, shift, ht))
+        row["parent_device_ms"] = old["device"]
+        row["parent_call_ms"] = old["call"]
+        log(f"K8 in turns (parent, new, new, parent): device new "
+            f"{new['device']} parent {old['device']} ms, call new "
+            f"{new['call']} parent {old['call']} ms [{card_line}]")
+    HOST_CASES["lane_shift"] = lambda mod: mod.lane_shift(src, shift, ht)
     return row
 
 
@@ -1054,6 +1093,8 @@ def phase_shear(card_line, parent=None):
                                      f"version: {e}")
     canvas, shifts = rec_x.calls[0][0]
     canvas_y, shifts_y = rec_y.calls[0][0]
+    HOST_CASES["shear_x"] = lambda mod: mod.shear_x(canvas, shifts)
+    HOST_CASES["shear_y"] = lambda mod: mod.shear_y(canvas_y, shifts_y)
     b, c, _ = canvas.shape
     nbytes = canvas.numel() * 4 * 2 + shifts.numel() * 4
     bms, by = bound(nbytes)
@@ -1173,7 +1214,129 @@ def windows_case(args, kwargs, card_line, label):
     return row
 
 
-def phase_orb_variants(card_line, img1):
+class ExpandedLaneGather:
+    """While the block runs, ``ck.lane_gather`` expands a broadcast index
+    to one row per source row and calls ``mod.lane_gather`` (this tree's
+    or the parent's) on it: the describe route before the broadcast
+    mode."""
+
+    def __init__(self, mod):
+        self.mod = mod
+
+    def __enter__(self):
+        self.saved = ck.lane_gather
+        # taken before the patch: with this tree's ck, the original wrapper
+        general = self.mod.lane_gather
+
+        def expanded(src, idx):
+            g = src.shape[0] // max(idx.shape[0], 1)
+            full = idx[:, None, :].expand(idx.shape[0], g, 128).reshape(
+                -1, 128)
+            return general(src, full.contiguous())
+
+        ck.lane_gather = expanded
+
+    def __exit__(self, *exc):
+        ck.lane_gather = self.saved
+
+
+def lane_gather_cases(calls, launches, card_line, parent=None):
+    """K5 on the describe's recorded calls, (K * 48, 128) windows with a
+    (K, 128) index: both modes bit-equal to the plain version on the
+    expanded index, then each timed beside its bound and torch.gather,
+    and the parent's kernel in turns. Returns the kernels-line row: the
+    general mode's numbers (the TPU kernel's contract) under ``"mode":
+    "general"``, with the path's launches of the entry point (all in the
+    broadcast mode) and both modes under ``cases``."""
+    err = 0.0
+    for src, idx in (c[0] for c in calls):
+        full = idx.repeat_interleave(src.shape[0] // idx.shape[0], 0)
+        want = ck._lane_gather_plain(src, full)
+        for got in (ck.lane_gather(src, idx), ck.lane_gather(src, full),
+                    ck._lane_gather_plain(src, idx)):
+            e = max_err(got, want)
+            if e != 0.0:
+                raise AssertionError(f"lane_gather differs from its plain "
+                                     f"version: {e}")
+            err = max(err, e)
+    src, idx = calls[0][0]
+    g = src.shape[0] // idx.shape[0]
+    full = idx.repeat_interleave(g, 0).contiguous()
+    full64 = full.long().clamp(0, 127)
+    # the broadcast index as a stride-0 view: torch.gather without a copy
+    view64 = idx.long().clamp(0, 127)[:, None, :].expand(
+        idx.shape[0], g, 128)
+    src3 = src.view(idx.shape[0], g, 128)
+    want = ck._lane_gather_plain(src, idx)
+    if not (torch.equal(torch.gather(src, 1, full64), want)
+            and torch.equal(torch.gather(src3, 2, view64).reshape(-1, 128),
+                            want)):
+        raise AssertionError("K5 library gathers disagree")
+    cases = []
+    for mode, index, lib, lib_name in (
+            ("broadcast", idx, lambda: torch.gather(src3, 2, view64),
+             "torch.gather, the index a stride-0 view"),
+            ("general", full, lambda: torch.gather(src, 1, full64),
+             "torch.gather (int64 indices ready)")):
+        nbytes = src.numel() * 4 * 2 + index.numel() * 4
+        bms, by = bound(nbytes)
+        row = {"case": f"{mode}, {tuple(src.shape)} src, "
+                       f"{tuple(index.shape)} idx", "mode": mode,
+               "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+               "launches": launches if mode == "broadcast" else 0}
+        row.update(kernel_times(
+            lambda i=index: ck.lane_gather(src, i),
+            lambda i=index: ck._lane_gather_plain(src, i), lib))
+        extra = ""
+        if mode == "broadcast":
+            row["library2_device_ms"] = device_ms(
+                lambda: torch.gather(src, 1, full64))
+            row["library2_call_ms"] = cuda_ms(
+                lambda: torch.gather(src, 1, full64))
+            extra = (f"; torch.gather on the expanded int64 index device "
+                     f"{row['library2_device_ms']:.4f} / call "
+                     f"{row['library2_call_ms']:.4f} ms")
+        log(f"K5 lane_gather {mode} ({tuple(src.shape)} f32 + "
+            f"{tuple(index.shape)} i32 idx): "
+            + ("launches 4 per describe, " if mode == "broadcast" else "")
+            + f"all 4 describe calls bit-equal in both modes; "
+            f"{fmt_times(row, lib_name)}{extra}, bound {bms:.5f} ms ({by}, "
+            f"{nbytes} B) [{card_line}]")
+        cases.append(row)
+    bc, gen = cases
+    if parent is not None:
+        if not torch.equal(parent.lane_gather(src, full), want):
+            raise AssertionError("parent lane_gather differs")
+        new, old = in_turns(lambda: ck.lane_gather(src, full),
+                            lambda: parent.lane_gather(src, full))
+        gen["parent_device_ms"], gen["parent_call_ms"] = (old["device"],
+                                                         old["call"])
+
+        def before():
+            """The describe's route before: the expanded copy, then the
+            parent's kernel."""
+            f = idx[:, None, :].expand(idx.shape[0], g, 128).reshape(-1, 128)
+            return parent.lane_gather(src, f.contiguous())
+
+        bnew, bold = in_turns(lambda: ck.lane_gather(src, idx), before)
+        bc["parent_chain_device_ms"], bc["parent_chain_call_ms"] = (
+            bold["device"], bold["call"])
+        log(f"K5 in turns (parent, new, new, parent): general mode device "
+            f"new {new['device']} parent {old['device']} ms, call new "
+            f"{new['call']} parent {old['call']} ms; the describe's call, "
+            f"broadcast mode against the expanded copy + the parent's "
+            f"kernel: device {bnew['device']} / {bold['device']} ms, call "
+            f"{bnew['call']} / {bold['call']} ms [{card_line}]")
+    HOST_CASES["lane_gather"] = lambda mod: mod.lane_gather(src, full)
+    HOST_CASES["lane_gather broadcast"] = lambda mod: mod.lane_gather(src,
+                                                                     idx)
+    row = dict(gen)
+    row["launches"] = launches
+    row["cases"] = cases
+    return row
+
+
+def phase_orb_variants(card_line, img1, parent=None):
     """The unpaired, lane-gather, odd-budget, gather and quadtree forms of
     ORB and harris_at_windows. Returns (K4 row, K5 row)."""
     cfg = orb.OrbConfig()
@@ -1250,7 +1413,8 @@ def phase_orb_variants(card_line, img1):
 
     # the kernels on the very inputs of the unpaired path
     with Record("windows") as rec_w, Record("brief_rotated") as rec_b, \
-            Record("lane_gather") as rec_l:
+            Record("lane_gather") as rec_l, \
+            Record("brief_from_windows", orb) as rec_bw:
         run(describe="unpaired")
         run(brief="lane_gather")
     if len(rec_w.calls) != 4 or len(rec_b.calls) != 1 or \
@@ -1258,6 +1422,8 @@ def phase_orb_variants(card_line, img1):
         raise AssertionError("recorded calls of the unpaired path")
     cases = [windows_case(a, kw, card_line, f"orb {what} canvas")
              for (a, kw), what in zip(rec_w.calls[:2], ("gray", "blurred"))]
+    a4, kw4 = rec_w.calls[0]
+    HOST_CASES["windows"] = lambda mod: mod.windows(*a4, **kw4)
     a, kw = rec_b.calls[0]
     if not torch.equal(ck.brief_rotated(*a, **kw),
                        ck._brief_rotated_plain(*a, **kw)):
@@ -1301,35 +1467,34 @@ def phase_orb_variants(card_line, img1):
                    "orb quadtree": n_quad["windows"],
                    "harris_at_windows": n_hw["windows"]}
 
-    err = 0.0
-    for src, idx in (c[0] for c in rec_l.calls):
-        e = max_err(ck.lane_gather(src, idx),
-                    ck._lane_gather_plain(src, idx))
-        if e != 0.0:
-            raise AssertionError(f"lane_gather differs from its plain "
-                                 f"version: {e}")
-        err = max(err, e)
-    src, idx = rec_l.calls[0][0]
-    idx64 = idx.long().clamp(0, 127)
-    nbytes = src.numel() * 4 * 3
-    bms, by = bound(nbytes)
-    k5 = {"launches": n_lg["lane_gather"], "max_abs_err": err,
-          "bound_ms": bms, "bound_by": by}
-    k5.update(kernel_times(lambda: ck.lane_gather(src, idx),
-                           lambda: ck._lane_gather_plain(src, idx),
-                           lambda: torch.gather(src, 1, idx64)))
-    log(f"K5 lane_gather ({tuple(src.shape)} f32 + i32 idx): launches 4 per "
-        f"describe, all 4 bit-equal; "
-        f"{fmt_times(k5, 'torch.gather (int64 indices ready)')}, bound "
-        f"{bms:.5f} ms ({by}, {nbytes} B) [{card_line}]")
-
+    k5 = lane_gather_cases(rec_l.calls, n_lg["lane_gather"], card_line,
+                           parent)
     def stage(name, fn):
         log(f"stage {name}: {cuda_ms(fn):.3f} ms [{card_line}]")
 
     stage("orb paired (1 frame)", run)
     stage("orb unpaired (1 frame)", lambda: run(describe="unpaired"))
-    stage("orb unpaired, lane_gather BRIEF (1 frame)",
-          lambda: run(brief="lane_gather"))
+    # the lane-gather describe before (each index row expanded over its
+    # 48 window rows, the general mode; the parent's kernel with --parent)
+    # and after (the broadcast mode), in turns: the frame, and the BRIEF
+    # step alone on the frame's recorded windows and angles
+    a_bw, kw_bw = rec_bw.calls[-1]
+    before_name = ", index expanded" + (" (parent's kernel)" if parent
+                                       else "")
+    for before in (True, False, False, True) * 2:
+        with (ExpandedLaneGather(parent or ck) if before
+              else contextlib.nullcontext()):
+            stage("orb unpaired, lane_gather BRIEF (1 frame)"
+                  + (before_name if before else ""),
+                  lambda: run(brief="lane_gather"))
+    for before in (True, False, False, True) * 2:
+        with (ExpandedLaneGather(parent or ck) if before
+              else contextlib.nullcontext()):
+            log(f"stage lane_gather BRIEF alone (brief_from_windows, "
+                f"{tuple(a_bw[0].shape)} windows)"
+                + (before_name if before else "") + ": "
+                f"{cuda_ms(lambda: orb.brief_from_windows(*a_bw, **kw_bw), 100):.3f}"
+                f" ms [{card_line}]")
     stage("orb gather form (1 frame)", lambda: run(describe="gather"))
     stage("orb quadtree (1 frame)",
           lambda: orb.orb_detect_and_describe_quadtree(frame, cfg,
@@ -1429,6 +1594,74 @@ def phase_lk(card_line, img1, feats):
     return cases, paths, remaps
 
 
+def phase_orb_levels17(card_line, img1):
+    """ORB with 17 pyramid levels on view 1: K1 launches twice (16 levels,
+    then 1) and the features equal the route with one K1 launch per level
+    (``_select_level(..., maps=None)``)."""
+    cfg = orb.OrbConfig(n_levels=17, scale_factor=1.1)
+    frame = torch.as_tensor(img1, device=DEV)
+
+    def run():
+        return orb.orb_detect_and_describe(frame, cfg, device=DEV)
+
+    run()                                           # warm-up
+    with Record("_fast_harris_chunk") as rec:
+        feats, launches = counted(run)
+    log(f"orb 17 levels launches: {launches}")
+    only(launches, {"fast_harris": 2, "windows_paired": 2,
+                    "brief_rotated": 1})
+    chunks = [len(a[0]) for a, _ in rec.calls]
+    if chunks != [16, 1]:
+        raise AssertionError(f"17 levels went to K1 in chunks {chunks}")
+    levels = orb._pyramid(frame, cfg)
+    budgets = orb._level_budgets(cfg)
+    sels = [orb._select_level(lv, b, cfg) for lv, b in zip(levels, budgets)]
+    want = {"xy": torch.cat([sl[0] * cfg.scale_factor ** i
+                             for i, sl in enumerate(sels)]),
+            "score": torch.cat([sl[1] for sl in sels]),
+            "mask": torch.cat([sl[2] for sl in sels])}
+    with PerLevelK1():
+        per_level = run()
+    for name in feats._fields:
+        if name in want and not torch.equal(getattr(feats, name),
+                                            want[name]):
+            raise AssertionError(f"17-level ORB {name} differs from "
+                                 "_select_level(..., maps=None)")
+        if not torch.equal(getattr(feats, name), getattr(per_level, name)):
+            raise AssertionError(f"17-level ORB {name} differs from the "
+                                 "route with one K1 launch per level")
+    kept = [int(feats.mask[feats.octave == i].sum())
+            for i in range(cfg.n_levels)]
+    log(f"orb 17 levels (scale 1.1, levels {tuple(levels[0].shape)} .. "
+        f"{tuple(levels[-1].shape)}): K1 chunks {chunks}, launches 2; "
+        f"keypoints kept per level {kept} of budgets {budgets}; xy, score, "
+        f"mask equal _select_level(..., maps=None), every field equal the "
+        f"route with one K1 launch per level; one frame "
+        f"{cuda_ms(run):.3f} ms [{card_line}]")
+
+
+def phase_host(card_line, parent=None):
+    """Host microseconds per wrapper call (1000 calls, no synchronise) on
+    the main path's recorded inputs, this tree's wrappers and, with
+    --parent, the parent tree's, in turns (parent, new, new, parent).
+    Returns {name: {"new": [..], "parent": [..]}}."""
+    out = {}
+    for name, call in HOST_CASES.items():
+        # the parent's K5 has no broadcast mode
+        mods = ([("parent", parent), ("new", ck), ("new", ck),
+                 ("parent", parent)]
+                if parent is not None and name != "lane_gather broadcast"
+                else [("new", ck), ("new", ck)])
+        t = {}
+        for which, mod in mods:
+            t.setdefault(which, []).append(host_us(lambda m=mod: call(m)))
+        out[name] = t
+        log(f"host {name}: " + ", ".join(
+            f"{w} {[round(v, 2) for v in vals]}" for w, vals in t.items())
+            + f" us per call [{card_line}]")
+    return out
+
+
 def phase_preprocess(card_line):
     """K6 at 1080p → 640×640, stretch and letterbox."""
     hh, ww = HW_1080P
@@ -1446,6 +1679,7 @@ def phase_preprocess(card_line):
             or not torch.isfinite(out).all():
         raise AssertionError("preprocess output")
     args = (x, 640, 640, IMAGENET_MEAN, IMAGENET_STD)
+    HOST_CASES["preprocess"] = lambda mod: mod.fused_preprocess(*args)
     taps = ck._fused_preprocess_taps(*args)
     plain = ck._fused_preprocess_plain(*args)
     if not torch.equal(out[0], taps):
@@ -1555,8 +1789,8 @@ def phase_preprocess(card_line):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="the parent commit's tree: time its K1 and K9 "
-                         "against this tree's, in turns")
+                    help="the parent commit's tree: time its K1, K5, K8, "
+                         "K9 and wrappers against this tree's, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; a GPU is "
@@ -1581,7 +1815,7 @@ def main():
     if args.parent:
         t0 = time.perf_counter()
         parent = load_parent(args.parent)
-        log(f"parent K1 and K9 from {args.parent}: built in "
+        log(f"parent kernels from {args.parent}: built in "
             f"{time.perf_counter() - t0:.2f} s")
 
     img1, img2, r_gt, t_gt = render_scene()
@@ -1789,6 +2023,11 @@ def main():
     wflat = w_k.reshape(w_k.shape[0], -1)
     if not torch.equal(torch.gather(wflat, 1, flat_idx), b_k):
         raise AssertionError("K3 library gather disagrees")
+    HOST_CASES["fast_harris"] = lambda mod: mod.fast_harris_levels(levels,
+                                                                   thr)
+    HOST_CASES["windows_paired"] = lambda mod: mod.windows_paired(canvas,
+                                                                  xy_c, W)
+    HOST_CASES["brief_rotated"] = lambda mod: mod.brief_rotated(*rot)
     t_k1 = kernel_times(
         lambda: ck.fast_harris_levels(levels, thr),
         lambda: [ck._fast_harris_plain(lv, thr) for lv in levels])
@@ -1986,11 +2225,12 @@ def main():
     k7["cases"] = phase_warp(card_line)
     k7["max_abs_err"] = max([k7["max_abs_err"]]
                             + [c["max_abs_err"] for c in k7["cases"]])
-    k8 = phase_lane_shift(card_line)
+    k8 = phase_lane_shift(card_line, parent)
     k9, k9y = phase_shear(card_line, parent)
 
     # 9-11. the third slice
-    k4, k5, k3u, feats = phase_orb_variants(card_line, img1)
+    k4, k5, k3u, feats = phase_orb_variants(card_line, img1, parent)
+    phase_orb_levels17(card_line, img1)
     k3["cases"].append({k: k3u[k] for k in ("case", "max_abs_err", "bound_ms",
                                             "bound_by", "staged_ms")
                         + TIME_KEYS})
@@ -2002,8 +2242,13 @@ def main():
     k7["paths"] = {"rectify": k7["launches"], **lk_remaps}
     k7["launches"] = sum(k7["paths"].values())
     k6 = phase_preprocess(card_line)
-    keep = ("launches", "max_abs_err", "bound_ms", "bound_by") + TIME_KEYS \
-        + BEFORE_KEYS
+    host = phase_host(card_line, parent)
+    for c in k5["cases"]:
+        c["host_us_turns"] = host["lane_gather" + (
+            " broadcast" if c["case"].startswith("broadcast") else "")]
+    keep = ("mode", "launches", "max_abs_err", "bound_ms", "bound_by") \
+        + TIME_KEYS \
+        + BEFORE_KEYS + EXTRA_KEYS
     for name, row in (("windows", k4), ("lane_gather", k5),
                       ("preprocess", k6), ("remap", k7), ("lane_shift", k8),
                       ("shear_x", k9), ("shear_y", k9y)):
@@ -2017,6 +2262,9 @@ def main():
         if "paths" in row:
             entry["launches_by_path"] = row["paths"]
         rows_out.append(entry)
+    for row in rows_out:
+        row["host_us_turns"] = host[{
+            "brief_sample": "brief_rotated"}.get(row["name"], row["name"])]
     for row in rows_out:
         if row["launches"] < 1 or \
                 row["max_abs_err"] > PLAIN_TOL.get(row["name"], 0.0):

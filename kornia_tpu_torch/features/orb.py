@@ -1,7 +1,7 @@
 """ORB detector + descriptor (port of kornia_tpu/features/orb.py).
 
 The FAST score, its 3×3 NMS and the dense Harris map of every pyramid
-level come from one CUDA kernel launch
+level come from one CUDA kernel launch per 16 levels
 (``cuda_kernels.fast_harris_levels``); then per level the two-tier gate and
 the packed per-cell top-k pick candidates and a stable top-k takes the
 level budget. The describe stage has three forms, chosen by the
@@ -304,8 +304,9 @@ def brief_from_windows(windows: torch.Tensor, angle: torch.Tensor,
     ``brief="sample"``: one ``cuda_kernels.brief_rotated`` pass (rotation,
     the 512 taps of each window, the compare).
     ``brief="lane_gather"``: per group of 128 taps, a lane gather of the tap
-    columns from every window row, then a one-hot reduction over the rows
-    (orb.py:239-251). Both give the same bits."""
+    columns from every window row (one index row serves a window's 48
+    rows), then a one-hot reduction over the rows (orb.py:239-251). Both
+    give the same bits."""
     k = windows.shape[0]
     if brief == "sample":
         return ck.brief_rotated(
@@ -319,10 +320,8 @@ def brief_from_windows(windows: torch.Tensor, angle: torch.Tensor,
     zero = torch.zeros((), dtype=windows.dtype, device=windows.device)
     samples = []
     for g in range(4):
-        cg = cols[:, g * 128: (g + 1) * 128]           # (K, 128)
-        idx = cg[:, None, :].expand(k, _WIN_H, 128).reshape(-1, 128)
-        gathered = ck.lane_gather(src, idx.contiguous()).reshape(
-            k, _WIN_H, 128)
+        cg = cols[:, g * 128: (g + 1) * 128].contiguous()   # (K, 128)
+        gathered = ck.lane_gather(src, cg).reshape(k, _WIN_H, 128)
         rg = rows[:, g * 128: (g + 1) * 128]           # (K, 128)
         oh = iota_y == rg[:, None, :]
         samples.append(torch.sum(torch.where(oh, gathered, zero), dim=1))

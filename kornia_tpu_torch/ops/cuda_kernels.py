@@ -9,8 +9,8 @@ sm_90a and one wrapper here:
 wrapper         replaces                                    source
 ==============  ==========================================  =================
 fast_harris_    pallas_kernels.py::fast_score_pallas        fast_harris.cu
-levels,         (nms=True, harris=True): all levels of a
-fast_harris     pyramid in one launch, or one level
+levels,         (nms=True, harris=True): up to 16 levels
+fast_harris     of a pyramid in one launch, or one level
 windows_paired  pallas_kernels.py::                         windows_paired.cu
                 extract_windows_prepared_paired
 brief_sample    pallas_kernels.py::brief_sample_pallas      brief_sample.cu
@@ -19,7 +19,9 @@ brief_rotated   the same kernel, with the tap rotation,     brief_sample.cu
                 it fused in
 windows         pallas_kernels.py::extract_windows_prepared windows.cu
                 (and extract_windows_pallas)
-lane_gather     pallas_kernels.py::lane_gather              lane_gather.cu
+lane_gather     pallas_kernels.py::lane_gather, and a       lane_gather.cu
+                broadcast-index mode (one index row for g
+                source rows)
 fused_          pallas_kernels.py::fused_preprocess_pallas  preprocess.cu
 preprocess
 remap           warp_pallas.py::_make_kernel                remap.cu
@@ -78,6 +80,7 @@ KERNELS = SOURCES + tuple(e for v in _EXTRA_ENTRIES.values() for e in v)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 BUILD_LOG: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, object] = {}     # C entry name → its bound ctypes function
 
 
 def reset_launch_counts() -> None:
@@ -126,12 +129,14 @@ def build(names: Sequence[str] = SOURCES) -> float:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     for name in names:
         if name not in _LIBS:
-            _LIBS[name] = _bind(name, ctypes.CDLL(_lib_path(name)))
+            _LIBS[name] = lib = ctypes.CDLL(_lib_path(name))
+            _FNS.update(_bind(name, lib))
     return time.perf_counter() - t0
 
 
-def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the C signature of every entry of library ``name``."""
+def _bind(name: str, lib: ctypes.CDLL) -> Dict[str, object]:
+    """The C functions of library ``name`` by entry name, each with its
+    signature set."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
         "fast_harris": [i, p, p, p, p, p, f, ctypes.POINTER(f), f, p],
@@ -139,7 +144,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "brief_sample": [p, p, p, p, i, i, i, i, p],
         "brief_rotated": [p, p, p, p, p, i, i, i, p],
         "windows": [p, p, p, i, i, i, i, i, i, i, i, p],
-        "lane_gather": [p, p, p, ctypes.c_longlong, p],
+        "lane_gather": [p, p, p, ctypes.c_longlong, i, p],
         "preprocess": [p, i, p, p, p, p, ctypes.POINTER(f),
                        ctypes.POINTER(f), p, i, i, p],
         "remap": [p, i, i, i, i, p, i, i, i, p, p, ctypes.POINTER(f), p, i,
@@ -148,21 +153,32 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "shear_x": [p, p, p, i, i, i, p],
         "shear_y": [p, p, p, i, i, i, p],
     }
+    fns = {}
     for entry in (name,) + _EXTRA_ENTRIES.get(name, ()):
         fn = getattr(lib, "kt_" + entry)
         fn.argtypes = sigs[entry]
         fn.restype = ctypes.c_int
-    return lib
+        fns[entry] = fn
+    return fns
+
+
+# The launch path below runs on every kernel call, so it keeps to plain
+# dict lookups and attribute reads: for a kernel of a few microseconds the
+# wrapper's host time is most of what a caller waits (PERF.md section 6).
 
 
 def _kernel(name: str, entry: str | None = None):
-    if name not in _LIBS:
+    """The bound C function ``kt_<entry or name>``; the first call builds
+    every library."""
+    fn = _FNS.get(entry or name)
+    if fn is None:
         build()
-    return getattr(_LIBS[name], "kt_" + (entry or name))
+        fn = _FNS[entry or name]
+    return fn
 
 
 def _check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int):
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
@@ -179,8 +195,16 @@ def _launched(name: str, rc: int) -> None:
     LAUNCHES[name] += 1
 
 
+@functools.lru_cache(maxsize=None)
+def _raw_stream_fn():
+    """PyTorch's current-stream handle reader of CUDA builds (device index
+    → cudaStream_t as an int, no ``torch.cuda.Stream`` object made); looked
+    up at the first launch, as CPU builds lack it."""
+    return torch._C._cuda_getCurrentRawStream
+
+
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return _raw_stream_fn()(t.get_device())
 
 
 # --------------------------------------------------------------------------
@@ -200,7 +224,7 @@ def _fast_harris_plain(img: torch.Tensor, threshold: float):
     return score, hmap
 
 
-# levels one launch takes (the kernel's parameter table)
+# levels one K1 launch takes (the kernel's parameter table)
 FAST_HARRIS_MAX_LEVELS = 16
 
 
@@ -224,10 +248,11 @@ def _level_table(shapes: Tuple[Tuple[int, int], ...]):
 def fast_harris_levels(levels: Sequence[torch.Tensor], threshold: float
                        ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """FAST score + NMS and the Harris map of every (H, W) u8 level of a
-    pyramid in ONE kernel launch: a list of (score, Harris) pairs, each
-    (H, W) f32, contiguous views of one flat buffer (every level's score
-    map, then every level's Harris map). At most 16 levels, all on one
-    device."""
+    pyramid: a list of (score, Harris) pairs, each (H, W) f32. Any number
+    of levels, all on one device, in ceil(n / FAST_HARRIS_MAX_LEVELS)
+    kernel launches of consecutive levels (the kernel's level table holds
+    16); the maps of one launch are contiguous views of one flat buffer
+    (every level's score map, then every level's Harris map)."""
     levels = list(levels)
     if not levels:
         return []
@@ -235,16 +260,21 @@ def fast_harris_levels(levels: Sequence[torch.Tensor], threshold: float
     if any(img.device != dev for img in levels):
         raise ValueError("fast_harris_levels: every level must be on one "
                          "device")
-    if len(levels) > FAST_HARRIS_MAX_LEVELS:
-        raise ValueError(f"fast_harris_levels: at most "
-                         f"{FAST_HARRIS_MAX_LEVELS} levels, got "
-                         f"{len(levels)}")
     for i, img in enumerate(levels):
         if img.dtype != torch.uint8 or img.ndim != 2:
             raise ValueError(f"fast_harris level {i}: expected a 2-D "
                              f"torch.uint8 tensor, got {img.ndim}-D "
                              f"{img.dtype}")
-    if dev.type == "cpu":
+    return [m for i in range(0, len(levels), FAST_HARRIS_MAX_LEVELS)
+            for m in _fast_harris_chunk(
+                levels[i:i + FAST_HARRIS_MAX_LEVELS], threshold)]
+
+
+def _fast_harris_chunk(levels: List[torch.Tensor], threshold: float
+                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """At most FAST_HARRIS_MAX_LEVELS checked levels: their plain versions
+    on the CPU, one kernel launch on the card."""
+    if levels[0].is_cpu:
         return [_fast_harris_plain(img, threshold) for img in levels]
     for i, img in enumerate(levels):
         _check(img, f"fast_harris level {i}", torch.uint8, 2)
@@ -252,7 +282,7 @@ def fast_harris_levels(levels: Sequence[torch.Tensor], threshold: float
     hs, ws, offs = _level_table(shapes)
     total = offs[-1]
     # one buffer: every level's score map, then every level's Harris map
-    out = torch.empty(2 * total, dtype=torch.float32, device=dev)
+    out = torch.empty(2 * total, dtype=torch.float32, device=levels[0].device)
     if total:
         n = len(levels)
         rc = _kernel("fast_harris")(
@@ -576,30 +606,48 @@ def windows(src: torch.Tensor, xy: torch.Tensor, win_h: int = 48,
 # --------------------------------------------------------------------------
 
 
-def _lane_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return torch.gather(src, 1, torch.clamp(idx.to(torch.int64), 0, 127))
-
-
-def lane_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[i, j] = src[i, clip(idx[i, j], 0, 127)] for (N, 128) f32 ``src``
-    and (N, 128) int32 ``idx``."""
+def _lane_gather_group(src: torch.Tensor, idx: torch.Tensor) -> int:
+    """Checks shared by the kernel and plain routes of :func:`lane_gather`;
+    returns g, the source rows each index row serves."""
     if src.ndim != 2 or src.shape[1] != 128:
         raise ValueError(f"lane_gather needs 128 lanes, got "
                          f"{tuple(src.shape)}")
-    if idx.shape != src.shape:
-        raise ValueError("lane_gather: idx must have the shape of src")
-    if src.device.type == "cpu":
+    if idx.ndim != 2 or idx.shape[1] != 128:
+        raise ValueError(f"lane_gather: idx must be (rows, 128), got "
+                         f"{tuple(idx.shape)}")
+    n, rows = int(src.shape[0]), int(idx.shape[0])
+    if rows == n:
+        return 1
+    if rows == 0 or n % rows:
+        raise ValueError(f"lane_gather: idx's {rows} rows do not divide the "
+                         f"source's {n}")
+    return n // rows
+
+
+def _lane_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    g = _lane_gather_group(src, idx)
+    return torch.gather(src, 1, torch.clamp(idx.to(torch.int64), 0,
+                                            127).repeat_interleave(g, 0))
+
+
+def lane_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[i, j] = src[i, clip(idx[i // g, j], 0, 127)] for (N, 128) f32
+    ``src`` and (N / g, 128) int32 ``idx``: g = 1 is the TPU kernel's
+    contract; with fewer index rows each serves g consecutive source rows
+    (the broadcast-index mode, which spares the caller an expanded copy)."""
+    if src.is_cpu:
         return _lane_gather_plain(src, idx)
+    g = _lane_gather_group(src, idx)
     _check(src, "lane_gather src", torch.float32, 2)
     _check(idx, "lane_gather idx", torch.int32, 2)
-    if idx.device != src.device:
+    if idx.get_device() != src.get_device():
         raise ValueError("lane_gather: idx must be on the source's device")
     out = torch.empty_like(src)
-    if out.numel() == 0:
+    n = src.shape[0]
+    if n == 0:
         return out
     rc = _kernel("lane_gather")(src.data_ptr(), idx.data_ptr(),
-                                out.data_ptr(), int(src.shape[0]),
-                                _stream(src))
+                                out.data_ptr(), n, g, _stream(src))
     _launched("lane_gather", rc)
     return out
 
@@ -868,24 +916,28 @@ def _lane_shift_plain(src: torch.Tensor, shifts: torch.Tensor,
 
 def lane_shift(src: torch.Tensor, shifts: torch.Tensor,
                out_w: int) -> torch.Tensor:
-    """(rr, cc) or (B, rr, cc) f32, (rr,) int32 shifts → (..., rr, out_w)."""
-    if src.device.type == "cpu":
+    """(rr, cc) or (B, rr, cc) f32, (rr,) int32 shifts → (..., rr, out_w):
+    ``out[..., r, j] = src[..., r, j - shifts[r]]``, zero outside."""
+    if src.is_cpu:
         return _lane_shift_plain(src, shifts, out_w)
-    if src.ndim not in (2, 3):
+    nd = src.ndim
+    if nd not in (2, 3):
         raise ValueError("lane_shift src: expected (rr, cc) or (B, rr, cc)")
-    _check(src, "lane_shift src", torch.float32, src.ndim)
+    _check(src, "lane_shift src", torch.float32, nd)
     _check(shifts, "lane_shift shifts", torch.int32, 1)
-    rr, cc = src.shape[-2:]
-    if shifts.shape[0] != rr or shifts.device != src.device:
+    shape = src.shape
+    rr, cc = shape[-2], shape[-1]
+    if shifts.shape[0] != rr or shifts.get_device() != src.get_device():
         raise ValueError("lane_shift: shifts must be (rr,) on the source's "
                          "device")
-    b = src.shape[0] if src.ndim == 3 else 1
-    out = torch.empty(src.shape[:-1] + (int(out_w),), dtype=torch.float32,
+    b = shape[0] if nd == 3 else 1
+    out_w = int(out_w)
+    out = torch.empty(shape[:-1] + (out_w,), dtype=torch.float32,
                       device=src.device)
     if out.numel() == 0:
         return out
     rc = _kernel("lane_shift")(src.data_ptr(), shifts.data_ptr(),
-                               out.data_ptr(), b, rr, cc, int(out_w),
+                               out.data_ptr(), b, rr, cc, out_w,
                                _stream(src))
     _launched("lane_shift", rc)
     return out

@@ -77,10 +77,66 @@ def test_cuda_fast_harris_levels_bit_equal(cuda_dev, shapes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_levels,launches", [(8, 1), (16, 1), (17, 2),
+                                                (33, 3)])
+def test_cuda_fast_harris_levels_launch_per_16_levels(cuda_dev, n_levels,
+                                                      launches):
+    """Any number of levels, in one launch per 16: every level bit-equal
+    to the plain version and to its one-level call."""
+    rng = np.random.default_rng(31)
+    shapes = [(max(8, 120 - 4 * i), max(9, 150 - 5 * i))
+              for i in range(n_levels)]
+    levels = [convert.tensor(rng.integers(0, 256, s).astype(np.uint8),
+                             cuda_dev) for s in shapes]
+    ck.reset_launch_counts()
+    got = ck.fast_harris_levels(levels, 7.0)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["fast_harris"] == launches and len(got) == n_levels
+    for (s_k, h_k), lv in zip(got, levels):
+        s_p, h_p = ck._fast_harris_plain(lv, 7.0)
+        s_1, h_1 = ck.fast_harris(lv, 7.0)
+        torch.cuda.synchronize()
+        assert torch.equal(s_k, s_p) and torch.equal(h_k, h_p), lv.shape
+        assert torch.equal(s_k, s_1) and torch.equal(h_k, h_1), lv.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_levels,launches", [(8, 1), (17, 2)])
+def test_cuda_orb_levels_launch_k1_per_16(cuda_dev, n_levels, launches):
+    """ORB on the card: 8 levels launch K1 once, 17 levels twice (16, then
+    1); the features equal those of the route with one K1 launch per
+    level (``_select_level(..., maps=None)``)."""
+    from kornia_tpu_torch.features import orb
+    rng = np.random.default_rng(32)
+    small = rng.random((30, 40))
+    gray = (np.kron(small, np.ones((8, 8))) * 255).astype(np.uint8)
+    cfg = orb.OrbConfig(n_features=400, n_levels=n_levels, scale_factor=1.1)
+    ck.reset_launch_counts()
+    got = orb.orb_detect_and_describe(gray, cfg)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["fast_harris"] == launches
+    levels = orb._pyramid(convert.tensor(gray, cuda_dev), cfg)
+    sels = [orb._select_level(lv, b, cfg) for lv, b in
+            zip(levels, orb._level_budgets(cfg))]
+    assert torch.equal(got.xy, torch.cat([s[0] * cfg.scale_factor ** i
+                                          for i, s in enumerate(sels)]))
+    assert torch.equal(got.score, torch.cat([s[1] for s in sels]))
+    assert torch.equal(got.mask, torch.cat([s[2] for s in sels]))
+    saved = ck.fast_harris_levels
+    try:
+        ck.fast_harris_levels = lambda lvs, thr: [saved([lv], thr)[0]
+                                                  for lv in lvs]
+        per_level = orb.orb_detect_and_describe(gray, cfg)
+    finally:
+        ck.fast_harris_levels = saved
+    for name in got._fields:
+        assert torch.equal(getattr(got, name), getattr(per_level, name)), \
+            name
+
+
+@pytest.mark.cuda
 def test_cuda_fast_harris_levels_reject_bad_input(cuda_dev):
     lv = torch.zeros((20, 30), dtype=torch.uint8, device=cuda_dev)
-    with pytest.raises(ValueError, match="at most 16"):
-        ck.fast_harris_levels([lv] * 17, 7.0)
     with pytest.raises(ValueError, match="one device"):
         ck.fast_harris_levels([lv, lv.cpu()], 7.0)
     with pytest.raises(ValueError):
@@ -184,22 +240,42 @@ def test_cuda_remap_bit_equal(cuda_dev, form, dtype, shape, out_hw):
 
 
 @pytest.mark.cuda
-def test_cuda_lane_shift_bit_equal(cuda_dev):
-    """K8 against its plain version: both slope signs, a batch, shifts
-    that push rows past either end of the output."""
+@pytest.mark.parametrize("b,s,out_w,kap,aligned", [
+    (3, 203, 203 + 214 + 8, 0.57735, True),     # out_w % 4 == 1
+    (3, 203, 203 + 214 + 8, -1.05, True),
+    (1, 203, 203 + 214 + 8, 1.7, True),
+    (3, 256, 548, 0.57735, True),               # cc and out_w % 4 == 0
+    (1, 256, 548, -1.05, True),
+    (3, 256, 100, 0.57735, True),               # out_w < cc
+    (1, 200, 37, 0.3, True),                    # out_w < cc, % 4 == 1
+    (3, 256, 548, 3.1, True),                   # shifts beyond out_w
+    (1, 256, 548, -3.1, True),
+    (3, 256, 548, 0.57735, False),              # base off 16 bytes
+    (1, 203, 421, -1.05, False),
+    (2, 64, 1500, 0.57735, True)])              # several steps a row
+def test_cuda_lane_shift_bit_equal(cuda_dev, b, s, out_w, kap, aligned):
+    """K8 against its plain version, one launch per call: both slope
+    signs, batches of 1 and 3, output widths that are and are not a
+    multiple of 4 and narrower than the source, shifts that push rows past
+    either end of the output, and a source whose base is off a 16-byte
+    boundary (a contiguous view into a larger buffer)."""
     rng = np.random.default_rng(16)
-    s = 203
-    src = convert.tensor(rng.random((3, s, s)).astype(np.float32), cuda_dev)
-    ht = s + int(np.ceil(1.05 * s)) + 8
-    for kap in (0.57735, -1.05, 1.7):
-        sh = np.floor(np.float32(kap) * np.arange(s, dtype=np.float32))
-        sh = convert.tensor((sh - sh.min() - 5).astype(np.int32), cuda_dev)
-        ck.reset_launch_counts()
-        got = ck.lane_shift(src, sh, ht)
-        want = ck._lane_shift_plain(src, sh, ht)
-        torch.cuda.synchronize()
-        assert ck.LAUNCHES["lane_shift"] == 1
-        assert torch.equal(got, want)
+    flat = convert.tensor(rng.random(b * s * s + 1).astype(np.float32),
+                          cuda_dev)
+    off = 0 if aligned else 1
+    src = flat[off:off + b * s * s].view(b, s, s)
+    assert src.is_contiguous() and (src.data_ptr() % 16 == 0) == aligned
+    sh = np.floor(np.float32(kap) * np.arange(s, dtype=np.float32))
+    sh = convert.tensor((sh - sh.min() - 5).astype(np.int32), cuda_dev)
+    if b == 1:
+        src = src[0]
+    ck.reset_launch_counts()
+    got = ck.lane_shift(src, sh, out_w)
+    want = ck._lane_shift_plain(src, sh, out_w)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["lane_shift"] == 1
+    assert got.shape == src.shape[:-1] + (out_w,)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -349,20 +425,35 @@ def test_cuda_windows_packed_canvas_bit_equal(cuda_dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("src_off,idx_off", [(0, 0), (1, 0), (0, 3)])
+@pytest.mark.parametrize("g", [1, 48])
 @pytest.mark.parametrize("n", [0, 1, 5, 513, 4801])
-def test_cuda_lane_gather_bit_equal(cuda_dev, n):
-    """K5 against torch.gather on the clipped indices: N not a multiple of
-    anything, indices outside [0, 127]."""
+def test_cuda_lane_gather_bit_equal(cuda_dev, n, g, src_off, idx_off):
+    """K5 against its plain version and torch.gather on the clipped,
+    expanded indices: n index rows, each serving g source rows (g = 1 the
+    general mode, g = 48 the broadcast mode the describe uses), n not a
+    multiple of anything, indices outside [0, 127], and a source or index
+    whose base is off a 16-byte boundary (a contiguous view at a flat
+    offset into a larger buffer). The broadcast call equals the general
+    call on the expanded index."""
     rng = np.random.default_rng(22)
-    src = convert.tensor(rng.standard_normal((n, 128)).astype(np.float32),
-                         cuda_dev)
-    idx = convert.tensor(rng.integers(-4, 132, (n, 128)).astype(np.int32),
-                         cuda_dev)
+    src = convert.tensor(rng.standard_normal(n * g * 128 + src_off).astype(
+        np.float32), cuda_dev)[src_off:].view(n * g, 128)
+    idx = convert.tensor(rng.integers(-4, 132, n * 128 + idx_off).astype(
+        np.int32), cuda_dev)[idx_off:].view(n, 128)
+    if n:
+        assert src.is_contiguous() and idx.is_contiguous()
+        assert (src.data_ptr() % 16 == 0) == (src_off == 0)
+        assert (idx.data_ptr() % 16 == 0) == (idx_off == 0)
+    full = idx.repeat_interleave(g, 0)
     ck.reset_launch_counts()
     got = ck.lane_gather(src, idx)
     torch.cuda.synchronize()
     assert ck.LAUNCHES["lane_gather"] == (1 if n else 0)
     assert torch.equal(got, ck._lane_gather_plain(src, idx))
+    assert torch.equal(got, ck._lane_gather_plain(src, full))
+    assert torch.equal(got, torch.gather(src, 1, full.long().clamp(0, 127)))
+    assert torch.equal(got, ck.lane_gather(src, full))
 
 
 @pytest.mark.cuda
@@ -404,6 +495,10 @@ def test_cuda_new_wrappers_reject_bad_input(cuda_dev):
     with pytest.raises(ValueError):
         ck.lane_gather(torch.zeros((4, 128), device=cuda_dev),
                        torch.zeros((4, 128), dtype=torch.int64,
+                                   device=cuda_dev))
+    with pytest.raises(ValueError, match="do not divide"):
+        ck.lane_gather(torch.zeros((96, 128), device=cuda_dev),
+                       torch.zeros((5, 128), dtype=torch.int32,
                                    device=cuda_dev))
     with pytest.raises(ValueError):
         ck.fused_preprocess(torch.zeros((8, 8, 3), device=cuda_dev), 4, 4)

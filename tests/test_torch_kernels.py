@@ -190,13 +190,83 @@ def test_orb_features_equal_the_per_level_route(ref_pyramid, monkeypatch,
                                   np.repeat(np.arange(len(levels)), budgets))
 
 
+# 17 seed-made levels of a 1.1-scale pyramid: the 17th is 42 x 56
+_SHAPES_17 = [(int(round(192 / 1.1 ** i)), int(round(256 / 1.1 ** i)))
+              for i in range(17)]
+
+
+@pytest.fixture(scope="module")
+def levels17():
+    """The 17 levels, the OrbConfig that takes them and the reference's
+    selection of the 17th level (one JAX compile)."""
+    levels = [_img(60 + i, s) for i, s in enumerate(_SHAPES_17)]
+    cfg = jorb.OrbConfig(n_features=300, n_levels=17, scale_factor=1.1)
+    budget = jorb._level_budgets(cfg)[16]
+    ref = jorb._select_level(jnp.asarray(levels[16]), budget, cfg)
+    return levels, cfg, [np.array(a) for a in ref]
+
+
+@pytest.mark.parametrize("form", [dict(describe="paired"),
+                                  dict(describe="unpaired"),
+                                  dict(brief="lane_gather"),
+                                  dict(describe="gather")],
+                         ids=["paired", "unpaired", "lane_gather", "gather"])
+def test_orb_17_levels_in_chunks_equal_the_per_level_route(levels17,
+                                                           monkeypatch, form):
+    """ORB with 17 levels returns: one ``fast_harris_levels`` call that
+    goes to K1 in chunks of 16 and 1 levels, and every feature in every
+    describe form equal to the per-level route's (``_select_level(...,
+    maps=None)``, one K1 call per level); the 17th level's selection is
+    the reference's ``_select_level``, slot for slot."""
+    from kornia_tpu_torch.features import orb as torb
+    levels, cfg, ref17 = levels17
+    tcfg = convert.orb_config(dataclasses.asdict(cfg))
+    monkeypatch.setattr(torb, "_pyramid", lambda g, c: [
+        convert.tensor(lv) for lv in levels])
+    calls, chunks = [], []
+    all_levels, chunk = ck.fast_harris_levels, ck._fast_harris_chunk
+
+    def counted(lvs, thr):
+        calls.append(len(lvs))
+        return all_levels(lvs, thr)
+
+    def counted_chunk(lvs, thr):
+        chunks.append(len(lvs))
+        return chunk(lvs, thr)
+
+    monkeypatch.setattr(ck, "fast_harris_levels", counted)
+    monkeypatch.setattr(ck, "_fast_harris_chunk", counted_chunk)
+    got = torb.orb_detect_and_describe(levels[0], tcfg, device="cpu",
+                                       **form)
+    assert calls == [17] and chunks == [16, 1]
+    budgets = torb._level_budgets(tcfg)
+    sels = [torb._select_level(convert.tensor(lv), b, tcfg)
+            for lv, b in zip(levels, budgets)]
+    for field, i in (("xy", 0), ("score", 1), ("mask", 2)):
+        want = torch.cat([sl[i] * tcfg.scale_factor ** lv if i == 0
+                          else sl[i] for lv, sl in enumerate(sels)])
+        assert torch.equal(getattr(got, field), want), field
+    monkeypatch.setattr(ck, "fast_harris_levels", lambda lvs, thr: [
+        all_levels([lv], thr)[0] for lv in lvs])
+    per_level = torb.orb_detect_and_describe(levels[0], tcfg, device="cpu",
+                                             **form)
+    for field in got._fields:
+        assert torch.equal(getattr(got, field), getattr(per_level, field)), \
+            field
+    n17 = budgets[16]
+    for a, want in zip((got.xy[-n17:], got.score[-n17:], got.mask[-n17:]),
+                       (torch.from_numpy(ref17[0]) * tcfg.scale_factor ** 16,
+                        *ref17[1:])):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("levels,match", [
-    ([np.zeros((8, 8), np.uint8)] * 17, "at most 16"),
+    ([np.zeros((8, 8), np.uint8), np.zeros(8, np.uint8)], "2-D"),
     ([np.zeros((8, 8), np.uint8), np.zeros((8, 8), np.float32)], "uint8"),
     ([np.zeros((2, 8, 8), np.uint8)], "2-D")])
 def test_fast_harris_levels_rejects_bad_input_on_cpu(levels, match):
-    """The CPU route checks what the card route checks: at most 16 levels,
-    each a 2-D uint8 tensor."""
+    """The CPU route checks what the card route checks: each level a 2-D
+    uint8 tensor (any number of levels is taken, in chunks of 16)."""
     with pytest.raises(ValueError, match=match):
         ck.fast_harris_levels([convert.tensor(a) for a in levels], 7.0)
 
@@ -480,6 +550,30 @@ def test_prepare_window_canvas_default_is_the_paired_layout():
 # --------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("n,g", [(12, 48), (7, 3)])
+def test_lane_gather_broadcast_matches_pallas_interpret(n, g):
+    """The broadcast-index mode ((n, 128) index rows, each serving g
+    source rows) equals lane_gather (interpret mode) on the expanded
+    (n * g, 128) index, and the general call on it."""
+    rng = np.random.default_rng(27)
+    src = rng.standard_normal((n * g, 128)).astype(np.float32)
+    idx = rng.integers(-3, 131, (n, 128)).astype(np.int32)
+    full = np.repeat(idx, g, axis=0)
+    ref = np.asarray(pk.lane_gather(jnp.asarray(src), jnp.asarray(full)))
+    got = ck.lane_gather(convert.tensor(src), convert.tensor(idx))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(
+        got.numpy(), ck.lane_gather(convert.tensor(src),
+                                    convert.tensor(full)).numpy())
+
+
+@pytest.mark.parametrize("n_src,n_idx", [(96, 5), (96, 0), (10, 20)])
+def test_lane_gather_rejects_index_rows_that_do_not_divide(n_src, n_idx):
+    with pytest.raises(ValueError, match="do not divide"):
+        ck.lane_gather(torch.zeros(n_src, 128),
+                       torch.zeros(n_idx, 128, dtype=torch.int32))
+
+
 @pytest.mark.parametrize("n", [5, 512, 700])
 def test_lane_gather_plain_matches_pallas_interpret(n):
     """Bit-equal to lane_gather (interpret mode), indices outside
@@ -562,6 +656,8 @@ def test_new_wrappers_count_no_cpu_launch():
     img, xy = _frame_and_keypoints(29, 40, 60, 5)
     ck.windows(convert.tensor(img), convert.tensor(xy))
     ck.lane_gather(torch.zeros(3, 128), torch.zeros(3, 128,
+                                                    dtype=torch.int32))
+    ck.lane_gather(torch.zeros(6, 128), torch.zeros(2, 128,
                                                     dtype=torch.int32))
     ck.fused_preprocess(convert.tensor(_img(30, (20, 30, 3))), 8, 8)
     assert all(v == 0 for v in ck.LAUNCHES.values())
