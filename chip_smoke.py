@@ -96,6 +96,23 @@ Phases (any failure raises, so the script exits non-zero):
 12. host: microseconds of host time per call of every wrapper on the
    main path's recorded inputs (1000 calls, no synchronise), twice; with
    --parent in turns with the parent tree's wrappers.
+13. track (run before host): the SLAM loop's per-frame tracking step at
+   its full width. A map of views 1 and 2 (ORB with SlamConfig()'s
+   OrbConfig(n_features=1000, n_levels=4), each valid keypoint lifted to
+   its exact 3-D point on the planes, packed descriptors, padded to 2048
+   rows) and a third view at a known pose (rotation (−1.5°, 1.5°, −0.5°),
+   centre (−0.2, 0.1, 0.1); its ORB padded to 1024 rows) go through
+   slam.track_step with SlamConfig() (ratio 0.8, distance ≤ 64, 3 px,
+   256 × 6-point EPnP hypotheses, 2 LO refits, 10 LM steps), the draw
+   from a CUDA generator seeded with SEED. The frame's ORB launches
+   fast_harris 1, windows_paired 2, brief_rotated 1; the step runs under
+   torch.cuda.set_sync_debug_mode("error") (it must not wait for the
+   device), must recover the pose within 0.1° and 0.02 units of centre
+   with inliers ≥ half the matches, and with the same draw must equal
+   the CPU route's matches, pose (1e-4 rad, 1e-3) and n_inliers (±2).
+   Call and device ms of the step, the packed match alone,
+   solve_pnp_ransac alone and the frame's ORB; the step's kernel launches
+   and device busy share.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object with one entry per kernel; the last line is
@@ -118,11 +135,13 @@ import numpy as np
 import torch
 
 from kornia_tpu_torch.features import matching, orb, responses
-from kornia_tpu_torch.geometry import camera, stereo, twoview
+from kornia_tpu_torch.geometry import camera, pnp, stereo, twoview
+from kornia_tpu_torch.geometry.ransac import sample_minimal_sets
 from kornia_tpu_torch.ops import cuda_kernels as ck
 from kornia_tpu_torch.ops import interpolation, optical_flow, preprocess
 from kornia_tpu_torch.ops import warp, warp_exact
 from kornia_tpu_torch.ops.filters import gaussian_blur
+from kornia_tpu_torch.slam import system as slam
 
 H, W = 480, 752
 SEED = 0
@@ -400,19 +419,46 @@ def _view(pix, rot, origin, texs):
     return np.clip(np.round(img), 0, 255).astype(np.uint8)
 
 
+def _hit(xy, rot, origin):
+    """(N, 3) world points where the rays of pixels ``xy`` (N, 2) of the
+    camera rot·(X − origin) first meet the two planes: the ray-cast of
+    :func:`_view`, per ray."""
+    d = (np.concatenate([xy, np.ones_like(xy[:, :1])], -1)
+         @ np.linalg.inv(K_EUROC).T) @ rot
+    s = np.full(len(xy), np.inf)
+    for n, off in _PLANES:
+        si = (off - origin @ n) / (d @ n)
+        s = np.minimum(s, np.where(si > 0, si, np.inf))
+    return origin + s[:, None] * d
+
+
+# (rotation, centre) of the scene's views, camera = R·(X − centre); view
+# 1 is the world frame
+VIEW2 = (_rot_xyz([1.0, -2.0, 0.5]), np.array([0.3, 0.05, 0.02]))
+VIEW3 = (_rot_xyz([-1.5, 1.5, -0.5]), np.array([-0.2, 0.1, 0.1]))
+
+
+def scene_textures(seed: int = SEED):
+    rng = np.random.default_rng(seed)
+    return [_texture(rng), _texture(rng)]
+
+
+def render_view(rot, origin, texs) -> np.ndarray:
+    """One 480×752 u8 view of the scene, camera rot·(X − origin)."""
+    vv, uu = np.mgrid[0:H, 0:W].astype(np.float64)
+    pix = np.stack([uu, vv, np.ones_like(uu)], -1) @ np.linalg.inv(
+        K_EUROC).T                                             # (H, W, 3)
+    return _view(pix, rot, origin, texs)
+
+
 def render_scene(seed: int = SEED):
     """Two views of a 'roof' of two textured planes z = 5 ∓ X (they meet
     at X = 0), camera 2 = R·X + t. Returns (img1, img2, R, t)."""
-    rng = np.random.default_rng(seed)
-    texs = [_texture(rng), _texture(rng)]
-    r = _rot_xyz([1.0, -2.0, 0.5])
-    center2 = np.array([0.3, 0.05, 0.02])
+    r, center2 = VIEW2
     t = -r @ center2
-    kinv = np.linalg.inv(K_EUROC)
-    vv, uu = np.mgrid[0:H, 0:W].astype(np.float64)
-    pix = np.stack([uu, vv, np.ones_like(uu)], -1) @ kinv.T   # (H, W, 3)
-    img1 = _view(pix, np.eye(3), np.zeros(3), texs)
-    img2 = _view(pix, r, center2, texs)
+    texs = scene_textures(seed)
+    img1 = render_view(np.eye(3), np.zeros(3), texs)
+    img2 = render_view(r, center2, texs)
     return img1, img2, r, t / np.linalg.norm(t)
 
 
@@ -455,6 +501,14 @@ def render_stereo(seed: int = SEED):
     img1 = _view(pix, np.eye(3), np.zeros(3), texs)
     img2 = _view(pix, r, center2, texs)
     return img1, img2, r, -r @ center2
+
+
+def chord_rad(r_a, r_b) -> float:
+    """The angle between two rotations from the Frobenius chord: stable
+    for the small angles an arccos of the trace loses in float32 rounding."""
+    d = np.linalg.norm(np.asarray(r_a, np.float64) - np.asarray(r_b,
+                                                                np.float64))
+    return float(2 * np.arcsin(min(d / (2 * np.sqrt(2)), 1.0)))
 
 
 def rot_err_deg(r_est, r_gt) -> float:
@@ -511,13 +565,15 @@ def device_share(label, fn, card_line):
     if not kern:
         log("profile: no device time in the trace: device busy share not "
             "measured")
-        return
+        return None
     log(f"profile {label}: wall {wall_ms:.3f} ms (profiled), device busy "
         f"{busy_ms:.3f} ms = {busy_ms / wall_ms:.4f} of wall, {n} kernel "
         f"launches [{card_line}]")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms, "launches": n}
 
 
 # --------------------------------------------------------------------------
@@ -1640,6 +1696,191 @@ def phase_orb_levels17(card_line, img1):
         f"{cuda_ms(run):.3f} ms [{card_line}]")
 
 
+def check_track_kernels(k1, k2, k3):
+    """The tracked frame's K1, K2 and K3 calls, recorded on the main path
+    (``Record`` of ``fast_harris_levels``, ``windows_paired`` and
+    ``brief_rotated``), held to their plain versions on the same inputs:
+    every output must be bit-equal. Returns each kernel's max |error|."""
+    errs = {"fast_harris": 0.0, "windows_paired": 0.0, "brief_rotated": 0.0}
+    pairs = {"fast_harris": [], "windows_paired": [], "brief_rotated": []}
+    for (args, kwargs), maps in zip(k1.calls, k1.outs):
+        levels, thr = args
+        for lv, got in zip(levels, maps):
+            pairs["fast_harris"] += list(zip(
+                got, ck._fast_harris_plain(lv, thr)))
+    for (args, kwargs), got in zip(k2.calls, k2.outs):
+        pairs["windows_paired"].append(
+            (got, ck._windows_paired_plain(*args, **kwargs)))
+    for (args, kwargs), got in zip(k3.calls, k3.outs):
+        pairs["brief_rotated"].append(
+            (got, ck._brief_rotated_plain(*args, **kwargs)))
+    shapes = {}
+    for name, found in pairs.items():
+        if not found:
+            raise AssertionError(f"track: no {name} call was recorded")
+        for got, want in found:
+            errs[name] = max(errs[name], max_err(got, want))
+            if not torch.equal(got, want):
+                raise AssertionError(f"track: {name} at {tuple(got.shape)} "
+                                     "differs from its plain version")
+        shapes[name] = [tuple(got.shape) for got, _ in found]
+    log(f"track: the frame's K1/K2/K3 outputs at the path's own shapes "
+        f"bit-equal to their plain versions on the same inputs: {shapes}")
+    return errs
+
+
+def phase_track(card_line):
+    """The per-frame tracking step at the SLAM loop's width: a map of
+    views 1 and 2 (ORB at SlamConfig()'s OrbConfig(n_features=1000,
+    n_levels=4), each valid keypoint lifted to its exact 3-D point, packed
+    descriptors, a bucket of 2048 rows), the third view at a known pose
+    (ORB, 1000 rows padded to 1024), then ``track_step`` with
+    SlamConfig(). Returns the frame's K1–K3 launches."""
+    t_phase = time.perf_counter()
+    scfg = slam.SlamConfig()
+    ocfg = orb.OrbConfig(n_features=scfg.n_features, n_levels=scfg.n_levels)
+    texs = scene_textures()
+    xyz, desc = [], []
+    for rot, origin in ((np.eye(3), np.zeros(3)), VIEW2):
+        f = orb.orb_detect_and_describe(render_view(rot, origin, texs), ocfg,
+                                        device="cuda")
+        xyz.append(_hit(f.xy[f.mask].double().cpu().numpy(), rot, origin))
+        desc.append(slam._pack(f.descriptors[f.mask]))
+    n_map = sum(len(p) for p in xyz)
+    nm = slam._bucket(n_map, 256)
+    maps = {"map_desc": slam._pad_rows(torch.cat(desc), nm),
+            "map_mask": torch.arange(nm, device=DEV) < n_map,
+            "map_xyz": slam._pad_rows(torch.as_tensor(
+                np.concatenate(xyz), dtype=torch.float32, device=DEV), nm)}
+    k = torch.as_tensor(K_EUROC, dtype=torch.float32, device=DEV)
+    rot3, origin3 = VIEW3
+    img3 = torch.as_tensor(render_view(rot3, origin3, texs), device=DEV)
+    nf = slam._bucket(ocfg.n_features, 256)
+
+    def frame_inputs():
+        f = orb.orb_detect_and_describe(img3, ocfg, device="cuda")
+        return {"frame_desc": slam._pad_rows(slam._pack(f.descriptors), nf),
+                "frame_mask": slam._pad_rows(f.mask, nf, False),
+                "frame_xy": slam._pad_rows(f.xy, nf)}
+
+    def step(fin, gen=None, draw=None, device="cuda"):
+        ins = {**fin, **maps, "k": k}
+        if device == "cpu":
+            ins = {name: v.cpu() for name, v in ins.items()}
+            draw = None if draw is None else draw.cpu()
+        return slam.track_step(
+            **ins, max_distance=scfg.match_max_distance,
+            ratio=scfg.match_ratio, threshold_px=scfg.pnp_threshold_px,
+            generator=gen, sample_idx=draw, device=device)
+
+    fin = frame_inputs()                        # warm-up (cuBLAS, caches)
+    step(fin, torch.Generator(device=DEV).manual_seed(SEED))
+    torch.cuda.synchronize()
+    # the main path, counted: the frame's ORB, then the step, which must
+    # not wait for the device anywhere
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+
+    recs = [Record(name) for name in ("fast_harris_levels", "windows_paired",
+                                      "brief_rotated")]
+
+    def path():
+        with recs[0], recs[1], recs[2]:
+            fin = frame_inputs()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fin, step(fin, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    (fin, res), launches = counted(path)
+    log(f"track: launches for the frame's ORB and the step {launches}; "
+        f"the step ran under torch.cuda.set_sync_debug_mode('error')")
+    only(launches, {"fast_harris": 1, "windows_paired": 2,
+                    "brief_rotated": 1})
+    errs = check_track_kernels(*recs)
+    r = res.pose.rotation.double().cpu().numpy()
+    t = res.pose.translation.double().cpu().numpy()
+    if not (np.isfinite(r).all() and np.isfinite(t).all()):
+        raise AssertionError("track: pose not finite")
+    n_match = int(res.match_mask.sum())
+    n_inl = int(res.n_inliers)
+    rerr = rot_err_deg(r, rot3)
+    cerr = float(np.linalg.norm(-r.T @ t - origin3))
+    log(f"track: map {n_map} points (bucket {nm}), frame "
+        f"{int(fin['frame_mask'].sum())} keypoints (bucket {nf}), matches "
+        f"{n_match}, inliers {n_inl}, rotation error {rerr:.5f} deg, centre "
+        f"error {cerr:.5f} (planes at depth ~5)")
+    if not (rerr <= 0.1 and cerr <= 0.02 and n_inl >= 0.5 * n_match):
+        raise AssertionError("track: pose outside the bounds (0.1 deg, 0.02 "
+                             "units, inliers >= half the matches)")
+
+    # the CPU route on the same inputs and the same draw
+    draw = sample_minimal_sets(torch.Generator(device=DEV).manual_seed(SEED),
+                               nf, res.match_mask, 256, 6)
+    card_res = step(fin, draw=draw)
+    cpu_res = step(fin, draw=draw, device="cpu")
+    d_rot = chord_rad(card_res.pose.rotation.cpu().numpy(),
+                      cpu_res.pose.rotation.numpy())
+    d_t = float((card_res.pose.translation.cpu()
+                 - cpu_res.pose.translation).abs().max())
+    d_n = int(card_res.n_inliers) - int(cpu_res.n_inliers)
+    log(f"track card vs cpu, same draw: match idx and mask equal "
+        f"{torch.equal(card_res.match_idx.cpu(), cpu_res.match_idx)} / "
+        f"{torch.equal(card_res.match_mask.cpu(), cpu_res.match_mask)}, "
+        f"R {d_rot:.3e} rad apart, t {d_t:.3e}, n_inliers {d_n:+d}; bound: "
+        f"equal matches (integer distances from an exact float32 product), "
+        f"R <= 1e-4 rad, t <= 1e-3, n_inliers +-2 (reductions and cuBLAS "
+        f"products round differently; the LM takes both routes to the "
+        f"minimum of the same inlier set)")
+    if not (torch.equal(card_res.match_idx.cpu(), cpu_res.match_idx)
+            and torch.equal(card_res.match_mask.cpu(), cpu_res.match_mask)
+            and d_rot <= 1e-4 and d_t <= 1e-3 and abs(d_n) <= 2):
+        raise AssertionError("track: the card and the CPU route differ")
+
+    # times
+    world = maps["map_xyz"][res.match_idx.clamp(min=0).long()]
+    cases = {
+        "step": lambda: step(fin, gen),
+        "match_descriptors_packed": lambda: matching.match_descriptors_packed(
+            fin["frame_desc"], maps["map_desc"], fin["frame_mask"],
+            maps["map_mask"], max_distance=scfg.match_max_distance,
+            ratio=scfg.match_ratio, device="cuda"),
+        "solve_pnp_ransac": lambda: pnp.solve_pnp_ransac(
+            world, fin["frame_xy"], k, threshold_px=scfg.pnp_threshold_px,
+            mask=res.match_mask, generator=gen, device="cuda"),
+        "orb (frame)": lambda: orb.orb_detect_and_describe(img3, ocfg,
+                                                            device="cuda"),
+    }
+    out = {"map_points": n_map, "matches": n_match, "inliers": n_inl,
+           "rot_err_deg": rerr, "centre_err": cerr,
+           "cpu_route": {"rot_rad": d_rot, "t": d_t, "n_inliers": d_n},
+           "orb_launches": {name: launches[name] for name in (
+               "fast_harris", "windows_paired", "brief_rotated")},
+           "kernel_errs": errs,
+           "checks_s": time.perf_counter() - t_phase}
+    # a profiler trace of the step holds ~35,000 records a call (reading
+    # one takes seconds), so the device time of the step and of its parts
+    # is the device busy time of one profiled call (device_share), which
+    # also counts the launches
+    for name, fn in cases.items():
+        reps = REPS if name == "step" else 10
+        out[name] = {"call_ms": cuda_ms(fn, reps=reps)}
+        if name == "orb (frame)":
+            out[name]["device_ms"] = device_ms(fn)
+        else:
+            out[name].update(device_share(f"track {name}", fn, card_line)
+                             or {})
+            out[name]["device_ms"] = out[name].get("busy_ms")
+        log(f"track {name}: call {out[name]['call_ms']:.3f} ms (median of "
+            f"{reps}), device {out[name]['device_ms']} ms [{card_line}]")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"track: {json.dumps(out)}")
+    log(f"track phase: {out['phase_s']:.1f} s (setup and checks "
+        f"{out['checks_s']:.1f} s)")
+    return out["orb_launches"], errs
+
+
 def phase_host(card_line, parent=None):
     """Host microseconds per wrapper call (1000 calls, no synchronise) on
     the main path's recorded inputs, this tree's wrappers and, with
@@ -2242,6 +2483,14 @@ def main():
     k7["paths"] = {"rectify": k7["launches"], **lk_remaps}
     k7["launches"] = sum(k7["paths"].values())
     k6 = phase_preprocess(card_line)
+
+    # 13. the tracking step (the seventh slice)
+    track_launches, track_errs = phase_track(card_line)
+    for row in rows_out[:3]:
+        key = {"brief_sample": "brief_rotated"}.get(row["name"], row["name"])
+        row["launches_by_path"] = {"pair": row["launches"],
+                                   "track frame": track_launches[key]}
+        row["max_abs_err"] = max(row["max_abs_err"], track_errs[key])
     host = phase_host(card_line, parent)
     for c in k5["cases"]:
         c["host_us_turns"] = host["lane_gather" + (

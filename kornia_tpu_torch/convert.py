@@ -1,7 +1,8 @@
 """Carry state from the JAX package into the port.
 
 There are no learned weights on the ported paths. The state is the
-configurations (ORB, two-view, LK, preprocessor), the stereo calibration and, for stage-by-stage comparison,
+configurations (ORB, two-view, LK, preprocessor, SLAM), the stereo
+calibration and, for stage-by-stage comparison,
 the reference's intermediate arrays. They arrive as plain numpy / Python
 values (so this module imports nothing of the JAX package) and leave as
 the port's objects and tensors on a given device.
@@ -22,6 +23,7 @@ from kornia_tpu_torch.geometry.twoview import TwoViewParams
 from kornia_tpu_torch.ops.optical_flow import PyrLKParams
 from kornia_tpu_torch.ops.preprocess import (NormalizeMode,
                                              PreprocessorConfig, ResizeMode)
+from kornia_tpu_torch.slam.system import SlamConfig
 
 
 def _config(cls, values: Mapping[str, Any]):
@@ -47,6 +49,11 @@ def twoview_params(values: Mapping[str, Any]) -> TwoViewParams:
 def pyrlk_params(values: Mapping[str, Any]) -> PyrLKParams:
     """``dataclasses.asdict`` of the reference's PyrLKParams → PyrLKParams."""
     return _config(PyrLKParams, values)
+
+
+def slam_config(values: Mapping[str, Any]) -> SlamConfig:
+    """``dataclasses.asdict`` of the reference's SlamConfig → SlamConfig."""
+    return _config(SlamConfig, values)
 
 
 def preprocessor_config(values: Mapping[str, Any]) -> PreprocessorConfig:
@@ -92,14 +99,15 @@ def stereo_rectifier_from_reference(fields: Mapping[str, Any]
         p2=arr(fields["p2"]), q=arr(fields["q"]))
 
 
-def tensor(array, device="cpu", dtype: torch.dtype | None = None
+def tensor(array, device="cuda", dtype: torch.dtype | None = None
            ) -> torch.Tensor:
     """One numpy array (pyramid level, keypoint xy, angles, descriptor
-    bits, mask, ...) → a tensor of the same dtype on ``device``."""
+    bits, mask, ...) → a tensor of the same dtype on ``device`` (the card
+    unless the caller asks for the CPU, as at every entry point)."""
     return to_device(np.asarray(array), resolve_device(device), dtype)
 
 
-def tensors(arrays: Mapping[str, Any], device="cpu") -> Dict[str, Any]:
+def tensors(arrays: Mapping[str, Any], device="cuda") -> Dict[str, Any]:
     """A dict of numpy arrays (or lists of them, e.g. pyramid levels) →
     the same keys holding tensors on ``device``."""
     out = {}

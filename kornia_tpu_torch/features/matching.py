@@ -62,8 +62,7 @@ def match_descriptors(a_bits, b_bits, a_mask=None, b_mask=None,
     # smallest of the rest
     best_idx = torch.argmin(d, dim=1)
     best = d[rows, best_idx]
-    rest = d.clone()
-    rest[rows, best_idx] = torch.iinfo(torch.int32).max
+    rest = d.scatter(1, best_idx[:, None], torch.iinfo(torch.int32).max)
     second = rest.amin(dim=1)
     ok = best <= max_distance
     if ratio is not None:
@@ -76,6 +75,31 @@ def match_descriptors(a_bits, b_bits, a_mask=None, b_mask=None,
         dist=best.to(torch.float32),
         mask=ok,
     )
+
+
+def unpack_descriptor_bits(packed: torch.Tensor) -> torch.Tensor:
+    """(N, 32) u8 packed (np.packbits order, MSB first) → (N, 256) u8
+    {0,1} bits, by shifts on the tensor's device."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=packed.device)
+    bits = (packed.to(torch.int32)[:, :, None] >> shifts) & 1
+    return bits.reshape(packed.shape[0], packed.shape[1] * 8).to(
+        torch.uint8)
+
+
+def match_descriptors_packed(a_packed, b_packed, a_mask=None, b_mask=None,
+                             max_distance: float = 64.0,
+                             ratio: Optional[float] = 0.75,
+                             cross_check: bool = True,
+                             device="cuda") -> Matches:
+    """:func:`match_descriptors` over PACKED u8 descriptors (np.packbits
+    order), the SLAM loop's entry: unpack on ``device``, then the same
+    matmul and argmin passes."""
+    dev = resolve_device(device)
+    return match_descriptors(
+        unpack_descriptor_bits(to_device(a_packed, dev)),
+        unpack_descriptor_bits(to_device(b_packed, dev)),
+        a_mask=a_mask, b_mask=b_mask, max_distance=max_distance,
+        ratio=ratio, cross_check=cross_check, device=dev)
 
 
 def matched_points(xy_a: torch.Tensor, xy_b: torch.Tensor, matches: Matches

@@ -60,14 +60,19 @@ def _to_pixels(xy: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.stack([xy[..., 0] * fx + cx, xy[..., 1] * fy + cy], dim=-1)
 
 
+def _project(pts_cam: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(..., 3) camera-frame points → (..., 2) pixels, |z| < 1e-9 taken
+    as 1e-9: the tensor-level projection for hot paths (no copy, no new
+    tensor from the host)."""
+    z = pts_cam[..., 2:3]
+    z = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+    return _to_pixels(pts_cam[..., :2] / z, k)
+
+
 def project_points(pts_cam, k, device="cuda") -> torch.Tensor:
     """(..., 3) camera-frame points → (..., 2) pixels (z > 0 assumed)."""
     dev = resolve_device(device)
-    pts = to_device(pts_cam, dev, _F32)
-    k = to_device(k, dev, _F32)
-    tiny = torch.tensor(1e-9, dtype=_F32, device=dev)
-    z = torch.where(pts[..., 2:3].abs() < tiny, tiny, pts[..., 2:3])
-    return _to_pixels(pts[..., :2] / z, k)
+    return _project(to_device(pts_cam, dev, _F32), to_device(k, dev, _F32))
 
 
 def unproject_points(px, depth, k, device="cuda") -> torch.Tensor:

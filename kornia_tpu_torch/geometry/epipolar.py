@@ -16,38 +16,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from kornia_tpu_torch.geometry.linalg import homogenize, inv3x3
-
-
-def _det_lu(m: torch.Tensor) -> torch.Tensor:
-    """Batched determinant of (..., n, n) via unrolled partial-pivot LU
-    (elementwise selects over the batch, no LAPACK call)."""
-    n = m.shape[-1]
-    dev, dt = m.device, m.dtype
-    det = torch.ones(m.shape[:-2], dtype=dt, device=dev)
-    sign = torch.ones(m.shape[:-2], dtype=dt, device=dev)
-    rows = torch.arange(n, device=dev)
-    for k in range(n):
-        col = m[..., :, k]
-        cand = torch.where(rows >= k, torch.abs(col),
-                           torch.full_like(col, -1.0))
-        p = torch.argmax(cand, dim=-1)
-        e_p = (rows == p[..., None]).to(dt)
-        e_k = torch.zeros(n, dtype=dt, device=dev)
-        e_k[k] = 1.0
-        row_k = m[..., k, :]
-        row_p = torch.einsum("...r,...rc->...c", e_p, m)
-        m = (m
-             - e_k[:, None] * (row_k - row_p)[..., None, :]
-             - e_p[..., None] * (row_p - row_k)[..., None, :])
-        sign = sign * torch.where(p == k, 1.0, -1.0).to(dt)
-        piv = m[..., k, k]
-        det = det * piv
-        safe = torch.where(torch.abs(piv) > 1e-30, piv, torch.ones_like(piv))
-        factor = torch.where(rows > k, m[..., :, k] / safe[..., None],
-                             torch.zeros_like(m[..., :, k]))
-        m = m - factor[..., None] * m[..., k, None, :]
-    return det * sign
+from kornia_tpu_torch.geometry.linalg import det_unrolled, homogenize, inv3x3
 
 
 def _nullvec_cramer(a: torch.Tensor) -> torch.Tensor:
@@ -57,7 +26,7 @@ def _nullvec_cramer(a: torch.Tensor) -> torch.Tensor:
     minors = torch.stack(
         [a[..., :, [c for c in range(d) if c != j]] for j in range(d)],
         dim=-3)                                    # (..., d, n, n)
-    dets = _det_lu(minors)                         # (..., d)
+    dets = det_unrolled(minors)                    # (..., d)
     signs = torch.tensor([(-1.0) ** j for j in range(d)], dtype=a.dtype,
                          device=a.device)
     v = dets * signs

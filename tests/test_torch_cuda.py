@@ -784,3 +784,95 @@ def test_cuda_brief_rotated_rejects_bad_input(cuda_dev):
     torch.cuda.synchronize()
     assert torch.equal(ck.brief_rotated(win, c, c, pat, "paired"),
                        ck._brief_rotated_plain(win, c, c, pat, "paired"))
+
+
+def _track_inputs(seed=40, n_map=2000, n_frame=1024, n_seen=700):
+    """A map of n_map points with random packed descriptors, padded to a
+    bucket of 2048; a frame of n_frame rows: n_seen map points seen under
+    a known pose (0.5 px noise, a few descriptor bits flipped), the rest
+    random descriptors at random pixels; K of 480×752 EuRoC size."""
+    rng = np.random.default_rng(seed)
+    k = np.array([[458.654, 0.0, 367.215], [0.0, 457.296, 248.375],
+                  [0.0, 0.0, 1.0]], np.float32)
+    xyz = rng.uniform([-3, -2, 4], [3, 2, 8], (n_map, 3))
+    desc = rng.integers(0, 256, (n_map, 32)).astype(np.uint8)
+    ang = np.deg2rad([-1.5, 1.5, -0.5])
+    c, s = np.cos(ang), np.sin(ang)
+    r = (np.array([[c[2], -s[2], 0], [s[2], c[2], 0], [0, 0, 1]])
+         @ np.array([[c[1], 0, s[1]], [0, 1, 0], [-s[1], 0, c[1]]])
+         @ np.array([[1, 0, 0], [0, c[0], -s[0]], [0, s[0], c[0]]]))
+    t = -r @ np.array([-0.2, 0.1, 0.1])
+    seen = rng.choice(n_map, n_seen, replace=False)
+    cam = xyz[seen] @ r.T + t
+    px = cam[:, :2] / cam[:, 2:] * [k[0, 0], k[1, 1]] + [k[0, 2], k[1, 2]]
+    fxy = rng.uniform([0, 0], [752, 480], (n_frame, 2))
+    fxy[:n_seen] = px + rng.normal(0, 0.5, px.shape)
+    fdesc = rng.integers(0, 256, (n_frame, 32)).astype(np.uint8)
+    flips = (rng.random((n_seen, 32)) < 0.05).astype(np.uint8) << \
+        rng.integers(0, 8, (n_seen, 32)).astype(np.uint8)
+    fdesc[:n_seen] = desc[seen] ^ flips
+    nm = 2048
+    pad = nm - n_map
+    return dict(
+        frame_desc=fdesc, frame_mask=np.arange(n_frame) < n_frame - 24,
+        frame_xy=fxy.astype(np.float32),
+        map_desc=np.concatenate([desc, np.zeros((pad, 32), np.uint8)]),
+        map_mask=np.arange(nm) < n_map,
+        map_xyz=np.concatenate([xyz, np.zeros((pad, 3))]).astype(
+            np.float32), k=k), r, t
+
+
+@pytest.mark.cuda
+def test_cuda_track_step_waits_for_nothing(cuda_dev):
+    """track_step on card tensors under sync debug mode "error": no host
+    synchronisation from the match to the last LM step (after one warm-up
+    call, which may set up cuBLAS and the generator); the known pose
+    within 0.1° and 0.02 units of centre."""
+    from kornia_tpu_torch.slam import system as tsys
+    x, r, t = _track_inputs()
+    xs = {key: convert.tensor(v, cuda_dev) for key, v in x.items()}
+    gen = torch.Generator(device=cuda_dev).manual_seed(0)
+    tsys.track_step(**xs, generator=gen, device=cuda_dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tsys.track_step(**xs, generator=gen, device=cuda_dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rr = got.pose.rotation.double().cpu().numpy()
+    tt = got.pose.translation.double().cpu().numpy()
+    ang = np.degrees(2 * np.arcsin(min(np.linalg.norm(rr - r)
+                                       / (2 * np.sqrt(2)), 1.0)))
+    assert ang <= 0.1
+    assert np.linalg.norm(rr.T @ tt - r.T @ t) <= 0.02
+    assert int(got.n_inliers) >= 0.5 * int(got.match_mask.sum())
+
+
+@pytest.mark.cuda
+def test_cuda_track_step_equals_cpu_route(cuda_dev):
+    """The card and the CPU route on the same inputs and the same draw
+    (sample_idx from the card's generator over the card's match mask):
+    match idx and mask equal (integer Hamming distances from an exact
+    float32 product), R within 1e-4 rad and t within 1e-3 of the CPU's
+    (reductions and cuBLAS products round differently; the LM takes both
+    to the minimum of the same inlier set), n_inliers within ±2."""
+    from kornia_tpu_torch.features import matching as tmatch
+    from kornia_tpu_torch.geometry import ransac as transac
+    from kornia_tpu_torch.slam import system as tsys
+    x, _, _ = _track_inputs(41)
+    m = tmatch.match_descriptors_packed(
+        x["frame_desc"], x["map_desc"], x["frame_mask"], x["map_mask"],
+        max_distance=64, ratio=0.8, device=cuda_dev)
+    gen = torch.Generator(device=cuda_dev).manual_seed(1)
+    draw = transac.sample_minimal_sets(gen, len(x["frame_mask"]), m.mask,
+                                       256, 6)
+    card = tsys.track_step(**x, sample_idx=draw, device=cuda_dev)
+    cpu = tsys.track_step(**x, sample_idx=draw.cpu(), device="cpu")
+    assert torch.equal(card.match_idx.cpu(), cpu.match_idx)
+    assert torch.equal(card.match_mask.cpu(), cpu.match_mask)
+    d = np.linalg.norm(card.pose.rotation.double().cpu().numpy()
+                       - cpu.pose.rotation.double().numpy())
+    assert 2 * np.arcsin(min(d / (2 * np.sqrt(2)), 1.0)) <= 1e-4
+    np.testing.assert_allclose(card.pose.translation.cpu().numpy(),
+                               cpu.pose.translation.numpy(), atol=1e-3)
+    assert abs(int(card.n_inliers) - int(cpu.n_inliers)) <= 2

@@ -4,9 +4,11 @@ the reference's previous stage through kornia_tpu_torch.convert, so one
 LSB upstream cannot cascade. Inputs are seed-made with numpy."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +27,12 @@ from kornia_tpu_torch.features import orb as torb
 from kornia_tpu_torch.features import responses as tresp
 from kornia_tpu_torch.ops import filters as tfilt
 from kornia_tpu_torch.ops import resize as tres
+
+# One intra-op thread: these tests run many small ops, and torch's pool
+# of a thread per core spins against the other test processes.
+torch.set_num_threads(1)
+
+tensor = functools.partial(convert.tensor, device="cpu")
 
 CFG = jorb.OrbConfig(n_features=512, n_levels=4)
 TCFG = convert.orb_config(dataclasses.asdict(CFG))
@@ -82,7 +90,7 @@ def test_pyramid_levels(ref_levels):
     order can tip an exact .5, so a few ±1-LSB pixels are allowed: at most
     8 per level (measured 0-3 on this frame), never more than 1 LSB."""
     for prev, ref in zip(ref_levels[:-1], ref_levels[1:]):
-        got = tres.resize(convert.tensor(prev), ref.shape).numpy()
+        got = tres.resize(tensor(prev), ref.shape).numpy()
         diff = np.abs(got.astype(int) - ref.astype(int))
         assert diff.max() <= 1
         assert (diff > 0).sum() <= 8
@@ -95,7 +103,7 @@ def test_gaussian_blur_exact(ref_levels, ksize, sigma):
     g = ref_levels[1].astype(np.float32)
     ref = np.asarray(jfilt.gaussian_blur(jnp.asarray(g)[..., None], ksize,
                                          sigma))[..., 0]
-    got = tfilt.gaussian_blur(convert.tensor(g), ksize, sigma).numpy()
+    got = tfilt.gaussian_blur(tensor(g), ksize, sigma).numpy()
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(tfilt.gaussian_kernel1d(ksize[0], sigma),
                                   jfilt.gaussian_kernel1d(ksize[0], sigma))
@@ -104,7 +112,7 @@ def test_gaussian_blur_exact(ref_levels, ksize, sigma):
 def test_harris_response_exact(ref_levels):
     g = ref_levels[2].astype(np.float32)
     ref = np.asarray(jresp.harris_response(jnp.asarray(g), grad="central"))
-    got = tresp.harris_response(convert.tensor(g), grad="central").numpy()
+    got = tresp.harris_response(tensor(g), grad="central").numpy()
     np.testing.assert_array_equal(got, ref)
 
 
@@ -117,7 +125,7 @@ def test_harris_response_exact(ref_levels):
 def test_fast_score_and_nms_exact(ref_levels, thr):
     img = ref_levels[0]
     ref = np.asarray(jfast.fast_score(jnp.asarray(img), thr))
-    got = tfast.fast_score(convert.tensor(img), thr)
+    got = tfast.fast_score(tensor(img), thr)
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(
         tfast.nms_maxpool(got).numpy(),
@@ -130,7 +138,7 @@ def test_two_tier_gate_exact(seed):
     s_lo = np.asarray(jfast.nms_maxpool(jfast.fast_score(
         jnp.asarray(img), 7.0)))
     ref = np.asarray(jfast._two_tier_gate(jnp.asarray(s_lo), 20.0, 35))
-    got = tfast._two_tier_gate(convert.tensor(s_lo), 20.0, 35)
+    got = tfast._two_tier_gate(tensor(s_lo), 20.0, 35)
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
@@ -141,10 +149,10 @@ def test_cell_topk_packed_exact(per_cell):
     rng = np.random.default_rng(per_cell)
     rank = rng.integers(0, 6, (80, 110)).astype(np.float32)  # many ties
     rxy, rsc = jfast.cell_topk_packed(jnp.asarray(rank), 35, per_cell)
-    txy, tsc = tfast.cell_topk_packed(convert.tensor(rank), 35, per_cell)
+    txy, tsc = tfast.cell_topk_packed(tensor(rank), 35, per_cell)
     np.testing.assert_array_equal(txy.numpy(), np.asarray(rxy))
     np.testing.assert_array_equal(tsc.numpy(), np.asarray(rsc))
-    gxy, gsc = tfast._cell_topk_general(convert.tensor(rank), 35, per_cell)
+    gxy, gsc = tfast._cell_topk_general(tensor(rank), 35, per_cell)
     jxy, jsc = jfast._cell_topk_general(jnp.asarray(rank), 35, per_cell)
     np.testing.assert_array_equal(gxy.numpy(), np.asarray(jxy))
     np.testing.assert_array_equal(gsc.numpy(), np.asarray(jsc))
@@ -155,7 +163,7 @@ def test_stable_topk_pins_lower_index_on_ties():
     (torch.topk does not promise it). -inf fills the invalid slots."""
     x = np.array([3, 5, 5, 1, 5, -np.inf, 3, 5, -np.inf], np.float32)
     jv, ji = jax.lax.top_k(jnp.asarray(x), 7)
-    tv, ti = tfast.stable_topk(convert.tensor(x), 7)
+    tv, ti = tfast.stable_topk(tensor(x), 7)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     assert ti.tolist() == [1, 2, 4, 7, 0, 6, 3]
@@ -163,7 +171,7 @@ def test_stable_topk_pins_lower_index_on_ties():
     big = rng.integers(0, 50, 4000).astype(np.float32)
     big[rng.random(4000) < 0.3] = -np.inf
     jv, ji = jax.lax.top_k(jnp.asarray(big), 900)
-    tv, ti = tfast.stable_topk(convert.tensor(big), 900)
+    tv, ti = tfast.stable_topk(tensor(big), 900)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
 
 
@@ -173,8 +181,8 @@ def test_fast_harris_cells_exact(seed):
     h_ref = jresp.harris_response(jnp.asarray(img).astype(jnp.float32),
                                   grad="central")
     ref = jfast.fast_harris_cells(jnp.asarray(img), h_ref, per_cell=3)
-    got = tfast.fast_harris_cells(convert.tensor(img),
-                                  convert.tensor(np.asarray(h_ref)),
+    got = tfast.fast_harris_cells(tensor(img),
+                                  tensor(np.asarray(h_ref)),
                                   per_cell=3)
     for name in ("xy", "score", "mask"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
@@ -184,7 +192,7 @@ def test_fast_harris_cells_exact(seed):
 def test_fast_detect_cells_exact():
     img = _smooth_frame(5)
     ref = jfast.fast_detect_cells(jnp.asarray(img), per_cell=4)
-    got = tfast.fast_detect_cells(convert.tensor(img), per_cell=4)
+    got = tfast.fast_detect_cells(tensor(img), per_cell=4)
     for name in ("xy", "score", "mask"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(ref, name)))
@@ -216,7 +224,7 @@ def test_select_level_exact(frame, rescore):
     budgets = jorb._level_budgets(cfg)
     for lv, b in zip(levels, budgets):
         rxy, rval, rvalid = jorb._select_level(jnp.asarray(lv), b, cfg)
-        txy, tval, tvalid = torb._select_level(convert.tensor(lv), b, tcfg)
+        txy, tval, tvalid = torb._select_level(tensor(lv), b, tcfg)
         np.testing.assert_array_equal(txy.numpy(), np.asarray(rxy))
         np.testing.assert_array_equal(tvalid.numpy(), np.asarray(rvalid))
         np.testing.assert_array_equal(tval.numpy(), np.asarray(rval))
@@ -255,8 +263,8 @@ def test_describe_windows_exact(describe_ref):
     r = describe_ref
     for frames, want in ((r["grays"], r["win_g"]), (r["blurs"], r["win_b"])):
         got = torb._extract_windows_packed_paired(
-            [convert.tensor(f) for f in frames],
-            [convert.tensor(x) for x in r["xy_ints"]])
+            [tensor(f) for f in frames],
+            [tensor(x) for x in r["xy_ints"]])
         np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -265,7 +273,7 @@ def test_orientation_within_1e5(describe_ref):
     moment sums run in another order than XLA's, so atan2 sees inputs a
     few ULP apart: within 1e-5 rad."""
     got = torb.orientation_from_windows_paired(
-        convert.tensor(describe_ref["win_g"])).numpy()
+        tensor(describe_ref["win_g"])).numpy()
     diff = np.abs(got - describe_ref["ang"])
     diff = np.minimum(diff, 2 * np.pi - diff)
     assert diff.max() <= 1e-5
@@ -278,8 +286,8 @@ def test_brief_given_reference_angles(describe_ref):
     way; none does here (measured 0 flipped bits of 131072), so the bits
     are equal."""
     got = torb.brief_from_windows_paired(
-        convert.tensor(describe_ref["win_b"]),
-        convert.tensor(describe_ref["ang"]), TCFG.pattern_seed,
+        tensor(describe_ref["win_b"]),
+        tensor(describe_ref["ang"]), TCFG.pattern_seed,
         TCFG.pattern).numpy()
     np.testing.assert_array_equal(got, describe_ref["desc"])
 
@@ -293,7 +301,7 @@ def test_brief_tap_coords_equal(pattern, half_w):
         np.float32)
     rr, rc = jorb._brief_tap_coords(jnp.asarray(ang), 7, pattern,
                                     half_w=half_w)
-    tr, tc = torb._brief_tap_coords(convert.tensor(ang), 7, pattern,
+    tr, tc = torb._brief_tap_coords(tensor(ang), 7, pattern,
                                     half_w=half_w)
     # rounding of a rotated tap may flip on a one-ULP cos/sin difference;
     # allow 1 of the 64×512 taps to move by one
@@ -305,7 +313,7 @@ def test_brief_tap_coords_equal(pattern, half_w):
 def test_pack_unpack_descriptors():
     bits = np.random.default_rng(9).integers(0, 2, (20, 256)).astype(
         np.uint8)
-    packed = torb.pack_descriptors(convert.tensor(bits))
+    packed = torb.pack_descriptors(tensor(bits))
     np.testing.assert_array_equal(
         packed.numpy(), np.asarray(jorb.pack_descriptors(jnp.asarray(bits))))
     np.testing.assert_array_equal(torb.unpack_descriptors(packed).numpy(),
@@ -347,12 +355,12 @@ def test_match_descriptors_exact(ratio):
     np.testing.assert_array_equal(got.dist.numpy(), np.asarray(ref.dist))
     d_ref = jmatch.hamming_distance_matrix(jnp.asarray(a), jnp.asarray(b),
                                            jnp.asarray(am), jnp.asarray(bm))
-    d = tmatch.hamming_distance_matrix(convert.tensor(a), convert.tensor(b),
-                                       convert.tensor(am),
-                                       convert.tensor(bm))
+    d = tmatch.hamming_distance_matrix(tensor(a), tensor(b),
+                                       tensor(am),
+                                       tensor(bm))
     np.testing.assert_array_equal(d.numpy(), np.asarray(d_ref))
-    xa, xb, mk = tmatch.matched_points(convert.tensor(a[:, :2]),
-                                       convert.tensor(b[:, :2]), got)
+    xa, xb, mk = tmatch.matched_points(tensor(a[:, :2]),
+                                       tensor(b[:, :2]), got)
     ra, rb, rm = jmatch.matched_points(jnp.asarray(a[:, :2]),
                                        jnp.asarray(b[:, :2]), ref)
     np.testing.assert_array_equal(xb.numpy(), np.asarray(rb))

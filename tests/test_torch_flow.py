@@ -4,6 +4,7 @@ held to the SAME method of the reference: the three clamp differently near
 the borders by design. The fixture is made with numpy (no cv2)."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -18,6 +19,12 @@ from kornia_tpu_torch import convert
 from kornia_tpu_torch.ops import cuda_kernels as ck
 from kornia_tpu_torch.ops import optical_flow as tflow
 from kornia_tpu_torch.ops import pyramid as tpyr
+
+# One intra-op thread: these tests run many small ops, and torch's pool
+# of a thread per core spins against the other test processes.
+torch.set_num_threads(1)
+
+tensor = functools.partial(convert.tensor, device="cpu")
 
 METHODS = ("gather", "windows", "taps")
 PARAMS = jflow.PyrLKParams(window=21, max_level=2)
@@ -200,12 +207,12 @@ def test_pyramids_exact(shape, dtype):
     order: bit-equal, odd sizes and channels included."""
     img = (np.random.default_rng(52).random(shape) * 255).astype(dtype)
     np.testing.assert_array_equal(
-        tpyr.pyrdown(convert.tensor(img)).numpy(),
+        tpyr.pyrdown(tensor(img)).numpy(),
         np.asarray(jpyr.pyrdown(jnp.asarray(img))))
     np.testing.assert_array_equal(
-        tpyr.pyrup(convert.tensor(img)).numpy(),
+        tpyr.pyrup(tensor(img)).numpy(),
         np.asarray(jpyr.pyrup(jnp.asarray(img))))
-    for lt, lj in zip(tpyr.gaussian_pyramid(convert.tensor(img), 3),
+    for lt, lj in zip(tpyr.gaussian_pyramid(tensor(img), 3),
                       jpyr.gaussian_pyramid(jnp.asarray(img), 3)):
         np.testing.assert_array_equal(lt.numpy(), np.asarray(lj))
 

@@ -4,6 +4,7 @@ from ``jax.random`` in the reference; the port is handed the reference's
 own draws through ``samples=`` / ``sample_idx=``."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -32,9 +33,13 @@ from kornia_tpu_torch.geometry import refine as trefine
 from kornia_tpu_torch.geometry import triangulation as ttri
 from kornia_tpu_torch.geometry import twoview as ttv
 
+# One intra-op thread: these tests run many small ops, and torch's pool
+# of a thread per core spins against the other test processes.
+torch.set_num_threads(1)
+
 PARAMS = jtv.TwoViewParams(n_hypotheses=64, refine_iters=4)
 TPARAMS = convert.twoview_params(dataclasses.asdict(PARAMS))
-T = convert.tensor
+T = functools.partial(convert.tensor, device="cpu")
 
 
 def make_scene(seed=0, n=200, noise=0.0, outlier_frac=0.0, planar=False):

@@ -8,6 +8,7 @@ are held to their plain versions on the card by tests/test_torch_cuda.py.
 """
 
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -26,6 +27,12 @@ from kornia_tpu.ops import pallas_kernels as pk
 
 from kornia_tpu_torch import convert
 from kornia_tpu_torch.ops import cuda_kernels as ck
+
+# One intra-op thread: these tests run many small ops, and torch's pool
+# of a thread per core spins against the other test processes.
+torch.set_num_threads(1)
+
+tensor = functools.partial(convert.tensor, device="cpu")
 
 
 def _img(seed, shape):
@@ -68,7 +75,7 @@ def test_fast_harris_plain_matches_reference(shape):
     h_ref = np.asarray(jresp.harris_response(
         jnp.asarray(img).astype(jnp.float32), k=0.04, block_size=5,
         sigma=1.0, grad="central"))
-    score, hmap = ck.fast_harris(convert.tensor(img), 7.0)
+    score, hmap = ck.fast_harris(tensor(img), 7.0)
     np.testing.assert_array_equal(score.numpy(), s_ref)
     np.testing.assert_array_equal(hmap.numpy(), h_ref)
 
@@ -82,7 +89,7 @@ def test_fast_harris_plain_matches_pallas_interpret():
     img = _img(2, (48, 80))
     s_pl, h_pl = pk.fast_score_pallas(jnp.asarray(img), 7.0, 9, nms=True,
                                       harris=True)
-    score, hmap = ck.fast_harris(convert.tensor(img), 7.0)
+    score, hmap = ck.fast_harris(tensor(img), 7.0)
     np.testing.assert_array_equal(score.numpy(), np.asarray(s_pl))
     hp = np.asarray(h_pl)[3:-3, 3:-3]
     ht = hmap.numpy()[3:-3, 3:-3]
@@ -91,7 +98,7 @@ def test_fast_harris_plain_matches_pallas_interpret():
 
 def test_fast_harris_counts_no_cpu_launch():
     ck.reset_launch_counts()
-    ck.fast_harris(convert.tensor(_img(3, (32, 32))), 7.0)
+    ck.fast_harris(tensor(_img(3, (32, 32))), 7.0)
     assert ck.LAUNCHES["fast_harris"] == 0
 
 
@@ -103,7 +110,7 @@ def test_fast_harris_levels_plain_equals_per_level(shapes):
     """The all-levels call gives, level by level, what the one-level call
     gives, in the levels' order, tiny levels (no FAST border zone at all)
     included; it counts no launch on the CPU."""
-    levels = [convert.tensor(a) for a in _levels(4, shapes)]
+    levels = [tensor(a) for a in _levels(4, shapes)]
     ck.reset_launch_counts()
     got = ck.fast_harris_levels(levels, 7.0)
     assert ck.LAUNCHES["fast_harris"] == 0
@@ -131,7 +138,7 @@ def ref_pyramid():
             jresp.harris_response(x.astype(jnp.float32), k=0.04,
                                   block_size=5, sigma=1.0, grad="central"))
            for x in lv]
-    got = ck.fast_harris_levels([convert.tensor(np.asarray(x)) for x in lv],
+    got = ck.fast_harris_levels([tensor(np.asarray(x)) for x in lv],
                                 7.0)
     return got, pallas, xla, [np.asarray(x) for x in lv]
 
@@ -165,7 +172,7 @@ def test_orb_features_equal_the_per_level_route(ref_pyramid, monkeypatch,
     tcfg = convert.orb_config(dataclasses.asdict(cfg))
     budgets = jorb._level_budgets(cfg)
     monkeypatch.setattr(torb, "_pyramid", lambda g, c: [
-        convert.tensor(lv) for lv in levels])
+        tensor(lv) for lv in levels])
     calls = []
     all_levels = ck.fast_harris_levels
 
@@ -222,7 +229,7 @@ def test_orb_17_levels_in_chunks_equal_the_per_level_route(levels17,
     levels, cfg, ref17 = levels17
     tcfg = convert.orb_config(dataclasses.asdict(cfg))
     monkeypatch.setattr(torb, "_pyramid", lambda g, c: [
-        convert.tensor(lv) for lv in levels])
+        tensor(lv) for lv in levels])
     calls, chunks = [], []
     all_levels, chunk = ck.fast_harris_levels, ck._fast_harris_chunk
 
@@ -240,7 +247,7 @@ def test_orb_17_levels_in_chunks_equal_the_per_level_route(levels17,
                                        **form)
     assert calls == [17] and chunks == [16, 1]
     budgets = torb._level_budgets(tcfg)
-    sels = [torb._select_level(convert.tensor(lv), b, tcfg)
+    sels = [torb._select_level(tensor(lv), b, tcfg)
             for lv, b in zip(levels, budgets)]
     for field, i in (("xy", 0), ("score", 1), ("mask", 2)):
         want = torch.cat([sl[i] * tcfg.scale_factor ** lv if i == 0
@@ -268,7 +275,7 @@ def test_fast_harris_levels_rejects_bad_input_on_cpu(levels, match):
     """The CPU route checks what the card route checks: each level a 2-D
     uint8 tensor (any number of levels is taken, in chunks of 16)."""
     with pytest.raises(ValueError, match=match):
-        ck.fast_harris_levels([convert.tensor(a) for a in levels], 7.0)
+        ck.fast_harris_levels([tensor(a) for a in levels], 7.0)
 
 
 # --------------------------------------------------------------------------
@@ -288,8 +295,8 @@ def test_windows_paired_plain_matches_reference(counts):
     ref = np.asarray(jorb._extract_windows_packed_paired(
         [jnp.asarray(f) for f in frames], [jnp.asarray(x) for x in xys]))
     canvas, starts = ck.prepare_window_canvas(
-        [convert.tensor(f) for f in frames])
-    xy = torch.cat([convert.tensor(x) + torch.tensor([0, s],
+        [tensor(f) for f in frames])
+    xy = torch.cat([tensor(x) + torch.tensor([0, s],
                                                      dtype=torch.int32)
                     for x, s in zip(xys, starts)])
     got = ck.windows_paired(canvas, xy, max(w for _, w in _SHAPES))
@@ -312,8 +319,8 @@ def test_windows_paired_plain_matches_pallas_interpret():
     ref = np.asarray(pk.extract_windows_prepared_paired(
         jnp.concatenate(pads), (int(pstarts[-1]), 80), xy_pl, 40))
     canvas, starts = ck.prepare_window_canvas(
-        [convert.tensor(f) for f in frames])
-    xy = torch.cat([convert.tensor(x) + torch.tensor([0, s],
+        [tensor(f) for f in frames])
+    xy = torch.cat([tensor(x) + torch.tensor([0, s],
                                                      dtype=torch.int32)
                     for x, s in zip(xys, starts)])
     np.testing.assert_array_equal(ck.windows_paired(canvas, xy, 80).numpy(),
@@ -339,8 +346,8 @@ def test_brief_sample_plain_matches_take_along_axis():
     ref = np.asarray(jnp.take_along_axis(
         jnp.asarray(win).reshape(13, -1), jnp.asarray(rows * 128 + cols),
         axis=1))
-    got = ck.brief_sample(convert.tensor(win), convert.tensor(rows),
-                          convert.tensor(cols))
+    got = ck.brief_sample(tensor(win), tensor(rows),
+                          tensor(cols))
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
@@ -348,8 +355,8 @@ def test_brief_sample_plain_matches_pallas_interpret():
     win, rows, cols = _taps(9, 11)
     ref = np.asarray(pk.brief_sample_pallas(
         jnp.asarray(win), jnp.asarray(rows), jnp.asarray(cols)))
-    got = ck.brief_sample(convert.tensor(win), convert.tensor(rows),
-                          convert.tensor(cols))
+    got = ck.brief_sample(tensor(win), tensor(rows),
+                          tensor(cols))
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
@@ -361,12 +368,12 @@ def _rotated_inputs(layout, k, pattern, seed):
     from kornia_tpu_torch.features import orb as torb
     rng = np.random.default_rng(31)
     paired = layout == "paired"
-    win = convert.tensor(rng.standard_normal(
+    win = tensor(rng.standard_normal(
         (k // 2 if paired else k, 40 if paired else 48, 128)).astype(
         np.float32))
     ang = rng.uniform(-np.pi, np.pi, k).astype(np.float32)
     ang[:2] = (0.0, np.pi / 4)[:k]
-    return win, convert.tensor(ang), torb._pattern_on(pattern, seed, "cpu")
+    return win, tensor(ang), torb._pattern_on(pattern, seed, "cpu")
 
 
 @pytest.mark.parametrize("pattern,seed", [("rublee2011", 7), ("seeded", 7),
@@ -441,7 +448,7 @@ def test_brief_rotated_rejects_bad_shapes_and_counts_no_cpu_launch():
 def test_remap_coefs_as_tensor_list_and_numpy_agree(form):
     """``ck.remap`` takes the nine coefficients as a tensor, a list or a
     numpy array (any float type) and gives identical results."""
-    img = convert.tensor(_img(32, (40, 56, 3)))
+    img = tensor(_img(32, (40, 56, 3)))
     vals = [0.94, -0.34, 20.5, 0.34, 0.94, -12.25, 0.0, 0.0, 1.0]
     if form == "persp":
         vals[6:8] = [1e-3, -8e-4]
@@ -476,7 +483,7 @@ def test_windows_plain_matches_pallas_interpret_and_slices(h, w):
     (interpret mode) and to the vmapped dynamic_slice branch
     (orb.py:155-162), corner keypoints and a ragged frame included."""
     img, xy = _frame_and_keypoints(20, h, w)
-    got = ck.windows(convert.tensor(img), convert.tensor(xy)).numpy()
+    got = ck.windows(tensor(img), tensor(xy)).numpy()
     assert got.shape == (21, 48, 128)
     np.testing.assert_array_equal(got, np.asarray(
         pk.extract_windows_pallas(jnp.asarray(img), jnp.asarray(xy))))
@@ -493,8 +500,8 @@ def test_windows_plain_clips_keypoints_outside_the_frame():
     xy[0] = (0, 0)
     xy[1] = (69, 49)
     np.testing.assert_array_equal(
-        ck.windows(convert.tensor(img), convert.tensor(far)).numpy(),
-        ck.windows(convert.tensor(img), convert.tensor(xy)).numpy())
+        ck.windows(tensor(img), tensor(far)).numpy(),
+        ck.windows(tensor(img), tensor(xy)).numpy())
 
 
 def test_windows_plain_taps_layout_matches_slices():
@@ -503,7 +510,7 @@ def test_windows_plain_taps_layout_matches_slices():
     img, xy = _frame_and_keypoints(22, 64, 96, 33)
     want = np.asarray(jflow._extract_taps_windows(
         jflow._prepare_taps_source(jnp.asarray(img)), jnp.asarray(xy)))
-    got = ck.windows(convert.tensor(img), convert.tensor(xy), 24, 8, 64)
+    got = ck.windows(tensor(img), tensor(xy), 24, 8, 64)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -517,8 +524,8 @@ def test_windows_plain_packed_canvas_matches_reference():
     ref = np.asarray(jorb._extract_windows_packed(
         jf, [jnp.asarray(x) for x in xys]))
     canvas, starts = ck.prepare_window_canvas(
-        [convert.tensor(f) for f in frames], 48, 24)
-    xy = torch.cat([convert.tensor(x) + torch.tensor([0, s],
+        [tensor(f) for f in frames], 48, 24)
+    xy = torch.cat([tensor(x) + torch.tensor([0, s],
                                                      dtype=torch.int32)
                     for x, s in zip(xys, starts)])
     got = ck.windows(canvas, xy, 48, prepared=(starts[-1], 80)).numpy()
@@ -534,7 +541,7 @@ def test_windows_plain_packed_canvas_matches_reference():
 
 
 def test_prepare_window_canvas_default_is_the_paired_layout():
-    frames = [convert.tensor(f.astype(np.float32))
+    frames = [tensor(f.astype(np.float32))
               for f in _levels(25, _SHAPES)]
     a, sa = ck.prepare_window_canvas(frames)
     b, sb = ck.prepare_window_canvas(frames, ck.PAIR_WIN_H, ck.PAIR_CY)
@@ -560,11 +567,11 @@ def test_lane_gather_broadcast_matches_pallas_interpret(n, g):
     idx = rng.integers(-3, 131, (n, 128)).astype(np.int32)
     full = np.repeat(idx, g, axis=0)
     ref = np.asarray(pk.lane_gather(jnp.asarray(src), jnp.asarray(full)))
-    got = ck.lane_gather(convert.tensor(src), convert.tensor(idx))
+    got = ck.lane_gather(tensor(src), tensor(idx))
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(
-        got.numpy(), ck.lane_gather(convert.tensor(src),
-                                    convert.tensor(full)).numpy())
+        got.numpy(), ck.lane_gather(tensor(src),
+                                    tensor(full)).numpy())
 
 
 @pytest.mark.parametrize("n_src,n_idx", [(96, 5), (96, 0), (10, 20)])
@@ -583,7 +590,7 @@ def test_lane_gather_plain_matches_pallas_interpret(n):
     idx = rng.integers(0, 128, (n, 128)).astype(np.int32)
     idx[0, :4] = [-5, 128, 1000, -1]
     ref = np.asarray(pk.lane_gather(jnp.asarray(src), jnp.asarray(idx)))
-    got = ck.lane_gather(convert.tensor(src), convert.tensor(idx))
+    got = ck.lane_gather(tensor(src), tensor(idx))
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(
         got.numpy(), np.take_along_axis(src, np.clip(idx, 0, 127), 1))
@@ -616,7 +623,7 @@ def test_fused_preprocess_plain_matches_pallas_interpret(shape, out_hw, norm):
     img = _img(27, shape)
     ref = np.asarray(pk.fused_preprocess_pallas(
         jnp.asarray(img), out_hw[0], out_hw[1], *norm))
-    got = ck.fused_preprocess(convert.tensor(img), out_hw[0], out_hw[1],
+    got = ck.fused_preprocess(tensor(img), out_hw[0], out_hw[1],
                               *norm).numpy()
     assert got.shape == (3,) + out_hw and got.dtype == np.float32
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
@@ -629,7 +636,7 @@ def test_fused_preprocess_two_tap_form_matches_plain(shape, out_hw):
     """The CUDA kernel's arithmetic (two taps per pass, every op rounded
     on its own) against the dense products: the same sums up to their
     rounding, atol 2e-6 (a few ULP at |x| <= 2.7)."""
-    img = convert.tensor(_img(28, shape))
+    img = tensor(_img(28, shape))
     plain = ck._fused_preprocess_plain(img, *out_hw, _MEAN, _STD)
     taps = ck._fused_preprocess_taps(img, *out_hw, _MEAN, _STD)
     np.testing.assert_allclose(taps.numpy(), plain.numpy(), rtol=0,
@@ -654,12 +661,12 @@ def test_resize_taps_rebuild_the_matrix(n_in, n_out):
 def test_new_wrappers_count_no_cpu_launch():
     ck.reset_launch_counts()
     img, xy = _frame_and_keypoints(29, 40, 60, 5)
-    ck.windows(convert.tensor(img), convert.tensor(xy))
+    ck.windows(tensor(img), tensor(xy))
     ck.lane_gather(torch.zeros(3, 128), torch.zeros(3, 128,
                                                     dtype=torch.int32))
     ck.lane_gather(torch.zeros(6, 128), torch.zeros(2, 128,
                                                     dtype=torch.int32))
-    ck.fused_preprocess(convert.tensor(_img(30, (20, 30, 3))), 8, 8)
+    ck.fused_preprocess(tensor(_img(30, (20, 30, 3))), 8, 8)
     assert all(v == 0 for v in ck.LAUNCHES.values())
     assert len(ck.SOURCES) == 9
     assert set(ck.LAUNCHES) == set(ck.KERNELS) == set(ck.SOURCES) | {

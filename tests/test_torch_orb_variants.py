@@ -9,6 +9,7 @@ On the CPU the reference's ``brief_from_windows`` takes its lane-gather
 formulation (four ``lane_gather`` calls in Pallas interpret mode)."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -27,6 +28,12 @@ from kornia_tpu_torch.features import orb as torb
 from kornia_tpu_torch.features import quadtree as tquad
 from kornia_tpu_torch.features import responses as tresp
 from kornia_tpu_torch.ops import cuda_kernels as ck
+
+# One intra-op thread: these tests run many small ops, and torch's pool
+# of a thread per core spins against the other test processes.
+torch.set_num_threads(1)
+
+tensor = functools.partial(convert.tensor, device="cpu")
 
 # an odd budget sum: the reference itself takes the unpaired path
 CFG = jorb.OrbConfig(n_features=255, n_levels=3)
@@ -88,7 +95,7 @@ def ref():
 
 
 def _tensors(arrays):
-    return [convert.tensor(a) for a in arrays]
+    return [tensor(a) for a in arrays]
 
 
 def test_unpaired_packed_windows_exact(ref):
@@ -106,14 +113,14 @@ def test_single_frame_windows_exact(ref):
     for g, xy in zip(ref["grays"], ref["xy_ints"]):
         want = np.asarray(jorb._extract_windows(jnp.asarray(g),
                                                 jnp.asarray(xy)))
-        got = torb._extract_windows(convert.tensor(g), convert.tensor(xy))
+        got = torb._extract_windows(tensor(g), tensor(xy))
         np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_orientation_from_windows_within_1e5(ref):
     """The two moment sums run in another order than XLA's, so atan2 sees
     inputs a few ULP apart: within 1e-5 rad."""
-    got = torb.orientation_from_windows(convert.tensor(ref["win_g"]))
+    got = torb.orientation_from_windows(tensor(ref["win_g"]))
     assert _angle_diff(got.numpy(), ref["ang"]).max() <= 1e-5
 
 
@@ -122,15 +129,15 @@ def test_brief_from_windows_given_reference_angles(ref, brief):
     """Both formulations, fed the reference's windows and angles: the bits
     are equal (no rotated tap lands on an exact .5 here)."""
     got = torb.brief_from_windows(
-        convert.tensor(ref["win_b"]), convert.tensor(ref["ang"]),
+        tensor(ref["win_b"]), tensor(ref["ang"]),
         TCFG.pattern_seed, TCFG.pattern, brief)
     np.testing.assert_array_equal(got.numpy(), ref["desc"])
 
 
 def test_brief_from_windows_rejects_unknown_formulation(ref):
     with pytest.raises(ValueError, match="BRIEF formulation"):
-        torb.brief_from_windows(convert.tensor(ref["win_b"][:2]),
-                                convert.tensor(ref["ang"][:2]), brief="xla")
+        torb.brief_from_windows(tensor(ref["win_b"][:2]),
+                                tensor(ref["ang"][:2]), brief="xla")
 
 
 def test_gather_path_given_reference(ref):
@@ -141,15 +148,15 @@ def test_gather_path_given_reference(ref):
     descs = []
     for g, b, xy, a, d in zip(ref["grays"], ref["blurs"], ref["xys"],
                               ref["ang_ic"], ref["desc_ic"]):
-        got_a = torb.orientation_ic(convert.tensor(g), convert.tensor(xy))
+        got_a = torb.orientation_ic(tensor(g), tensor(xy))
         assert _angle_diff(got_a.numpy(), a).max() <= 1e-5
-        got_d = torb.brief_describe(convert.tensor(b), convert.tensor(xy),
-                                    convert.tensor(a), TCFG.pattern_seed,
+        got_d = torb.brief_describe(tensor(b), tensor(xy),
+                                    tensor(a), TCFG.pattern_seed,
                                     TCFG.pattern)
         np.testing.assert_array_equal(got_d.numpy(), d)
         descs.append(got_d.numpy())
-    patches = torb._gather_patches(convert.tensor(ref["grays"][0]),
-                                   convert.tensor(ref["xy_ints"][0]), 15)
+    patches = torb._gather_patches(tensor(ref["grays"][0]),
+                                   tensor(ref["xy_ints"][0]), 15)
     np.testing.assert_array_equal(
         patches.numpy(), np.asarray(jorb._gather_patches(
             jnp.asarray(ref["grays"][0]), jnp.asarray(ref["xy_ints"][0]),
@@ -167,7 +174,7 @@ def test_seeded_pattern_layouts_differ_only_at_the_clipped_row():
     within ±19 rows."""
     ang = np.random.default_rng(32).uniform(-np.pi, np.pi, 256)
     ang[:4] = np.pi / 4 + np.arange(4) * np.pi / 2
-    ang = convert.tensor(ang.astype(np.float32))
+    ang = tensor(ang.astype(np.float32))
     clipped_taps = {}
     for pattern, seed in (("seeded", 1), ("seeded", 7), ("rublee2011", 7)):
         ru, cu = torb._brief_tap_coords(ang, seed, pattern)
@@ -322,17 +329,17 @@ def test_harris_at_windows_and_harris_at():
     xy[:4] = [[0, 0], [SHAPE[1] - 1, SHAPE[0] - 1], [0, 77], [100, 0]]
     want = np.asarray(jresp.harris_at_windows(jnp.asarray(gray),
                                               jnp.asarray(xy)))
-    got = tresp.harris_at_windows(convert.tensor(gray),
-                                  convert.tensor(xy)).numpy()
+    got = tresp.harris_at_windows(tensor(gray),
+                                  tensor(xy)).numpy()
     tol = dict(rtol=1e-5, atol=1e-5 * np.abs(want).max())
     np.testing.assert_allclose(got, want, **tol)
     want_at = np.asarray(jresp.harris_at(jnp.asarray(gray),
                                          jnp.asarray(xy.astype(np.float32))))
-    got_at = tresp.harris_at(convert.tensor(gray),
-                             convert.tensor(xy.astype(np.float32))).numpy()
+    got_at = tresp.harris_at(tensor(gray),
+                             tensor(xy.astype(np.float32))).numpy()
     np.testing.assert_allclose(got_at, want_at, rtol=1e-5,
                                atol=1e-5 * np.abs(want_at).max())
-    dense = tresp.harris_response(convert.tensor(gray), grad="central")
+    dense = tresp.harris_response(tensor(gray), grad="central")
     inner = ((xy[:, 0] >= 4) & (xy[:, 0] < SHAPE[1] - 4)
              & (xy[:, 1] >= 4) & (xy[:, 1] < SHAPE[0] - 4))
     at = dense.numpy()[xy[inner, 1], xy[inner, 0]]
@@ -345,7 +352,7 @@ def test_sobel_exact():
     from kornia_tpu_torch.ops import filters as tfilt
     for dx, dy, k in ((1, 0, 3), (0, 1, 3), (1, 0, 5)):
         want = np.asarray(jfilt.sobel(jnp.asarray(gray), dx, dy, k))
-        got = tfilt.sobel(convert.tensor(gray), dx, dy, k).numpy()
+        got = tfilt.sobel(tensor(gray), dx, dy, k).numpy()
         np.testing.assert_array_equal(got, want)
 
 

@@ -9,6 +9,7 @@ the reference's one-program kernel, ``fused_preprocess_pallas`` in
 interpret mode, the port is held to 1e-5."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -24,6 +25,12 @@ from kornia_tpu_torch import convert
 from kornia_tpu_torch.ops import cuda_kernels as ck
 from kornia_tpu_torch.ops import preprocess as tpp
 from kornia_tpu_torch.ops import yuv as tyuv
+
+# One intra-op thread: these tests run many small ops, and torch's pool
+# of a thread per core spins against the other test processes.
+torch.set_num_threads(1)
+
+tensor = functools.partial(convert.tensor, device="cpu")
 
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
@@ -102,11 +109,11 @@ def test_preprocess_nv12_and_rgb_from_nv12():
     y = rng.integers(0, 256, (48, 64), np.uint8)
     uv = rng.integers(0, 256, (24, 32, 2), np.uint8)
     want = np.asarray(jyuv.rgb_from_nv12(jnp.asarray(y), jnp.asarray(uv)))
-    got = tyuv.rgb_from_nv12(convert.tensor(y), convert.tensor(uv)).numpy()
+    got = tyuv.rgb_from_nv12(tensor(y), tensor(uv)).numpy()
     d = np.abs(got.astype(int) - want.astype(int))
     assert got.dtype == np.uint8 and d.max() <= 1 and (d > 0).mean() <= 1e-3
-    packed = tyuv.rgb_from_nv12(convert.tensor(y),
-                                convert.tensor(uv.reshape(24, 64)))
+    packed = tyuv.rgb_from_nv12(tensor(y),
+                                tensor(uv.reshape(24, 64)))
     np.testing.assert_array_equal(packed.numpy(), got)
     cfg, tcfg = _cfgs(out_size=(32, 32))
     want_t = np.asarray(jpp.preprocess_nv12(jnp.asarray(y), jnp.asarray(uv),

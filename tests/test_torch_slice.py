@@ -4,6 +4,7 @@ the JAX package, at a small size: 240×320 frames, OrbConfig(n_features=512,
 n_levels=4), TwoViewParams(n_hypotheses=64, refine_iters=4)."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -21,6 +22,13 @@ from kornia_tpu_torch import convert
 from kornia_tpu_torch.features import matching as tmatch
 from kornia_tpu_torch.features import orb as torb
 from kornia_tpu_torch.geometry import twoview as ttv
+
+# One intra-op thread: these tests run many small ops, and torch's pool
+# of a thread per core spins against the other test processes.
+torch.set_num_threads(1)
+
+tensor = functools.partial(convert.tensor, device="cpu")
+tensors = functools.partial(convert.tensors, device="cpu")
 
 CFG = jorb.OrbConfig(n_features=512, n_levels=4)
 TCFG = convert.orb_config(dataclasses.asdict(CFG))
@@ -122,7 +130,7 @@ def _ref_samples(key, mask):
                                         PARAMS.n_hypotheses, 8)
     idx_h = jransac.sample_minimal_sets(jax.random.split(kh)[0], n, m,
                                         PARAMS.n_hypotheses, 4)
-    return convert.tensor(np.asarray(idx_f)), convert.tensor(
+    return tensor(np.asarray(idx_f)), tensor(
         np.asarray(idx_h))
 
 
@@ -176,7 +184,7 @@ def test_slice_pose_given_reference_matches(scene):
     ref = jtv.estimate_relative_pose(key, x1, x2, jnp.asarray(K, jnp.float32),
                                      jnp.asarray(K, jnp.float32), mask=mk,
                                      params=PARAMS)
-    st = convert.tensors({"x1": np.asarray(x1), "x2": np.asarray(x2),
+    st = tensors({"x1": np.asarray(x1), "x2": np.asarray(x2),
                           "mask": np.asarray(mk)})
     got = ttv.estimate_relative_pose(
         st["x1"], st["x2"], K, K, mask=st["mask"], params=TPARAMS,

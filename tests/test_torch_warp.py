@@ -30,6 +30,10 @@ from kornia_tpu_torch.geometry import camera, stereo
 from kornia_tpu_torch.ops import cuda_kernels as ck
 from kornia_tpu_torch.ops import interpolation, warp, warp_exact, warp_shear
 
+# One intra-op thread: these tests run many small ops, and torch's pool
+# of a thread per core spins against the other test processes.
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 
