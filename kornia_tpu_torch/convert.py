@@ -1,11 +1,12 @@
 """Carry state from the JAX package into the port.
 
 There are no learned weights on the ported paths. The state is the
-configurations (ORB, two-view, LK, preprocessor, SLAM), the stereo
-calibration and, for stage-by-stage comparison,
-the reference's intermediate arrays. They arrive as plain numpy / Python
-values (so this module imports nothing of the JAX package) and leave as
-the port's objects and tensors on a given device.
+configurations (ORB, two-view, LK, preprocessor, SLAM, BA, PGO), the
+stereo calibration, BA problems, bag-of-words vocabularies and, for
+stage-by-stage comparison, the reference's intermediate arrays. They
+arrive as plain numpy / Python values (so this module imports nothing of
+the JAX package) and leave as the port's objects and tensors on a given
+device.
 """
 
 from __future__ import annotations
@@ -17,12 +18,15 @@ import numpy as np
 import torch
 
 from kornia_tpu_torch import resolve_device, to_device
+from kornia_tpu_torch.bow.vocabulary import Vocabulary
 from kornia_tpu_torch.features.orb import OrbConfig
 from kornia_tpu_torch.geometry.stereo import StereoRectifier
 from kornia_tpu_torch.geometry.twoview import TwoViewParams
 from kornia_tpu_torch.ops.optical_flow import PyrLKParams
 from kornia_tpu_torch.ops.preprocess import (NormalizeMode,
                                              PreprocessorConfig, ResizeMode)
+from kornia_tpu_torch.optim.ba import BAParams, BAProblem
+from kornia_tpu_torch.optim.pgo import PGOParams
 from kornia_tpu_torch.slam.system import SlamConfig
 
 
@@ -54,6 +58,56 @@ def pyrlk_params(values: Mapping[str, Any]) -> PyrLKParams:
 def slam_config(values: Mapping[str, Any]) -> SlamConfig:
     """``dataclasses.asdict`` of the reference's SlamConfig → SlamConfig."""
     return _config(SlamConfig, values)
+
+
+def ba_params(values: Mapping[str, Any]) -> BAParams:
+    """``dataclasses.asdict`` of the reference's BAParams → BAParams."""
+    return _config(BAParams, values)
+
+
+def pgo_params(values: Mapping[str, Any]) -> PGOParams:
+    """``dataclasses.asdict`` of the reference's PGOParams → PGOParams."""
+    return _config(PGOParams, values)
+
+
+# the reference's tiled one-hot segment engine, which the port leaves out
+_BA_ENGINE_FIELDS = ("seg_oh", "seg_ids", "cam_oh")
+
+
+def ba_problem(fields: Mapping[str, Any], device="cuda") -> BAProblem:
+    """``_asdict()`` of the reference's BAProblem, as numpy arrays (None
+    for an absent optional field) → the port's BAProblem on ``device``,
+    every array with its dtype and values; the engine fields
+    (``seg_oh``, ``seg_ids``, ``cam_oh``) are dropped."""
+    fields = {k: v for k, v in fields.items() if k not in _BA_ENGINE_FIELDS}
+    missing = set(BAProblem._fields) - set(fields) - set(
+        BAProblem._field_defaults)
+    unknown = set(fields) - set(BAProblem._fields)
+    if missing or unknown:
+        raise ValueError(f"BAProblem fields: missing {sorted(missing)}, "
+                         f"unknown {sorted(unknown)}")
+    return BAProblem(**{k: None if v is None else tensor(v, device)
+                        for k, v in fields.items()})
+
+
+_VOCABULARY_FIELDS = ("k", "depth", "children", "node_desc", "word_id",
+                      "word_weight")
+
+
+def vocabulary(fields: Mapping[str, Any], device="cuda") -> Vocabulary:
+    """``vars`` of the reference's Vocabulary (``k``, ``depth``,
+    ``children``, ``node_desc``, ``word_id``, ``word_weight``) → the
+    port's Vocabulary, its transforms on ``device``."""
+    if set(fields) != set(_VOCABULARY_FIELDS):
+        raise ValueError(f"Vocabulary fields: {sorted(fields)}, expected "
+                         f"{sorted(_VOCABULARY_FIELDS)}")
+    return Vocabulary(
+        k=int(fields["k"]), depth=int(fields["depth"]),
+        children=np.asarray(fields["children"], np.int32),
+        node_desc=np.asarray(fields["node_desc"], np.uint8),
+        word_id=np.asarray(fields["word_id"], np.int32),
+        word_weight=np.asarray(fields["word_weight"], np.float32),
+        device=device)
 
 
 def preprocessor_config(values: Mapping[str, Any]) -> PreprocessorConfig:

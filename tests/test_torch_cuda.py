@@ -876,3 +876,100 @@ def test_cuda_track_step_equals_cpu_route(cuda_dev):
     np.testing.assert_allclose(card.pose.translation.cpu().numpy(),
                                cpu.pose.translation.numpy(), atol=1e-3)
     assert abs(int(card.n_inliers) - int(cpu.n_inliers)) <= 2
+
+
+# ---------------------------------------------------------------------------
+# the SLAM back end: BA, PGO, the vocabulary descent (plain PyTorch on the
+# card; the scenes are chip_smoke.py's, at smaller sizes)
+# ---------------------------------------------------------------------------
+
+
+_HUBER = dict(loss="huber", loss_scale=2.0)
+
+
+@pytest.mark.cuda
+def test_cuda_local_ba_equals_cpu_route(cuda_dev):
+    """Local BA as the SLAM loop runs it (5 keyframes, its buckets, 10
+    iterations, Huber 2) on the card and on the CPU: initial cost within
+    1e-4, final cost within 0.05 relative, poses within 1e-3 (the
+    reference's own bound for two summation orders; the card's
+    index_add_ sums with atomics in any order); every pose within 0.5°
+    of the truth."""
+    import chip_smoke as cs
+    from kornia_tpu_torch.optim import ba
+    prob, gt = cs.local_ba_problem(cuda_dev, n_pts=400)
+    params = ba.BAParams(max_iterations=10, **_HUBER)
+    card = ba.bundle_adjust_schur(prob, params)
+    cpu = ba.bundle_adjust_schur(cs._problem_to(prob, "cpu"), params)
+    assert float(card.initial_cost) == pytest.approx(
+        float(cpu.initial_cost), rel=1e-4)
+    assert float(card.final_cost) == pytest.approx(float(cpu.final_cost),
+                                                   rel=0.05)
+    assert float(card.final_cost) < float(card.initial_cost)
+    np.testing.assert_allclose(card.poses.cpu().numpy(), cpu.poses.numpy(),
+                               atol=1e-3)
+    assert cs._max_rot_err_deg(card.poses, gt) < 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dense", "pcg"])
+def test_cuda_bundle_adjust_waits_for_nothing(cuda_dev, solver):
+    """bundle_adjust_schur on a problem on the card under sync debug mode
+    "error" (after one warm-up solve, which may set up cuBLAS and
+    cuSOLVER): nothing in the LM loop, the Schur reduction, the
+    Cholesky solve or the CG loop waits for the device."""
+    import chip_smoke as cs
+    from kornia_tpu_torch.optim import ba
+    prob, _ = cs.synth_ba_problem(40, 600, 1, 0.2, cuda_dev)
+    params = ba.BAParams(max_iterations=4, solver=solver, cg_iters=20,
+                         **_HUBER)
+    ba.bundle_adjust_schur(prob, params)
+    res = cs._no_wait(lambda: ba.bundle_adjust_schur(prob, params))
+    assert float(res.final_cost) < 0.5 * float(res.initial_cost)
+
+
+@pytest.mark.cuda
+def test_cuda_pgo_padded_equals_cpu_route(cuda_dev):
+    """PGO on a 60-keyframe ring bucketed as the SLAM loop buckets it (64
+    poses with identity padding, 128 edges with identity-measurement,
+    weight-0 padding), card and CPU route: initial cost within 1e-4,
+    final cost within 0.05 relative, poses within 1e-3; the padding
+    stays identity and finite; under sync debug mode "error" on the
+    card."""
+    import chip_smoke as cs
+    from kornia_tpu_torch.optim import pgo
+    ring, gt = cs.pgo_ring(cuda_dev, n=60, radius=3.0)
+    assert ring["poses"].shape[0] == 64 and ring["edge_i"].shape[0] == 128
+    params = pgo.PGOParams(max_iterations=15)
+    pgo.pose_graph_optimize(**ring, params=params)
+    card = cs._no_wait(lambda: pgo.pose_graph_optimize(**ring,
+                                                       params=params))
+    cpu = pgo.pose_graph_optimize(**{k: v.cpu() for k, v in ring.items()},
+                                  params=params)
+    assert torch.isfinite(card.poses).all()
+    assert float(card.initial_cost) == pytest.approx(
+        float(cpu.initial_cost), rel=1e-4)
+    assert float(card.final_cost) == pytest.approx(float(cpu.final_cost),
+                                                   rel=0.05)
+    assert float(card.final_cost) < 0.5 * float(card.initial_cost)
+    np.testing.assert_allclose(card.poses.cpu().numpy(), cpu.poses.numpy(),
+                               atol=1e-3)
+    assert torch.equal(card.poses[len(gt):], ring["poses"][len(gt):])
+
+
+@pytest.mark.cuda
+def test_cuda_vocabulary_words_equal_cpu_route(cuda_dev):
+    """A vocabulary built with its idf transform on the card equals the
+    one built on the CPU array for array, and the descent's word ids and
+    weights on the card equal the CPU route's exactly (integer XOR,
+    popcount table, first argmin)."""
+    from kornia_tpu_torch import bow
+    rng = np.random.default_rng(50)
+    desc = rng.integers(0, 256, (3000, 32), np.uint8)
+    card = bow.Vocabulary.build(desc, k=6, depth=3, seed=1, device=cuda_dev)
+    cpu = bow.Vocabulary.build(desc, k=6, depth=3, seed=1, device="cpu")
+    for name in ("children", "node_desc", "word_id", "word_weight"):
+        np.testing.assert_array_equal(getattr(card, name), getattr(cpu, name))
+    q = rng.integers(0, 256, (5000, 32), np.uint8)
+    for a, b in zip(card.transform_words(q), cpu.transform_words(q)):
+        np.testing.assert_array_equal(a, b)
