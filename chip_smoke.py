@@ -141,6 +141,25 @@ Phases (any failure raises, so the script exits non-zero):
    (device_ms, or the busy time of one profiled solve where a solve
    launches tens of thousands of kernels) of the solve and per LM
    iteration, launches per iteration and the device busy share.
+15. slam (the ninth slice, run after backend): the SLAM frame loop at full
+   width. MonocularSlam.process_frame over SLAM_FRAMES 480×752 u8 frames
+   of the two-plane scene on an out-and-back path (K_EUROC, σ 2 noise, the
+   return revisits the start), SlamConfig() widths (1000 features, 4
+   levels, ba_window 5, 10 local and 12 global BA iterations) with the
+   loop thresholds of tests/test_slam.py's image loop test, a vocabulary
+   (k 8, depth 3) built by the port from the ORB of every 6th frame.
+   Counted from 0 after the vocabulary: fast_harris 1, windows_paired 2,
+   brief_rotated 1 a frame and no other kernel; the K1-K3 calls of the
+   first and last frames bit-equal to their plain versions. Gates on the
+   ground truth (slam_gates): tracking at the end, >= 70% of frames
+   tracked, >= 5 keyframes, a loop closed to a keyframe < 8, keyframe
+   ATE RMSE (sim3-aligned) < SLAM_ATE_BOUND, set from slam_spread.py's
+   card runs. Per frame kind (bootstrap, tracked, keyframe, loop closure)
+   call ms p50 / p95; from a second run with each frame under the
+   profiler and sync debug mode "warn": kernel launches, copies and host
+   syncs a frame, the device busy share, and the Python lines that
+   synchronise; frames/s, map points, keyframes, loop edges, ATE; the
+   host ms of each stage of the loop.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object with one entry per kernel; the last line is
@@ -171,6 +190,7 @@ from kornia_tpu_torch.ops import interpolation, optical_flow, preprocess
 from kornia_tpu_torch.ops import warp, warp_exact
 from kornia_tpu_torch.ops.filters import gaussian_blur
 from kornia_tpu_torch.optim import ba, pgo
+from kornia_tpu_torch.slam import evaluate as slam_eval
 from kornia_tpu_torch.slam import system as slam
 
 H, W = 480, 752
@@ -1731,7 +1751,7 @@ def phase_orb_levels17(card_line, img1):
         f"{cuda_ms(run):.3f} ms [{card_line}]")
 
 
-def check_track_kernels(k1, k2, k3):
+def check_track_kernels(k1, k2, k3, label="track"):
     """The tracked frame's K1, K2 and K3 calls, recorded on the main path
     (``Record`` of ``fast_harris_levels``, ``windows_paired`` and
     ``brief_rotated``), held to their plain versions on the same inputs:
@@ -1752,14 +1772,14 @@ def check_track_kernels(k1, k2, k3):
     shapes = {}
     for name, found in pairs.items():
         if not found:
-            raise AssertionError(f"track: no {name} call was recorded")
+            raise AssertionError(f"{label}: no {name} call was recorded")
         for got, want in found:
             errs[name] = max(errs[name], max_err(got, want))
             if not torch.equal(got, want):
-                raise AssertionError(f"track: {name} at {tuple(got.shape)} "
+                raise AssertionError(f"{label}: {name} at {tuple(got.shape)} "
                                      "differs from its plain version")
         shapes[name] = [tuple(got.shape) for got, _ in found]
-    log(f"track: the frame's K1/K2/K3 outputs at the path's own shapes "
+    log(f"{label}: the frame's K1/K2/K3 outputs at the path's own shapes "
         f"bit-equal to their plain versions on the same inputs: {shapes}")
     return errs
 
@@ -2430,6 +2450,329 @@ def phase_backend(card_line):
     return out
 
 
+# --------------------------------------------------------------------------
+# the ninth slice: the SLAM frame loop
+# --------------------------------------------------------------------------
+
+SLAM_FRAMES = 40
+SLAM_STEP = 0.08           # camera travel a frame: ~7 px of parallax at depth 5
+# the loop thresholds of tests/test_slam.py's image-level loop test
+SLAM_LOOP_CFG = dict(keyframe_min_interval=2, loop_min_kf_gap=8,
+                     loop_min_score=0.10, loop_min_matches=15)
+# keyframe ATE RMSE gate: 2.9x the worst of slam_spread.py's 5 card runs
+# (0.00693; NVIDIA H100 80GB HBM3, 700 W)
+SLAM_ATE_BOUND = 0.02
+SLAM_KINDS = ("bootstrap", "tracked", "keyframe", "loop closure")
+
+
+def slam_sequence(seed: int = SEED, n: int = SLAM_FRAMES):
+    """``n`` 480×752 u8 frames of the two-plane scene (planes at depth
+    2.7-5) on an out-and-back path: the camera moves SLAM_STEP along x
+    (and 1/8 of it along y) a frame for n/2 frames and comes back, turning
+    0.004 rad about y every frame, so the return revisits the start;
+    Gaussian noise of σ 2 grey levels on each frame (as in
+    tests/test_slam.py's image loop test). Returns (frames, gt (n, 7)
+    world→camera poses, gt camera centres (n, 3))."""
+    rng = np.random.default_rng(seed + 1)
+    texs = scene_textures(seed)
+    frames, poses, centres = [], [], []
+    for i in range(n):
+        s = i if i < n // 2 else n - 1 - i
+        rot = _rot_xyz([0.0, np.degrees(0.004 * i), 0.0])
+        origin = np.array([SLAM_STEP * s, SLAM_STEP / 8 * s, 0.0])
+        img = render_view(rot, origin, texs).astype(np.float64)
+        frames.append(np.clip(np.round(img + rng.normal(0, 2.0, img.shape)),
+                              0, 255).astype(np.uint8))
+        poses.append(np.concatenate([_quat_np(rot), -rot @ origin]))
+        centres.append(origin)
+    return frames, np.stack(poses), np.stack(centres)
+
+
+def slam_vocabulary(frames, device):
+    """The port's vocabulary (k 8, depth 3, seed 1) from the ORB of every
+    6th frame at SlamConfig()'s ORB widths, as tests/test_slam.py builds
+    it from its sequence."""
+    scfg = slam.SlamConfig()
+    ocfg = orb.OrbConfig(n_features=scfg.n_features, n_levels=scfg.n_levels)
+    descs = []
+    for f in frames[::6]:
+        feats = orb.orb_detect_and_describe(f, ocfg, device=device)
+        descs.append(slam._pack(feats.descriptors[feats.mask]).cpu().numpy())
+    return bow.Vocabulary.build(np.concatenate(descs), k=8, depth=3, seed=1,
+                                device=device)
+
+
+def frame_kinds(results):
+    """Each frame's kind: bootstrap (the frames up to and including the
+    one that initialises), loop closure, keyframe, or tracked (the rest,
+    lost frames too)."""
+    kinds, booting = [], True
+    for r in results:
+        if booting:
+            kinds.append("bootstrap")
+            booting = r.state == slam.TrackingState.INITIALIZING
+        elif r.loop_closed_with is not None:
+            kinds.append("loop closure")
+        elif r.is_keyframe:
+            kinds.append("keyframe")
+        else:
+            kinds.append("tracked")
+    return kinds
+
+
+def slam_ate(system, centres, device) -> float:
+    """Keyframe ATE RMSE: the keyframes' camera centres against the truth
+    after a sim3 alignment (the port's evaluate)."""
+    est = slam_eval.poses7_to_t44(system.trajectory(), invert=True,
+                                  device=device)[:, :3, 3]
+    gt = centres[[kf.frame_idx for kf in system.map.keyframes]]
+    return slam_eval.absolute_trajectory_error(est, gt).rmse
+
+
+def run_slam(frames, vocab, device, per_frame=None, stages=None,
+             seed: int = SEED):
+    """``MonocularSlam`` with SlamConfig() widths, the loop thresholds and
+    draws seeded with ``seed`` over ``frames`` (host u8 arrays, as a
+    camera hands them over). Returns (system, call ms per frame).
+    ``per_frame(i, fn)`` runs each frame's call (default: just the call);
+    ``stages``: a dict that collects the host ms of each call of the
+    loop's stages (each ends in a read-back, so its host time covers its
+    device work)."""
+    system = slam.MonocularSlam(
+        K_EUROC, slam.SlamConfig(**SLAM_LOOP_CFG, seed=seed),
+        vocabulary=vocab, device=device)
+    if stages is not None:
+        for name in ("_extract", "_initialize", "_track", "_triangulate_new",
+                     "_local_ba", "_try_loop_closure", "_run_pgo",
+                     "global_ba"):
+            fn = getattr(system, name)
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    stages.setdefault(_name, []).append(
+                        (time.perf_counter() - t0) * 1e3)
+
+            setattr(system, name, timed)
+    ms = []
+    for i, f in enumerate(frames):
+        def call(f=f):
+            return system.process_frame(f)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if per_frame is None:
+            call()
+        else:
+            per_frame(i, call)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return system, ms
+
+
+def slam_summary(system, ms, centres, device) -> dict:
+    """What the ground-truth gates read: states, keyframes, loops, ATE."""
+    res = system.results
+    loops = [(r.frame_idx, r.loop_closed_with) for r in res
+             if r.loop_closed_with is not None]
+    return {"frames": len(res),
+            "tracked": sum(r.pose is not None for r in res),
+            "final_state": system.state.value,
+            "bootstrap_frame": next((r.frame_idx for r in res
+                                     if r.state != slam.TrackingState
+                                     .INITIALIZING), None),
+            "keyframes": len(system.map.keyframes),
+            "map_points": int(system.map.point_valid.sum()),
+            "loop_edges": sum(e[3] > 1.0 for e in system.map.edges),
+            "loops": loops,
+            "ate_rmse": slam_ate(system, centres, device)
+            if len(system.map.keyframes) >= 3 else float("nan"),
+            "loop_s": sum(ms) / 1e3}
+
+
+def slam_gates(s: dict, ate_bound: float = SLAM_ATE_BOUND) -> list:
+    """The ground-truth gates a run must pass; returns the failed ones."""
+    failed = []
+    if s["final_state"] != "tracking":
+        failed.append(f"final state {s['final_state']}")
+    if s["tracked"] < 0.7 * s["frames"]:
+        failed.append(f"tracked {s['tracked']} of {s['frames']} < 70%")
+    if s["keyframes"] < 5:
+        failed.append(f"{s['keyframes']} keyframes < 5")
+    if not any(old < 8 for _, old in s["loops"]):
+        failed.append(f"no loop closed to a keyframe < 8: {s['loops']}")
+    if not s["ate_rmse"] < ate_bound:
+        failed.append(f"keyframe ATE {s['ate_rmse']} >= {ate_bound}")
+    return failed
+
+
+def _frame_trace(call):
+    """One frame under torch.profiler (CUPTI records only) and sync debug
+    mode "warn": (result, {host wall ms, kernel launches and copies
+    enqueued, device records, device busy ms, host synchronisations and
+    the Python line of each}).
+    The trace is read from its raw records (building a FunctionEvent for
+    each of a frame's ~10^4-10^5 records takes seconds); the tracer loses
+    a session's first few device records, so busy time is a slight
+    underestimate (the count lost is reported)."""
+    import warnings
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                out = call()
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            wall = (time.perf_counter() - t0) * 1e3
+    sites = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    tr = {"wall_ms": wall, "launches": 0, "copies": 0, "device_records": 0,
+          "busy_ms": 0.0, "syncs": len(sites), "sync_sites": sites}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            tr["device_records"] += 1
+            tr["busy_ms"] += e.duration_ns() / 1e6
+        elif e.name().startswith(("cudaLaunch", "cuLaunch")):
+            tr["launches"] += 1
+        elif e.name().startswith(_ENQUEUES[2:]):
+            tr["copies"] += 1
+    return out, tr
+
+
+def _pct(vals, q):
+    return float(np.percentile(np.asarray(vals, np.float64), q))
+
+
+def phase_slam(card_line):
+    """The SLAM frame loop at full width: ``MonocularSlam.process_frame``
+    over SLAM_FRAMES 480×752 frames of an out-and-back path (K_EUROC,
+    SlamConfig() widths, the image loop test's loop thresholds, a
+    vocabulary built by the port from the sequence). Counted from 0 after
+    the vocabulary: K1 1, K2 2, K3 1 a frame and no other kernel; the K1-K3
+    calls of the first and last frames held to their plain versions;
+    ground-truth gates (slam_gates). Then the same loop again, each frame
+    under the profiler and sync debug mode "warn", for launches,
+    synchronisations and device busy time per frame kind."""
+    t_phase = time.perf_counter()
+    frames, gt, centres = slam_sequence()
+    t_render = time.perf_counter() - t_phase
+    vocab = slam_vocabulary(frames, "cuda")
+    # warm-up: bootstrap and a few tracked frames (cuBLAS, allocator)
+    run_slam(frames[:4], vocab, "cuda")
+    recs = [Record(name) for name in ("fast_harris_levels", "windows_paired",
+                                      "brief_rotated")]
+    last = len(frames) - 1
+
+    def per_frame(i, call):
+        if i in (0, last):
+            with recs[0], recs[1], recs[2]:
+                return call()
+        return call()
+
+    stages = {}
+    (system, ms), launches = counted(
+        lambda: run_slam(frames, vocab, "cuda", per_frame, stages))
+    n = len(frames)
+    log(f"slam: launches over {n} frames {launches}")
+    only(launches, {"fast_harris": n, "windows_paired": 2 * n,
+                    "brief_rotated": n})
+    errs = check_track_kernels(*recs, label="slam")
+    summ = slam_summary(system, ms, centres, "cuda")
+    kinds = frame_kinds(system.results)
+    failed = slam_gates(summ)
+    log(f"slam: {json.dumps(summ)} [{card_line}]")
+    log("slam frames (index:kind initial, - without a pose/n_tracked): "
+        + " ".join(
+        f"{r.frame_idx}:{k[0]}{'' if r.pose is not None else '-'}"
+        f"/{r.n_tracked}" for r, k in zip(system.results, kinds)))
+    out = {"summary": summ, "render_s": t_render, "frame_ms": ms,
+           "kinds": kinds, "kernel_errs": errs, "by_kind": {}}
+    for kind in SLAM_KINDS:
+        vals = [m for m, k in zip(ms, kinds) if k == kind]
+        if vals:
+            out["by_kind"][kind] = {"frames": len(vals),
+                                    "call_ms_p50": _pct(vals, 50),
+                                    "call_ms_p95": _pct(vals, 95)}
+    out["frames_per_s"] = n / summ["loop_s"]
+    out["stages_ms"] = {k: {"calls": len(v), "total": sum(v),
+                            "p50": _pct(v, 50)} for k, v in stages.items()}
+    for name, st in out["stages_ms"].items():
+        log(f"slam stage {name}: {st['calls']} calls, {st['total']:.1f} ms "
+            f"in all, p50 {st['p50']:.2f} ms (host wall) [{card_line}]")
+
+    # the same loop again, each frame traced
+    traces = []
+
+    def traced(i, call):
+        res, tr = _frame_trace(call)
+        traces.append(tr)
+        return res
+
+    t0 = time.perf_counter()
+    system2, _ = run_slam(frames, vocab, "cuda", traced)
+    t_traced = time.perf_counter() - t0
+    kinds2 = frame_kinds(system2.results)
+    for kind in SLAM_KINDS:
+        sel = [tr for tr, k in zip(traces, kinds2) if k == kind]
+        if not sel:
+            continue
+        row = out["by_kind"].setdefault(kind, {})
+        row.update({
+            "traced_frames": len(sel),
+            "launches_per_frame": float(np.mean([t["launches"] for t in sel])),
+            "copies_per_frame": float(np.mean([t["copies"] for t in sel])),
+            "syncs_per_frame": float(np.mean([t["syncs"] for t in sel])),
+            "busy_share": sum(t["busy_ms"] for t in sel)
+            / sum(t["wall_ms"] for t in sel)})
+    wall = sum(t["wall_ms"] for t in traces)
+    out["device_share"] = sum(t["busy_ms"] for t in traces) / wall
+    sites = {}
+    for tr in traces:
+        for site in tr.pop("sync_sites"):
+            sites[site] = sites.get(site, 0) + 1
+    out["sync_sites"] = dict(sorted(sites.items(), key=lambda kv: -kv[1]))
+    log(f"slam host syncs over the traced sequence by Python line: "
+        f"{json.dumps(dict(list(out['sync_sites'].items())[:16]))}")
+    out["traced"] = {"wall_s": wall / 1e3, "phase_s": t_traced,
+                     "lost_device_records": sum(
+                         t["launches"] + t["copies"] - t["device_records"]
+                         for t in traces),
+                     "summary": slam_summary(system2, [wall], centres,
+                                             "cuda")}
+    for kind, row in out["by_kind"].items():
+        log(f"slam {kind}: {row.get('frames', 0)} frames, call ms p50 "
+            f"{row.get('call_ms_p50', float('nan')):.2f} / p95 "
+            f"{row.get('call_ms_p95', float('nan')):.2f}; traced run: "
+            f"{row.get('launches_per_frame', float('nan')):.0f} kernel "
+            f"launches, {row.get('copies_per_frame', float('nan')):.1f} "
+            f"copies, {row.get('syncs_per_frame', float('nan')):.1f} host "
+            f"syncs a frame, device busy share "
+            f"{row.get('busy_share', float('nan')):.4f} [{card_line}]")
+    log(f"slam: {n} frames in {summ['loop_s']:.3f} s = "
+        f"{out['frames_per_s']:.3f} frames/s; device busy share of the "
+        f"traced sequence {out['device_share']:.4f}; map points "
+        f"{summ['map_points']}, keyframes {summ['keyframes']}, loop edges "
+        f"{summ['loop_edges']}, keyframe ATE RMSE {summ['ate_rmse']:.5f} "
+        f"(gate < {SLAM_ATE_BOUND}) [{card_line}]")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"slam: {json.dumps(out)}")
+    log(f"slam phase: {out['phase_s']:.1f} s (render {t_render:.1f} s, "
+        f"traced run {t_traced:.1f} s)")
+    if failed:
+        raise AssertionError(f"slam: ground-truth gates failed: {failed}")
+    return launches, errs
+
+
 def phase_host(card_line, parent=None):
     """Host microseconds per wrapper call (1000 calls, no synchronise) on
     the main path's recorded inputs, this tree's wrappers and, with
@@ -3042,6 +3385,12 @@ def main():
         row["max_abs_err"] = max(row["max_abs_err"], track_errs[key])
     # 14. the SLAM back end (the eighth slice)
     phase_backend(card_line)
+    # 15. the SLAM frame loop (the ninth slice)
+    slam_launches, slam_errs = phase_slam(card_line)
+    for row in rows_out[:3]:
+        key = {"brief_sample": "brief_rotated"}.get(row["name"], row["name"])
+        row["launches_by_path"]["slam loop"] = slam_launches[key]
+        row["max_abs_err"] = max(row["max_abs_err"], slam_errs[key])
     host = phase_host(card_line, parent)
     for c in k5["cases"]:
         c["host_us_turns"] = host["lane_gather" + (

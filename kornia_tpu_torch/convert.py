@@ -2,7 +2,8 @@
 
 There are no learned weights on the ported paths. The state is the
 configurations (ORB, two-view, LK, preprocessor, SLAM, BA, PGO), the
-stereo calibration, BA problems, bag-of-words vocabularies and, for
+stereo calibration, BA problems, bag-of-words vocabularies, SLAM maps and,
+for
 stage-by-stage comparison, the reference's intermediate arrays. They
 arrive as plain numpy / Python values (so this module imports nothing of
 the JAX package) and leave as the port's objects and tensors on a given
@@ -27,6 +28,7 @@ from kornia_tpu_torch.ops.preprocess import (NormalizeMode,
                                              PreprocessorConfig, ResizeMode)
 from kornia_tpu_torch.optim.ba import BAParams, BAProblem
 from kornia_tpu_torch.optim.pgo import PGOParams
+from kornia_tpu_torch.slam.map import Keyframe, SlamMap
 from kornia_tpu_torch.slam.system import SlamConfig
 
 
@@ -108,6 +110,42 @@ def vocabulary(fields: Mapping[str, Any], device="cuda") -> Vocabulary:
         word_id=np.asarray(fields["word_id"], np.int32),
         word_weight=np.asarray(fields["word_weight"], np.float32),
         device=device)
+
+
+_SLAM_MAP_FIELDS = ("keyframes", "point_xyz", "point_desc", "point_valid",
+                    "point_obs", "edges")
+_KEYFRAME_FIELDS = ("kf_id", "frame_idx", "pose", "xy", "descriptors",
+                    "point_ids")
+
+
+def slam_map(fields: Mapping[str, Any]) -> SlamMap:
+    """``dataclasses.asdict`` of the reference's SlamMap (keyframes as
+    dicts of ``kf_id frame_idx pose xy descriptors point_ids``, points,
+    observations, edges) → the port's SlamMap, host numpy in the
+    reference's dtypes (float64 poses and points, u8 descriptors, int64
+    point ids), every array copied."""
+    if set(fields) != set(_SLAM_MAP_FIELDS):
+        raise ValueError(f"SlamMap fields: {sorted(fields)}, expected "
+                         f"{sorted(_SLAM_MAP_FIELDS)}")
+    m = SlamMap()
+    for kf in fields["keyframes"]:
+        if set(kf) != set(_KEYFRAME_FIELDS):
+            raise ValueError(f"Keyframe fields: {sorted(kf)}, expected "
+                             f"{sorted(_KEYFRAME_FIELDS)}")
+        m.keyframes.append(Keyframe(
+            kf_id=int(kf["kf_id"]), frame_idx=int(kf["frame_idx"]),
+            pose=np.array(kf["pose"], np.float64),
+            xy=np.array(kf["xy"], np.float64),
+            descriptors=np.array(kf["descriptors"], np.uint8),
+            point_ids=np.array(kf["point_ids"], np.int64)))
+    m.point_xyz = np.array(fields["point_xyz"], np.float64).reshape(-1, 3)
+    m.point_desc = np.array(fields["point_desc"], np.uint8).reshape(-1, 32)
+    m.point_valid = np.array(fields["point_valid"], bool)
+    m.point_obs = [[(int(a), int(b)) for a, b in obs]
+                   for obs in fields["point_obs"]]
+    m.edges = [(int(i), int(j), np.array(rel, np.float64), float(w))
+               for i, j, rel, w in fields["edges"]]
+    return m
 
 
 def preprocessor_config(values: Mapping[str, Any]) -> PreprocessorConfig:

@@ -973,3 +973,40 @@ def test_cuda_vocabulary_words_equal_cpu_route(cuda_dev):
     q = rng.integers(0, 256, (5000, 32), np.uint8)
     for a, b in zip(card.transform_words(q), cpu.transform_words(q)):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the SLAM frame loop (MonocularSlam.process_frame on the card; the scene is
+# chip_smoke.py's out-and-back sequence, its first frames)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_slam_frame_loop(cuda_dev):
+    """Eight 480×752 frames of chip_smoke.slam_sequence through
+    MonocularSlam with SlamConfig() widths on the card: frame 0 is held,
+    frame 1 bootstraps (two keyframes), every later frame is tracked;
+    each frame launches K1 once, K2 twice and K3 once and no other hand
+    kernel; the keyframe poses' camera centres within 0.05 of the truth
+    after a sim3 alignment."""
+    import chip_smoke as cs
+    from kornia_tpu_torch import slam
+    frames, _, centres = cs.slam_sequence(n=cs.SLAM_FRAMES)
+    frames = frames[:8]
+    system = slam.MonocularSlam(cs.K_EUROC, slam.SlamConfig(**cs.SLAM_LOOP_CFG),
+                                device=cuda_dev)
+    states = []
+    for f in frames:
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        states.append(system.process_frame(f).state)
+        torch.cuda.synchronize()
+        want = {name: 0 for name in ck.LAUNCHES}
+        want.update(fast_harris=1, windows_paired=2, brief_rotated=1)
+        assert dict(ck.LAUNCHES) == want
+    assert states[0] == slam.TrackingState.INITIALIZING
+    assert all(s == slam.TrackingState.TRACKING for s in states[1:])
+    assert system.results[1].is_keyframe
+    assert [kf.frame_idx for kf in system.map.keyframes][:2] == [0, 1]
+    assert len(system.map.keyframes) >= 3
+    assert cs.slam_ate(system, centres, cuda_dev) < 0.05
