@@ -76,7 +76,9 @@ Phases (any failure raises, so the script exits non-zero):
    again, K5 in both modes against its plain version and timed, and the
    describe against the route with the expanded index, in turns;
    OrbConfig(n_features=2001) (an odd budget sum);
-   describe="gather"; the quadtree pipeline (windows 16, brief_rotated 8;
+   describe="gather"; the quadtree pipeline (fast_score 8, windows 16,
+   brief_rotated 8: its per-level detection runs K1's score-only entry,
+   as the reference's runs fast_score_pallas;
    keypoints kept per level); harris_at_windows at the
    level-0 keypoints (windows 1) against the dense central-gradient map.
    Then ORB with OrbConfig(n_levels=17, scale_factor=1.1): fast_harris 2
@@ -160,6 +162,23 @@ Phases (any failure raises, so the script exits non-zero):
    syncs a frame, the device busy share, and the Python lines that
    synchronise; frames/s, map points, keyframes, loop edges, ATE; the
    host ms of each stage of the loop.
+16. imgproc (the tenth slice, run after preprocess): a seed-made, textured
+   1080×1920×3 u8 frame. The fast_detector path: color.rgb_to_gray →
+   fast.fast_detect(threshold 20, 2048 keypoints), then with an ROI mask
+   (the left 60% of the frame, 1 on the border too), then without the NMS:
+   one K1 score-only launch (fast_score) each and no other kernel; K1's
+   output bit-equal to its plain version; keypoints (xy, score, mask) equal
+   to the CPU route's on the same gray; no keypoint outside the ROI or
+   within 3 px of the border; no host synchronisation under
+   torch.cuda.set_sync_debug_mode("error") after a warm-up; call ms
+   (median of 20), device ms, launches and host us per call. K1's
+   score-only forms timed beside their plain versions and bound (the
+   kernels line's K1 row gains them under ``cases``). Then the dense
+   chain: every public function of the slice's modules once at 1080p, on
+   gray or RGB as it takes, under sync debug mode "error" after a warm-up,
+   no hand kernel launched, held to the CPU route on the same input
+   (IMGPROC_TOL); one ``imgproc <function>`` line each with call and
+   device ms, launches and the largest difference.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object with one entry per kernel; the last line is
@@ -185,9 +204,13 @@ from kornia_tpu_torch import bow
 from kornia_tpu_torch.features import matching, orb, responses
 from kornia_tpu_torch.geometry import camera, liegroup, pnp, stereo, twoview
 from kornia_tpu_torch.geometry.ransac import sample_minimal_sets
+from kornia_tpu_torch.features import fast
+from kornia_tpu_torch.ops import bayer, canny, color, distance_transform, draw
 from kornia_tpu_torch.ops import cuda_kernels as ck
+from kornia_tpu_torch.ops import enhance, filters, geometry_utils, histogram
 from kornia_tpu_torch.ops import interpolation, optical_flow, preprocess
-from kornia_tpu_torch.ops import warp, warp_exact
+from kornia_tpu_torch.ops import metrics, morphology, normalize, pyramid
+from kornia_tpu_torch.ops import resize, threshold, warp, warp_exact, yuv
 from kornia_tpu_torch.ops.filters import gaussian_blur
 from kornia_tpu_torch.optim import ba, pgo
 from kornia_tpu_torch.slam import evaluate as slam_eval
@@ -237,6 +260,10 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 # version sums its dense float32 products in cuBLAS's order.
 PLAIN_TOL = {"preprocess": 2e-6}
 DEV = torch.device("cuda")
+# the fast_detector path of the tenth slice
+FAST_THRESHOLD = 20.0
+FAST_MAX_KP = 2048
+ROI_SHARE = 0.6
 
 
 def log(*args):
@@ -285,7 +312,7 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
 
 
 def device_ms(fn, reps: int = REPS, warmup: int = 3,
-              cuda_only: bool = False) -> float:
+              cuda_only: bool = False, out: dict | None = None) -> float:
     """The device time of ``fn`` in ms per call: the summed device time of
     every kernel and device copy it launches, from torch.profiler over
     ``reps`` back-to-back calls. It reads a hand kernel, its plain version
@@ -303,7 +330,8 @@ def device_ms(fn, reps: int = REPS, warmup: int = 3,
     function fails if no trace is complete. ``cuda_only``: trace only
     CUPTI's records (the enqueue calls and the device work; no ATen op
     events), which a solve of tens of thousands of small ops needs to be
-    read in seconds rather than minutes."""
+    read in seconds rather than minutes. ``out``, a dict, receives the
+    launches and copies one call enqueues under "launches"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -333,11 +361,19 @@ def device_ms(fn, reps: int = REPS, warmup: int = 3,
                           key=lambda e: e.time_range.start)
         on_device = {e.id: e for e in events
                      if e.device_type == DeviceType.CUDA}
+        if not enqueued:
+            # the host records every enqueue: none means no device work
+            # (a view); only device records go missing
+            if out is not None:
+                out["launches"] = 0
+            return 0.0
         per_call, rest = divmod(len(enqueued), calls)
         read = enqueued[(calls - reps) * per_call:]
         TRACE_STATS["traces"] += 1
         TRACE_STATS["lost"] += len(enqueued) - len(on_device)
         if per_call and not rest and all(e.id in on_device for e in read):
+            if out is not None:
+                out["launches"] = per_call
             return sum(on_device[e.id].time_range.elapsed_us()
                        for e in read) / reps / 1e3
         TRACE_STATS["again"] += 1
@@ -1488,7 +1524,9 @@ def phase_orb_variants(card_line, img1, parent=None):
         quad, n_quad = counted(lambda: orb.orb_detect_and_describe_quadtree(
             frame, cfg, device=DEV))
     log(f"orb quadtree launches: {n_quad}")
-    only(n_quad, {"windows": 16, "brief_rotated": 8})
+    # per level: K1's score-only form (the detection), 2 window calls and
+    # one describe
+    only(n_quad, {"fast_score": 8, "windows": 16, "brief_rotated": 8})
     n_bits = check_brief_calls(rec_desc.calls, "unpaired and quadtree")
     if len(rec_desc.calls) != 9 or n_bits != 2 * cfg.n_features * 256:
         raise AssertionError("recorded describe calls of the unpaired and "
@@ -2919,6 +2957,409 @@ def phase_preprocess(card_line):
     return row
 
 
+# --------------------------------------------------------------------------
+# the tenth slice: the FAST detector path and the image-processing library
+# --------------------------------------------------------------------------
+
+
+def imgproc_frame(seed: int = SEED + 10) -> np.ndarray:
+    """A 1080×1920×3 u8 frame of the 1080p configuration's size, textured
+    so that it has corners and edges: 6-px blocks of seeded noise, plus
+    pixel noise (σ 6)."""
+    hh, ww = HW_1080P
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (hh // 6 + 1, ww // 6 + 1, 3)).astype(
+        np.float32)
+    up = np.repeat(np.repeat(base, 6, 0), 6, 1)[:hh, :ww]
+    return np.clip(up + rng.normal(0, 6, up.shape), 0, 255).astype(np.uint8)
+
+
+# card against the CPU route, by function: ("lsb", n) at most n apart,
+# ("rel", x) at most x of the CPU output's largest magnitude (at least 1),
+# ("share", x) at most a share x of the values differing; unnamed: integer
+# outputs equal, float outputs ("rel", 1e-5). The card sums its reductions
+# (means, nv12_from_rgb's 2×2 chroma mean) and matrix products in other
+# orders than the CPU, and ATen divides a tensor by a Python number there
+# as t·(1/c); u8 outputs of float32 pipelines may then round a .5 the
+# other way.
+IMGPROC_TOL = {
+    **{name: ("lsb", 1) for name in (
+        "hsv_to_rgb", "hls_to_rgb", "rgb_to_hsv", "rgb_to_hls", "rgb_to_luv",
+        "luv_to_rgb", "yuv_to_rgb", "rgb_to_yuv", "sepia", "adjust_contrast",
+        "adjust_saturation", "adjust_hue", "adjust_gamma", "bilateral_blur",
+        "resize_fast nearest", "resize_fast bilinear", "resize_fast bicubic",
+        "resize_fast lanczos", "resize_fast area", "resize lanczos antialias",
+        "scale_pyramid", "otsu_threshold", "box_blur", "add_weighted",
+        "adaptive_threshold mean", "adaptive_threshold gaussian",
+        "nv12_from_rgb")},
+    "canny": ("share", 1e-3),
+}
+
+
+def imgproc_inputs(frame: np.ndarray) -> dict:
+    """The chain's inputs, made once on the CPU (the same values go to the
+    card): the frame, its gray, float forms, a second image, a mask, a
+    filter and a structuring element, keypoints, a Bayer mosaic, video
+    planes and each colour inverse's input."""
+    rng = np.random.default_rng(SEED + 11)
+    rgb = torch.as_tensor(frame)
+    gray = color.rgb_to_gray(rgb, device="cpu")[..., 0]
+    hh, ww = gray.shape
+    d = {"rgb": rgb, "gray": gray, "rgbf": rgb.float() * (1.0 / 255.0),
+         "b2": rgb.flip(0).contiguous(),
+         "rgba": torch.cat([rgb, rgb[..., :1]], -1),
+         "mask": (gray > 100).to(torch.uint8),
+         "kernel": torch.as_tensor(rng.normal(size=(3, 3)).astype(
+             np.float32)),
+         "se": torch.tensor([[0, 1, 0], [1, 1, 1], [0, 1, 0]],
+                            dtype=torch.uint8),
+         "xy": torch.as_tensor(rng.uniform(0, [ww, hh], (FAST_MAX_KP, 2))
+                               .astype(np.float32)),
+         "off": torch.tensor([ww * 3 // 8, hh * 5 // 18]),
+         "raw": bayer.mosaic(rgb, "rggb", device="cpu"),
+         "y": gray, "uv": rgb[::2, ::2, :2].contiguous(),
+         "u": rgb[::2, ::2, 0].contiguous(), "v": rgb[::2, ::2, 1].contiguous(),
+         "packed": rgb[..., :2].reshape(hh, ww * 2).contiguous()}
+    for fwd, kind in (("rgb_to_hsv", "rgb"), ("rgb_to_hls", "rgb"),
+                      ("rgb_to_xyz", "rgbf"), ("rgb_to_lab", "rgbf"),
+                      ("rgb_to_luv", "rgb"), ("rgb_to_yuv", "rgb")):
+        d[fwd] = getattr(color, fwd)(d[kind], device="cpu")
+    return d
+
+
+def imgproc_chain(hh: int, ww: int):
+    """(name, fn(inputs, device)): every public function of the slice's
+    modules once, on an hh × ww frame."""
+    pre = {m: preprocess.PreprocessorConfig(
+        out_size=(640, 640), normalize=preprocess.NormalizeMode.MEAN_STD,
+        mean=IMAGENET_MEAN, std=IMAGENET_STD, interp=m)
+        for m in ("bicubic", "lanczos", "area")}
+    c = [
+        ("box_blur", lambda d, v: filters.box_blur(d["rgb"], (5, 5),
+                                                   device=v)),
+        ("spatial_gradient", lambda d, v: filters.spatial_gradient(
+            d["gray"], device=v)),
+        ("laplacian", lambda d, v: filters.laplacian(d["gray"], device=v)),
+        ("filter2d", lambda d, v: filters.filter2d(d["gray"], d["kernel"],
+                                                   device=v)),
+        ("median_blur 3", lambda d, v: filters.median_blur(d["rgb"], 3,
+                                                           device=v)),
+        ("median_blur 5", lambda d, v: filters.median_blur(d["gray"], 5,
+                                                           device=v)),
+        ("bilateral_blur", lambda d, v: filters.bilateral_blur(
+            d["rgb"], 5, 30.0, 3.0, device=v)),
+        ("gray_to_rgb", lambda d, v: color.gray_to_rgb(d["gray"][..., None],
+                                                       device=v)),
+        ("rgba_to_rgb", lambda d, v: color.rgba_to_rgb(d["rgba"], device=v)),
+        ("bgra_to_rgba", lambda d, v: color.bgra_to_rgba(d["rgba"],
+                                                         device=v)),
+        ("rgb_to_rgba", lambda d, v: color.rgb_to_rgba(d["rgb"], device=v)),
+        ("apply_colormap", lambda d, v: color.apply_colormap(
+            d["gray"], "turbo", device=v)),
+    ]
+    for name, kind in (("rgb_to_gray", "rgb"), ("bgr_to_gray", "rgb"),
+                       ("rgb_to_bgr", "rgb"), ("rgb_to_hsv", "rgb"),
+                       ("rgb_to_hls", "rgb"), ("rgb_to_xyz", "rgbf"),
+                       ("rgb_to_lab", "rgbf"), ("rgb_to_luv", "rgb"),
+                       ("rgb_to_yuv", "rgb"), ("sepia", "rgb"),
+                       ("hsv_to_rgb", "rgb_to_hsv"),
+                       ("hls_to_rgb", "rgb_to_hls"),
+                       ("xyz_to_rgb", "rgb_to_xyz"),
+                       ("lab_to_rgb", "rgb_to_lab"),
+                       ("luv_to_rgb", "rgb_to_luv"),
+                       ("yuv_to_rgb", "rgb_to_yuv")):
+        c.append((name, lambda d, v, name=name, kind=kind: getattr(
+            color, name)(d[kind], device=v)))
+    c += [
+        ("normalize_mean_std", lambda d, v: normalize.normalize_mean_std(
+            d["rgb"], IMAGENET_MEAN, IMAGENET_STD, device=v)),
+        ("denormalize_mean_std", lambda d, v: normalize.denormalize_mean_std(
+            d["rgbf"], IMAGENET_MEAN, IMAGENET_STD, device=v)),
+        ("normalize_min_max", lambda d, v: normalize.normalize_min_max(
+            d["gray"], device=v)),
+        ("histogram_u8", lambda d, v: histogram.histogram_u8(d["gray"],
+                                                             device=v)),
+        ("histogram", lambda d, v: histogram.histogram(d["rgbf"], 1000,
+                                                       device=v)),
+        ("add_weighted", lambda d, v: enhance.add_weighted(
+            d["rgb"], 0.3, d["b2"], 0.7, 5.0, device=v)),
+        ("adjust_brightness", lambda d, v: enhance.adjust_brightness(
+            d["rgb"], 1.3, device=v)),
+        ("adjust_contrast", lambda d, v: enhance.adjust_contrast(
+            d["rgb"], 1.4, device=v)),
+        ("adjust_saturation", lambda d, v: enhance.adjust_saturation(
+            d["rgb"], 0.6, device=v)),
+        ("adjust_hue", lambda d, v: enhance.adjust_hue(d["rgb"], 30.0,
+                                                       device=v)),
+        ("adjust_gamma", lambda d, v: enhance.adjust_gamma(d["rgb"], 0.7,
+                                                           device=v)),
+        ("invert", lambda d, v: enhance.invert(d["rgb"], device=v)),
+        ("equalize_hist", lambda d, v: enhance.equalize_hist(d["gray"],
+                                                             device=v)),
+        ("clahe", lambda d, v: enhance.clahe(d["gray"], 2.0, device=v)),
+        ("threshold_binary", lambda d, v: threshold.threshold_binary(
+            d["gray"], 127.5, 255.0, device=v)),
+        ("threshold_binary_inverse",
+         lambda d, v: threshold.threshold_binary_inverse(
+             d["gray"], 127.5, 255.0, device=v)),
+        ("threshold_truncate", lambda d, v: threshold.threshold_truncate(
+            d["gray"], 127.7, device=v)),
+        ("threshold_to_zero", lambda d, v: threshold.threshold_to_zero(
+            d["gray"], 100.0, device=v)),
+        ("threshold_to_zero_inverse",
+         lambda d, v: threshold.threshold_to_zero_inverse(
+             d["gray"], 100.0, device=v)),
+        ("otsu_threshold", lambda d, v: threshold.otsu_threshold(
+            d["gray"], device=v)),
+        ("adaptive_threshold mean", lambda d, v: threshold.adaptive_threshold(
+            d["gray"], 255.0, "mean", device=v)),
+        ("adaptive_threshold gaussian",
+         lambda d, v: threshold.adaptive_threshold(
+             d["gray"], 255.0, "gaussian", device=v)),
+        ("dilate", lambda d, v: morphology.dilate(d["rgb"], (3, 3),
+                                                  device=v)),
+        ("erode", lambda d, v: morphology.erode(d["rgb"], (4, 2), device=v)),
+        ("dilate element", lambda d, v: morphology.dilate(
+            d["gray"], kernel=d["se"], device=v)),
+        ("erode element", lambda d, v: morphology.erode(
+            d["gray"], kernel=d["se"], device=v)),
+        ("opening", lambda d, v: morphology.opening(d["gray"], (5, 5),
+                                                    device=v)),
+        ("closing", lambda d, v: morphology.closing(d["gray"], (5, 5),
+                                                    device=v)),
+        ("gradient", lambda d, v: morphology.gradient(d["gray"], device=v)),
+        ("top_hat", lambda d, v: morphology.top_hat(d["gray"], device=v)),
+        ("black_hat", lambda d, v: morphology.black_hat(d["gray"],
+                                                        device=v)),
+        ("canny", lambda d, v: canny.canny(d["gray"], 50.0, 120.0,
+                                           device=v)),
+        ("mosaic", lambda d, v: bayer.mosaic(d["rgb"], "rggb", device=v)),
+        ("demosaic_bilinear", lambda d, v: bayer.demosaic_bilinear(
+            d["raw"], "rggb", device=v)),
+    ]
+    for mode in ("nearest", "bilinear", "bicubic", "lanczos", "area"):
+        c.append((f"resize_fast {mode}",
+                  lambda d, v, mode=mode: resize.resize_fast(
+                      d["rgb"], (hh * 2 // 3, ww * 2 // 3), mode, device=v)))
+    c.append(("resize lanczos antialias", lambda d, v: resize.resize(
+        d["rgb"].to(v), (hh // 2, ww // 2), "lanczos", True)))
+    for m, cfg in pre.items():
+        c.append((f"resize_normalize_to_tensor {m}",
+                  lambda d, v, cfg=cfg: preprocess.resize_normalize_to_tensor(
+                      d["rgb"], cfg, device=v)))
+    c += [
+        ("rgb_from_nv12", lambda d, v: yuv.rgb_from_nv12(d["y"].to(v),
+                                                         d["uv"].to(v))),
+        ("rgb_from_nv21", lambda d, v: yuv.rgb_from_nv21(d["y"], d["uv"],
+                                                         device=v)),
+        ("rgb_from_i420", lambda d, v: yuv.rgb_from_i420(
+            d["y"], d["u"], d["v"], device=v)),
+        ("rgb_from_yv12", lambda d, v: yuv.rgb_from_yv12(
+            d["y"], d["v"], d["u"], device=v)),
+        ("rgb_from_yuyv", lambda d, v: yuv.rgb_from_yuyv(d["packed"],
+                                                         device=v)),
+        ("rgb_from_uyvy", lambda d, v: yuv.rgb_from_uyvy(d["packed"],
+                                                         device=v)),
+        ("rgb_from_yvyu", lambda d, v: yuv.rgb_from_yvyu(d["packed"],
+                                                         device=v)),
+        ("nv12_from_rgb", lambda d, v: yuv.nv12_from_rgb(d["rgb"],
+                                                         device=v)),
+        ("scale_pyramid", lambda d, v: pyramid.scale_pyramid(
+            d["gray"], 8, 1.2, device=v)),
+        ("harris_response box", lambda d, v: responses.harris_response(
+            d["gray"].to(v).float(), block_size=3, window="box")),
+        ("shi_tomasi_response", lambda d, v: responses.shi_tomasi_response(
+            d["gray"], device=v)),
+        ("hessian_response", lambda d, v: responses.hessian_response(
+            d["gray"], device=v)),
+        ("dog_response", lambda d, v: responses.dog_response(d["gray"],
+                                                             device=v)),
+        ("distance_transform", lambda d, v:
+         distance_transform.distance_transform(d["mask"], device=v)),
+    ]
+    for name in ("mse", "l1", "huber", "psnr", "ssim"):
+        c.append((name, lambda d, v, name=name: getattr(metrics, name)(
+            d["rgb"], d["b2"], device=v)))
+    c += [
+        ("hflip", lambda d, v: geometry_utils.hflip(d["rgb"], device=v)),
+        ("vflip", lambda d, v: geometry_utils.vflip(d["rgb"], device=v)),
+        ("rot180", lambda d, v: geometry_utils.rot180(d["rgb"], device=v)),
+        ("crop", lambda d, v: geometry_utils.crop(
+            d["rgb"], ww // 16, hh // 20, ww // 3, hh // 2, device=v)),
+        ("center_crop", lambda d, v: geometry_utils.center_crop(
+            d["rgb"], (hh * 2 // 3, ww * 2 // 3), device=v)),
+        ("dynamic_crop", lambda d, v: geometry_utils.dynamic_crop(
+            d["rgb"], d["off"][0], d["off"][1], ww // 3, hh // 2,
+            device=v)),
+        ("pad", lambda d, v: geometry_utils.pad(d["rgb"], 8, 8, 16, 16,
+                                                "reflect", device=v)),
+        ("draw_line", lambda d, v: draw.draw_line(
+            d["rgb"], (10.5, 20.0), (1800.0, 1000.5), (255, 0, 0), 3.0,
+            device=v)),
+        ("draw_circle", lambda d, v: draw.draw_circle(
+            d["rgb"], (960.0, 540.0), 300.0, (0, 255, 0), 4.0, device=v)),
+        ("draw_rect", lambda d, v: draw.draw_rect(
+            d["rgb"], (100, 100), (900, 700), (0, 0, 255), 2.0, device=v)),
+        ("draw_keypoints", lambda d, v: draw.draw_keypoints(
+            d["rgb"], d["xy"], device=v)),
+    ]
+    return c
+
+
+def _flat(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def imgproc_err(name, card, cpu):
+    """(largest difference, its measure, whether within IMGPROC_TOL)."""
+    card, cpu = _flat(card), _flat(cpu)
+    if len(card) != len(cpu):
+        raise AssertionError(f"imgproc {name}: {len(card)} outputs on the "
+                             f"card, {len(cpu)} on the CPU")
+    worst = 0.0
+    for a, b in zip(card, cpu):
+        if a.shape != b.shape or a.dtype != b.dtype or not a.is_cuda:
+            raise AssertionError(f"imgproc {name}: card {a.shape} {a.dtype} "
+                                 f"{a.device}, CPU {b.shape} {b.dtype}")
+        if a.dtype.is_floating_point and not torch.isfinite(a).all():
+            raise AssertionError(f"imgproc {name}: not finite on the card")
+        kind, tol = IMGPROC_TOL.get(name, (
+            "rel", 1e-5) if a.dtype.is_floating_point else ("lsb", 0))
+        diff = (a.cpu().double() - b.double()).abs()
+        if kind == "share":
+            val = float((diff > 0).double().mean()) if diff.numel() else 0.0
+        elif kind == "rel":
+            val = float(diff.max()) / max(1.0, float(b.double().abs().max()))
+        else:
+            val = float(diff.max()) if diff.numel() else 0.0
+        if val > tol:
+            raise AssertionError(f"imgproc {name}: card and CPU route differ "
+                                 f"by {val} ({kind}), above {tol}")
+        worst = max(worst, val)
+    return worst, kind
+
+
+def phase_imgproc(card_line):
+    """The fast_detector path and the dense chain at 1080p (docstring 16).
+    Returns K1's score-only cases for the kernels line and the path's K1
+    launches."""
+    t_phase = time.perf_counter()
+    frame = imgproc_frame()
+    hh, ww = HW_1080P
+    rgb = torch.as_tensor(frame, device=DEV)
+    gray = color.rgb_to_gray(rgb, device=DEV)[..., 0]
+    gray_cpu = gray.cpu()
+    if not torch.equal(gray_cpu, color.rgb_to_gray(
+            torch.as_tensor(frame), device="cpu")[..., 0]):
+        raise AssertionError("rgb_to_gray: card and CPU differ")
+    roi = torch.zeros((hh, ww), dtype=torch.float32, device=DEV)
+    roi[:, : int(ROI_SHARE * ww)] = 1.0                # 1 on the border too
+    cases = (("fast_detect", {}), ("fast_detect roi", {"border_mask": roi}),
+             ("fast_detect no-nms", {"nms": False}))
+    k1_launches = 0
+    for label, kw in cases:
+        def call(kw=kw):
+            return fast.fast_detect(gray, FAST_THRESHOLD, FAST_MAX_KP,
+                                    device=DEV, **kw)
+
+        call()                                         # warm-up
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        kps = _no_wait(call)
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        only(launches, {"fast_score": 1})
+        k1_launches += launches["fast_score"]
+        nms = kw.get("nms", True)
+        mask = kw.get("border_mask")
+        score = ck.fast_score(gray, FAST_THRESHOLD, nms=nms, mask=mask)
+        plain = ck._fast_score_plain(gray, FAST_THRESHOLD, nms, mask)
+        if not torch.equal(score, plain):
+            raise AssertionError(f"{label}: K1 score-only differs from its "
+                                 f"plain version by {max_err(score, plain)}")
+        want = fast.fast_detect(
+            gray_cpu, FAST_THRESHOLD, FAST_MAX_KP, device="cpu",
+            **{k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+               for k, v in kw.items()})
+        for name, a, b in zip(kps._fields, kps, want):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"{label}: keypoint {name} differs from "
+                                     "the CPU route")
+        xy = kps.xy[kps.mask].cpu()
+        n_kp = int(xy.shape[0])
+        x_hi = ROI_SHARE * ww if mask is not None else ww - 3
+        if n_kp < 100 or not ((xy[:, 0] >= 3) & (xy[:, 0] < x_hi)
+                              & (xy[:, 0] < ww - 3) & (xy[:, 1] >= 3)
+                              & (xy[:, 1] < hh - 3)).all():
+            raise AssertionError(f"{label}: {n_kp} keypoints, some outside "
+                                 "the ROI or within 3 px of the border")
+        call_ms = cuda_ms(call)
+        dev = {}
+        dev_ms = device_ms(call, out=dev)
+        host = host_us(call, calls=200)
+        log(f"imgproc {label}: call {call_ms:.4f} ms (median of {REPS}), "
+            f"device {dev_ms:.4f} ms, {dev['launches']} launches a call "
+            f"(K1 fast_score 1), host {host:.1f} us per call, {n_kp} "
+            f"keypoints, equal to the CPU route, none outside the ROI or "
+            f"the 3-px border, no host sync [{card_line}]")
+
+    # K1's score-only forms beside their plain versions and bound
+    px = hh * ww
+    k1_cases = []
+    for label, nms, mask in (("score-only, nms, 1080p", True, None),
+                             ("score-only, nms, ROI mask, 1080p", True, roi),
+                             ("score-only, no nms, 1080p", False, None)):
+        times = kernel_times(
+            lambda nms=nms, mask=mask: ck.fast_score(
+                gray, FAST_THRESHOLD, nms=nms, mask=mask),
+            lambda nms=nms, mask=mask: ck._fast_score_plain(
+                gray, FAST_THRESHOLD, nms, mask))
+        # per pixel: the 99 integer operations of the arc test and score;
+        # f32: threshold, the mask multiply, the 3x3 pool and compare
+        nbytes = px * (1 + 4 + (4 if mask is not None else 0))
+        f32 = px * (1 + (1 if mask is not None else 0) + (9 if nms else 0))
+        bms, by = bound(nbytes, px * 99, f32)
+        k1_cases.append({"case": label, "launches": 1, "max_abs_err": 0.0,
+                         "bound_ms": bms, "bound_by": by, **times})
+        log(f"time fast_score ({label}): {fmt_times(times)}, bound "
+            f"{bms:.5f} ms ({by}) [{card_line}]")
+
+    # the dense chain
+    t0 = time.perf_counter()
+    inputs_cpu = imgproc_inputs(frame)
+    inputs_dev = {k: v.to(DEV) for k, v in inputs_cpu.items()}
+    cpu_s = time.perf_counter() - t0
+    chain = imgproc_chain(hh, ww)
+    slow = []
+    for name, fn in chain:
+        t0 = time.perf_counter()
+        want = fn(inputs_cpu, "cpu")
+        cpu_s += time.perf_counter() - t0
+        fn(inputs_dev, DEV)                              # warm-up
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        got = _no_wait(lambda: fn(inputs_dev, DEV))
+        torch.cuda.synchronize()
+        if any(ck.LAUNCHES.values()):
+            raise AssertionError(f"imgproc {name}: hand kernels launched "
+                                 f"{ck.LAUNCHES}")
+        err, kind = imgproc_err(name, got, want)
+        call_ms = cuda_ms(lambda: fn(inputs_dev, DEV), reps=5, warmup=0)
+        dev = {}
+        dev_ms = device_ms(lambda: fn(inputs_dev, DEV), reps=3, warmup=0,
+                           cuda_only=True, out=dev)
+        slow.append((call_ms, name))
+        log(f"imgproc {name}: call {call_ms:.4f} ms, device {dev_ms:.4f} "
+            f"ms, launches {dev['launches']}, max err {err:.3g} ({kind}; "
+            f"no hand kernel, no host sync) [{card_line}]")
+    slow.sort(reverse=True)
+    log(f"imgproc: {len(chain)} functions at {hh}x{ww}; slowest by call "
+        f"ms: " + ", ".join(f"{n} {ms:.3f}" for ms, n in slow[:8])
+        + f"; CPU route {cpu_s:.1f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{card_line}]")
+    return k1_cases, k1_launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="DIR",
@@ -3375,6 +3816,8 @@ def main():
     k7["paths"] = {"rectify": k7["launches"], **lk_remaps}
     k7["launches"] = sum(k7["paths"].values())
     k6 = phase_preprocess(card_line)
+    # 16. the tenth slice: the FAST detector path and the dense chain
+    k1_cases, k1_fast_detect = phase_imgproc(card_line)
 
     # 13. the tracking step (the seventh slice)
     track_launches, track_errs = phase_track(card_line)
@@ -3391,6 +3834,11 @@ def main():
         key = {"brief_sample": "brief_rotated"}.get(row["name"], row["name"])
         row["launches_by_path"]["slam loop"] = slam_launches[key]
         row["max_abs_err"] = max(row["max_abs_err"], slam_errs[key])
+    # K1's score-only entry (fast_score) on the fast_detector path
+    k1 = rows_out[0]
+    k1["launches_by_path"]["fast_detect (score-only entry)"] = \
+        k1_fast_detect
+    k1["cases"] = k1_cases
     host = phase_host(card_line, parent)
     for c in k5["cases"]:
         c["host_us_turns"] = host["lane_gather" + (

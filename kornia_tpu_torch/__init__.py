@@ -17,6 +17,9 @@ This package never imports ``jax`` or ``kornia_tpu``.
 
 __version__ = "0.1.0"
 
+import functools as _functools
+
+import numpy as _np
 import torch as _torch
 
 # Numerics contract, the counterpart of kornia_tpu/__init__.py:34
@@ -43,3 +46,24 @@ def to_device(x, device: _torch.device, dtype=None) -> _torch.Tensor:
     if isinstance(x, _torch.Tensor):
         return x.to(device=device, dtype=dtype or x.dtype)
     return _torch.tensor(x, dtype=dtype, device=device)
+
+
+def _moved(x, device: _torch.device):
+    if isinstance(x, (_torch.Tensor, _np.ndarray)):
+        return to_device(x, device)
+    return x
+
+
+def entry(fn):
+    """Make ``fn`` an entry point: it gains ``device=`` (default
+    ``"cuda"``, through :func:`resolve_device`), and every numpy array or
+    tensor among its arguments is moved there first. Other arguments
+    (sizes, thresholds, colours) pass as they are."""
+
+    @_functools.wraps(fn)
+    def on_device(*args, device="cuda", **kwargs):
+        dev = resolve_device(device)
+        return fn(*[_moved(a, dev) for a in args],
+                  **{k: _moved(v, dev) for k, v in kwargs.items()})
+
+    return on_device

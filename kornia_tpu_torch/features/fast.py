@@ -4,8 +4,11 @@ The dense formulation of the reference: the 16 ring neighbours are static
 shifts of the image, the "≥ N contiguous" test is a min/max over N circular
 neighbours, NMS is a 3×3 max-pool equality and the per-cell selection is a
 packed max-reduce. On the card the score, NMS and Harris map of ORB's levels
-come from one CUDA kernel (ops/cuda_kernels.fast_harris); the functions here
-are its plain versions and the host-side glue around it.
+come from one CUDA kernel (ops/cuda_kernels.fast_harris), and the score of
+the detector path (:func:`fast_detect`, ``_score_dispatch``,
+``_score_nms_dispatch``, ``_two_tier_select``) from the same kernel's
+score-only forms (ops/cuda_kernels.fast_score); ``fast_score`` and
+``nms_maxpool`` here are their plain versions.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from kornia_tpu_torch import entry
 
 # 16-point Bresenham circle of radius 3, clockwise from 12 o'clock
 # ((dy, dx) offsets) — the standard FAST-16 ring.
@@ -70,6 +75,76 @@ class FastKeypoints(NamedTuple):
     mask: torch.Tensor    # (K,) bool
 
 
+def topk_keypoints(score_map: torch.Tensor, k: int) -> FastKeypoints:
+    """The ``k`` strongest responses of an (H, W) map as fixed-shape
+    keypoints (fast.py:97-119). The reference's ``approx_max_k`` is
+    approximate on the TPU only; elsewhere it is ``top_k``, which this is:
+    exact, the lower index first on ties (:func:`stable_topk`)."""
+    h, w = score_map.shape
+    vals, idx = stable_topk(score_map.reshape(-1), k)
+    ys = (idx // w).to(torch.float32)
+    xs = (idx % w).to(torch.float32)
+    return FastKeypoints(xy=torch.stack([xs, ys], dim=-1), score=vals,
+                         mask=vals > 0.0)
+
+
+def _mask_on(border_mask, like: torch.Tensor):
+    """The ROI mask (an (H, W) array or tensor, the reference's
+    ``StaticMask.arr``) as float32 on ``like``'s device."""
+    if border_mask is None:
+        return None
+    m = torch.as_tensor(border_mask, dtype=torch.float32)
+    return m.to(like.device).contiguous()
+
+
+def _score_dispatch(gray, threshold, arc_length, border_mask=None):
+    """The FAST score without NMS (fast.py:122-137), times the ROI mask
+    where given: K1's score-only form on the card, the plain version on
+    the CPU."""
+    mask = _mask_on(border_mask, gray)
+    if not gray.is_cpu:
+        return _kernel_score(gray, threshold, arc_length, False, mask)
+    s = fast_score(gray, threshold, arc_length)
+    return s if mask is None else s * mask
+
+
+def _score_nms_dispatch(gray, threshold, arc_length, border_mask=None):
+    """Score + 3×3 NMS (fast.py:140-162). ``border_mask``, 0/1 over
+    (H, W), follows the XLA path: the score keeps its 3-px border kill and
+    is multiplied by the mask before the NMS (the Pallas path replaces the
+    border kill with the mask instead). K1's score-only form on the card,
+    the plain composition on the CPU."""
+    mask = _mask_on(border_mask, gray)
+    if not gray.is_cpu:
+        return _kernel_score(gray, threshold, arc_length, True, mask)
+    s = fast_score(gray, threshold, arc_length)
+    return nms_maxpool(s if mask is None else s * mask)
+
+
+def _kernel_score(gray, threshold, arc_length, nms, mask):
+    from kornia_tpu_torch.ops import cuda_kernels as ck
+
+    if arc_length != 9:
+        raise ValueError(f"FAST on {gray.device}: the kernel computes arc "
+                         f"length 9, got {arc_length}")
+    return ck.fast_score(gray, threshold, nms=nms, mask=mask)
+
+
+@entry
+def fast_detect(gray: torch.Tensor, threshold: float = 10.0,
+                max_keypoints: int = 2048, nms: bool = True,
+                arc_length: int = 9, border_mask=None) -> FastKeypoints:
+    """FAST detection on an (H, W) image: dense score → NMS → top-k
+    (fast.py:165-186). ``border_mask`` (an (H, W) 0/1 ROI) is this port's
+    addition, as ``_score_nms_dispatch`` takes it; None is the reference's
+    call."""
+    if nms:
+        s = _score_nms_dispatch(gray, threshold, arc_length, border_mask)
+    else:
+        s = _score_dispatch(gray, threshold, arc_length, border_mask)
+    return topk_keypoints(s, max_keypoints)
+
+
 def _cell_grid(h: int, w: int, cs: int):
     return -(-h // cs), -(-w // cs)
 
@@ -81,7 +156,11 @@ def _cell_max(x: torch.Tensor, cs: int) -> torch.Tensor:
 
 
 def _cell_repeat(m: torch.Tensor, cs: int) -> torch.Tensor:
-    return m.repeat_interleave(cs, 0).repeat_interleave(cs, 1)
+    """(gy, gx) → (gy·cs, gx·cs), each value repeated over its cell (an
+    expand: ``repeat_interleave`` waits for the device)."""
+    gy, gx = m.shape
+    return m[:, None, :, None].expand(gy, cs, gx, cs).reshape(gy * cs,
+                                                              gx * cs)
 
 
 def _two_tier_gate(s_lo: torch.Tensor, threshold_high: float,
@@ -101,10 +180,11 @@ def _two_tier_gate(s_lo: torch.Tensor, threshold_high: float,
 
 
 def _two_tier_select(gray, threshold_high, threshold_low, arc_length,
-                     cell_size):
+                     cell_size, border_mask=None):
     """NMS'd FAST score with the two-tier per-cell threshold (one score
-    pass and one NMS serve both tiers, fast.py:189-204)."""
-    s_lo = nms_maxpool(fast_score(gray, threshold_low, arc_length))
+    pass and one NMS serve both tiers, fast.py:189-204), the ROI mask
+    applied before the NMS as in :func:`_score_nms_dispatch`."""
+    s_lo = _score_nms_dispatch(gray, threshold_low, arc_length, border_mask)
     return _two_tier_gate(s_lo, threshold_high, cell_size)
 
 
@@ -204,9 +284,8 @@ def fast_harris_cells(gray: torch.Tensor, harris_map: torch.Tensor,
         sel = _two_tier_select(gray, threshold_high, threshold_low,
                                arc_length, cell_size)
     eligible = sel > 0.0
-    inf = torch.tensor(float("inf"), device=sel.device)
-    hmax = torch.where(eligible, harris_map, -inf).amax()
-    hmin = torch.where(eligible, harris_map, inf).amin()
+    hmax = torch.where(eligible, harris_map, float("-inf")).amax()
+    hmin = torch.where(eligible, harris_map, float("inf")).amin()
     span = torch.clamp(hmax - hmin, min=1e-12)
     q = torch.floor((harris_map - hmin) / span * 8190.0) + 1.0
     q = torch.where(eligible, torch.clamp(q, 1.0, 8191.0),

@@ -1,5 +1,5 @@
-"""Corner responses (port of kornia_tpu/features/responses.py: the Harris
-map, dense and at keypoints).
+"""Corner and blob responses (port of kornia_tpu/features/responses.py:
+Harris dense and at keypoints, Shi-Tomasi, det(Hessian), DoG).
 
 ``harris_at_windows`` evaluates the structure tensor on keypoint windows cut
 by ``cuda_kernels.windows``; the imports of ``cuda_kernels`` are inside the
@@ -10,8 +10,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kornia_tpu_torch.ops.filters import (_conv_sep, _replicate_index,
-                                          gaussian_kernel1d, sobel)
+from kornia_tpu_torch import entry
+from kornia_tpu_torch.ops.filters import (_conv_sep, gaussian_kernel1d,
+                                          index_on, sobel)
 
 
 def _grads(gray_f: torch.Tensor, kind: str = "sobel"):
@@ -21,28 +22,80 @@ def _grads(gray_f: torch.Tensor, kind: str = "sobel"):
         return sobel(gray_f, 1, 0), sobel(gray_f, 0, 1)
     h, w = gray_f.shape
     dev = gray_f.device
-    iy = torch.from_numpy(_replicate_index(h, 1)).to(dev)
-    ix = torch.from_numpy(_replicate_index(w, 1)).to(dev)
-    p = gray_f.index_select(0, iy).index_select(1, ix)
+    p = gray_f.index_select(0, index_on("replicate", h, 1, dev)).index_select(
+        1, index_on("replicate", w, 1, dev))
     gx = 0.5 * (p[1:-1, 2:] - p[1:-1, :-2])
     gy = 0.5 * (p[2:, 1:-1] - p[:-2, 1:-1])
     return gx, gy
 
 
+def _window_kernel(block_size: int, sigma: float, window: str) -> np.ndarray:
+    if window == "box":
+        # cv2.cornerHarris semantics: box sum over blockSize
+        return np.ones(block_size, np.float32)
+    return gaussian_kernel1d(block_size, sigma)
+
+
 def harris_response(gray: torch.Tensor, k: float = 0.04, block_size: int = 5,
-                    sigma: float = 1.0, grad: str = "sobel"
-                    ) -> torch.Tensor:
+                    sigma: float = 1.0, window: str = "gaussian",
+                    grad: str = "sobel") -> torch.Tensor:
     """Harris cornerness det(M) − k·tr(M)² on (H, W), float32, with a
-    Gaussian window (the reference's ``window="box"`` is not ported)."""
+    Gaussian window or, for ``window="box"``, cv2.cornerHarris's box sum."""
     x = gray.to(torch.float32)
     gx, gy = _grads(x, grad)
-    kern = gaussian_kernel1d(block_size, sigma)
+    kern = _window_kernel(block_size, sigma, window)
     sxx = _conv_sep((gx * gx)[..., None], kern, kern)[..., 0]
     syy = _conv_sep((gy * gy)[..., None], kern, kern)[..., 0]
     sxy = _conv_sep((gx * gy)[..., None], kern, kern)[..., 0]
     det = sxx * syy - sxy * sxy
     tr = sxx + syy
     return det - k * tr * tr
+
+
+@entry
+def shi_tomasi_response(gray: torch.Tensor, block_size: int = 5,
+                        sigma: float = 1.0) -> torch.Tensor:
+    """GFTT / minimum-eigenvalue response of the Gaussian-windowed
+    structure tensor of the Sobel gradients."""
+    x = gray.to(torch.float32)
+    gx, gy = _grads(x)
+    kern = gaussian_kernel1d(block_size, sigma)
+    sxx = _conv_sep((gx * gx)[..., None], kern, kern)[..., 0]
+    syy = _conv_sep((gy * gy)[..., None], kern, kern)[..., 0]
+    sxy = _conv_sep((gx * gy)[..., None], kern, kern)[..., 0]
+    half_tr = 0.5 * (sxx + syy)
+    disc = torch.sqrt(torch.clamp(half_tr * half_tr - (sxx * syy - sxy * sxy),
+                                  min=0.0))
+    return half_tr - disc
+
+
+@entry
+def hessian_response(gray: torch.Tensor) -> torch.Tensor:
+    """det(Hessian) blob response, central second differences on the
+    edge-replicated image."""
+    x = gray.to(torch.float32)
+    h, w = x.shape
+    dev = x.device
+    p = x.index_select(0, index_on("replicate", h, 1, dev)).index_select(
+        1, index_on("replicate", w, 1, dev))
+
+    def c(dy, dx):
+        return p[1 + dy: 1 + dy + h, 1 + dx: 1 + dx + w]
+
+    dxx = c(0, 1) - 2.0 * x + c(0, -1)
+    dyy = c(1, 0) - 2.0 * x + c(-1, 0)
+    dxy = 0.25 * (c(1, 1) - c(1, -1) - c(-1, 1) + c(-1, -1))
+    return dxx * dyy - dxy * dxy
+
+
+@entry
+def dog_response(gray: torch.Tensor, sigma1: float = 1.0, sigma2: float = 1.6,
+                 ksize: int = 9) -> torch.Tensor:
+    """Difference of Gaussians, the wider blur minus the narrower."""
+    x = gray.to(torch.float32)[..., None]
+    k1 = gaussian_kernel1d(ksize, sigma1)
+    k2 = gaussian_kernel1d(ksize, sigma2)
+    return (_conv_sep(x, k2, k2) - _conv_sep(x, k1, k1))[..., 0]
 
 
 def harris_at(gray: torch.Tensor, xy: torch.Tensor, k: float = 0.04,

@@ -1,10 +1,22 @@
 // FAST-9 score + threshold + 3-px border kill + 3x3 NMS, and the dense
 // Harris map (central gradients, 5-tap Gaussian window), in one pass over
-// every level of an image pyramid: one launch per frame.
+// every level of an image pyramid: one launch per frame (kt_fast_harris).
+// The same kernel, without its Harris phases, is the score-only entry
+// kt_fast_score: one level, the NMS optional, an optional f32 ROI mask.
 //
-// Replaces: kornia_tpu/ops/pallas_kernels.py::fast_score_pallas
-//   (nms=True, harris=True), called once per pyramid level by ORB
-//   (kornia_tpu/features/orb.py:458).
+// Replaces: kornia_tpu/ops/pallas_kernels.py::fast_score_pallas in every
+//   compiled form the JAX package reaches: (nms=True, harris=True), called
+//   once per pyramid level by ORB (kornia_tpu/features/orb.py:458), and
+//   (nms, border_mask, harris=False), reached through features/fast.py's
+//   _score_dispatch, _score_nms_dispatch, fast_detect and _two_tier_select.
+//
+// Mask contract (kt_fast_score): the XLA path's (fast.py:158-162), not the
+//   Pallas path's: the score keeps the threshold and the 3-px border kill
+//   and is then multiplied by the mask, before the NMS, so the result is
+//   bit-equal to nms_maxpool(fast_score(img, thr) * mask) (or the product
+//   alone without the NMS) for any finite mask. Outside the image the
+//   pool reads -inf, as max_pool2d's padding does, so a negative mask
+//   value pools as it does there.
 //
 // Contract: bit-equal, on every level, to the plain PyTorch composition
 //   nms_maxpool(fast_score(img, thr)) and
@@ -78,6 +90,7 @@ constexpr int MAX_LEVELS = 16;
 
 struct Level {
   const uint8_t* img;
+  const float* mask;            // (h, w) ROI multiplier, or null
   long long out_off;            // first element of the level in the outputs
   int h, w;
   int first_block;              // first block of the level in the grid
@@ -164,6 +177,9 @@ __device__ __forceinline__ float harris(const float s[3], float harris_k) {
   return __fsub_rn(det, __fmul_rn(__fmul_rn(harris_k, tr), tr));
 }
 
+// HARRIS: also the Harris map (phases 3-4 and its half of phase 5);
+// NMS: the 3x3 pool of the score, else the masked score as it is
+template <bool HARRIS, bool NMS>
 __global__ void __launch_bounds__(NTHR)
 fast_harris_kernel(const LevelTable tab, float* __restrict__ score_all,
                    float* __restrict__ harris_all, float threshold,
@@ -171,8 +187,9 @@ fast_harris_kernel(const LevelTable tab, float* __restrict__ score_all,
                    float harris_k) {
   __shared__ int s_img[IH][IW];
   __shared__ __align__(16) float s_score[SH][SW];
-  __shared__ float s_p[3][PH][PW];
-  __shared__ __align__(16) float s_v[3][TH][PW];
+  // the Harris buffers take no shared memory in the score-only forms
+  __shared__ float s_p[HARRIS ? 3 : 1][HARRIS ? PH : 1][PW];
+  __shared__ __align__(16) float s_v[HARRIS ? 3 : 1][HARRIS ? TH : 1][PW];
 
   const int tid = threadIdx.x;
   // the block's level: the last one whose first block is <= blockIdx.x;
@@ -187,8 +204,10 @@ fast_harris_kernel(const LevelTable tab, float* __restrict__ score_all,
   const int local = (int)blockIdx.x - lv.first_block;
   const int y0 = (local / lv.tiles_x) * TH;
   const int x0 = (local % lv.tiles_x) * TW;
+  const float* __restrict__ mask = lv.mask;
   float* __restrict__ score_out = score_all + lv.out_off;
-  float* __restrict__ harris_out = harris_all + lv.out_off;
+  float* __restrict__ harris_out = HARRIS ? harris_all + lv.out_off
+                                          : nullptr;
   const bool inner = x0 >= HALO && y0 >= HALO && x0 + TW + HALO <= w &&
                      y0 + TH + HALO <= h;
 
@@ -211,20 +230,26 @@ fast_harris_kernel(const LevelTable tab, float* __restrict__ score_all,
   }
   __syncthreads();
 
-  // 2. FAST on the tile + 1-px ring (0 outside the image: scores are >= 0
-  //    there, so 0 and the reference's -inf pool padding agree)
+  // 2. FAST on the tile + 1-px ring: 0 on the 3-px border, times the
+  //    mask where there is one, -inf outside the image (the pool padding)
   for (int i = tid; i < SH * SW; i += NTHR) {
     int r = i / SW, c = i - r * SW;
     int gy = y0 - 1 + r, gx = x0 - 1 + c;
-    s_score[r][c] = (gy >= 3 && gy < h - 3 && gx >= 3 && gx < w - 3)
-                        ? fast_score(s_img, r + HALO - 1, c + HALO - 1,
-                                     threshold)
-                        : 0.0f;
+    float v = -INFINITY;
+    if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
+      v = (gy >= 3 && gy < h - 3 && gx >= 3 && gx < w - 3)
+              ? fast_score(s_img, r + HALO - 1, c + HALO - 1, threshold)
+              : 0.0f;
+      if (mask != nullptr) v = __fmul_rn(v, mask[(size_t)gy * w + gx]);
+    }
+    s_score[r][c] = v;
   }
+  if (!HARRIS) __syncthreads();
 
   // 3. gradient products on the tile + 2-px ring; position (r, c) holds
   //    the product at image pixel reflect101(y0-2+r), reflect101(x0-2+c),
   //    with central gradients over edge-clamped neighbours
+  if constexpr (HARRIS) {
   if (inner) {
     for (int i = tid; i < PH * PW; i += NTHR) {
       int r = i / PW, c = i - r * PW;
@@ -273,6 +298,7 @@ fast_harris_kernel(const LevelTable tab, float* __restrict__ score_all,
                                   p[j + 4], k0, k1, k2, k3, k4);
   }
   __syncthreads();
+  }  // HARRIS
 
   // 5. horizontal pass + Harris, and the 3x3 NMS of the score: a thread
   //    takes two neighbouring outputs from 8-byte shared loads
@@ -280,32 +306,38 @@ fast_harris_kernel(const LevelTable tab, float* __restrict__ score_all,
     int r = i / (TW / 2), c = (i - r * (TW / 2)) * 2;
     int gy = y0 + r, gx = x0 + c;
     if (gy >= h || gx >= w) continue;
-    float s0[3], s1[3];
-#pragma unroll
-    for (int m = 0; m < 3; ++m) {
-      const float2 a = *reinterpret_cast<const float2*>(&s_v[m][r][c]);
-      const float2 b = *reinterpret_cast<const float2*>(&s_v[m][r][c + 2]);
-      const float2 d = *reinterpret_cast<const float2*>(&s_v[m][r][c + 4]);
-      s0[m] = window5(a.x, a.y, b.x, b.y, d.x, k0, k1, k2, k3, k4);
-      s1[m] = window5(a.y, b.x, b.y, d.x, d.y, k0, k1, k2, k3, k4);
-    }
-    // 3x3 max of the score (exact, so in any order) around both outputs
-    float p0 = -INFINITY, p1 = -INFINITY;
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-      const float2 a = *reinterpret_cast<const float2*>(&s_score[r + dy][c]);
-      const float2 b = *reinterpret_cast<const float2*>(&s_score[r + dy][c + 2]);
-      p0 = fmaxf(p0, fmaxf(fmaxf(a.x, a.y), b.x));
-      p1 = fmaxf(p1, fmaxf(fmaxf(a.y, b.x), b.y));
-    }
     const size_t o = (size_t)gy * w + gx;
+    if constexpr (HARRIS) {
+      float s0[3], s1[3];
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const float2 a = *reinterpret_cast<const float2*>(&s_v[m][r][c]);
+        const float2 b = *reinterpret_cast<const float2*>(&s_v[m][r][c + 2]);
+        const float2 d = *reinterpret_cast<const float2*>(&s_v[m][r][c + 4]);
+        s0[m] = window5(a.x, a.y, b.x, b.y, d.x, k0, k1, k2, k3, k4);
+        s1[m] = window5(a.y, b.x, b.y, d.x, d.y, k0, k1, k2, k3, k4);
+      }
+      harris_out[o] = harris(s0, harris_k);
+      if (gx + 1 < w) harris_out[o + 1] = harris(s1, harris_k);
+    }
     const float sc0 = s_score[r + 1][c + 1];
-    harris_out[o] = harris(s0, harris_k);
-    score_out[o] = sc0 >= p0 ? sc0 : 0.0f;
-    if (gx + 1 < w) {
-      const float sc1 = s_score[r + 1][c + 2];
-      harris_out[o + 1] = harris(s1, harris_k);
-      score_out[o + 1] = sc1 >= p1 ? sc1 : 0.0f;
+    const float sc1 = s_score[r + 1][c + 2];
+    if constexpr (NMS) {
+      // 3x3 max of the score (exact, so in any order) around both outputs
+      float p0 = -INFINITY, p1 = -INFINITY;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const float2 a = *reinterpret_cast<const float2*>(&s_score[r + dy][c]);
+        const float2 b =
+            *reinterpret_cast<const float2*>(&s_score[r + dy][c + 2]);
+        p0 = fmaxf(p0, fmaxf(fmaxf(a.x, a.y), b.x));
+        p1 = fmaxf(p1, fmaxf(fmaxf(a.y, b.x), b.y));
+      }
+      score_out[o] = sc0 >= p0 ? sc0 : 0.0f;
+      if (gx + 1 < w) score_out[o + 1] = sc1 >= p1 ? sc1 : 0.0f;
+    } else {
+      score_out[o] = sc0;
+      if (gx + 1 < w) score_out[o + 1] = sc1;
     }
   }
 }
@@ -328,6 +360,7 @@ extern "C" int kt_fast_harris(int n, const void* const* imgs, const int* hs,
   for (int i = 0; i < n; ++i) {
     Level& L = tab.lv[i];
     L.img = (const uint8_t*)imgs[i];
+    L.mask = nullptr;
     L.h = hs[i];
     L.w = ws[i];
     L.out_off = off;
@@ -338,8 +371,39 @@ extern "C" int kt_fast_harris(int n, const void* const* imgs, const int* hs,
   }
   tab.n = n;
   if (blocks == 0) return 0;
-  fast_harris_kernel<<<blocks, NTHR, 0, (cudaStream_t)stream>>>(
+  fast_harris_kernel<true, true><<<blocks, NTHR, 0, (cudaStream_t)stream>>>(
       tab, (float*)score_out, (float*)harris_out, threshold, window5[0],
       window5[1], window5[2], window5[3], window5[4], harris_k);
+  return (int)cudaGetLastError();
+}
+
+// The score-only forms on one (h, w) u8 image: the thresholded,
+// border-killed FAST-9 score, times the (h, w) f32 mask unless mask is
+// null, then the 3x3 NMS if nms != 0, into the (h, w) f32 score_out.
+// Returns a cudaError_t; launches nothing for an empty image.
+extern "C" int kt_fast_score(const void* img, int h, int w, const void* mask,
+                             void* score_out, float threshold, int nms,
+                             void* stream) {
+  if (h <= 0 || w <= 0) return 0;
+  LevelTable tab = {};
+  Level& L = tab.lv[0];
+  L.img = (const uint8_t*)img;
+  L.mask = (const float*)mask;
+  L.h = h;
+  L.w = w;
+  L.out_off = 0;
+  L.first_block = 0;
+  L.tiles_x = (w + TW - 1) / TW;
+  tab.n = 1;
+  const int blocks = L.tiles_x * ((h + TH - 1) / TH);
+  if (nms)
+    fast_harris_kernel<false, true><<<blocks, NTHR, 0, (cudaStream_t)stream>>>(
+        tab, (float*)score_out, nullptr, threshold, 0.f, 0.f, 0.f, 0.f, 0.f,
+        0.f);
+  else
+    fast_harris_kernel<false, false>
+        <<<blocks, NTHR, 0, (cudaStream_t)stream>>>(
+            tab, (float*)score_out, nullptr, threshold, 0.f, 0.f, 0.f, 0.f,
+            0.f, 0.f);
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,9 @@ wrapper         replaces                                    source
 fast_harris_    pallas_kernels.py::fast_score_pallas        fast_harris.cu
 levels,         (nms=True, harris=True): up to 16 levels
 fast_harris     of a pyramid in one launch, or one level
+fast_score      the same kernel's score-only forms          fast_harris.cu
+                (harris=False; nms on or off; border_mask
+                under the XLA path's contract), one level
 windows_paired  pallas_kernels.py::                         windows_paired.cu
                 extract_windows_prepared_paired
 brief_sample    pallas_kernels.py::brief_sample_pallas      brief_sample.cu
@@ -59,7 +62,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from kornia_tpu_torch.features.fast import fast_score, nms_maxpool
+from kornia_tpu_torch.features import fast as _fast
 from kornia_tpu_torch.features.responses import harris_response
 from kornia_tpu_torch.ops.filters import gaussian_kernel1d
 from kornia_tpu_torch.ops.resize import _resize_matrix
@@ -74,7 +77,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 # C entry points of a library beside ``kt_<library>``
-_EXTRA_ENTRIES = {"brief_sample": ("brief_rotated",), "shear_x": ("shear_y",)}
+_EXTRA_ENTRIES = {"fast_harris": ("fast_score",),
+                  "brief_sample": ("brief_rotated",), "shear_x": ("shear_y",)}
 KERNELS = SOURCES + tuple(e for v in _EXTRA_ENTRIES.values() for e in v)
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -140,6 +144,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> Dict[str, object]:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
         "fast_harris": [i, p, p, p, p, p, f, ctypes.POINTER(f), f, p],
+        "fast_score": [p, i, i, p, p, f, i, p],
         "windows_paired": [p, p, p, i, i, i, i, i, i, p],
         "brief_sample": [p, p, p, p, i, i, i, i, p],
         "brief_rotated": [p, p, p, p, p, i, i, i, p],
@@ -218,7 +223,7 @@ def _fast_harris_plain(img: torch.Tensor, threshold: float):
     """``nms_maxpool(fast_score(img, threshold))`` and the central-gradient
     Harris map, as the CPU reference runs them (fast.py:159-162,
     orb.py:465)."""
-    score = nms_maxpool(fast_score(img, threshold, 9))
+    score = _fast.nms_maxpool(_fast.fast_score(img, threshold, 9))
     hmap = harris_response(img.to(torch.float32), k=_HARRIS_K, block_size=5,
                            sigma=1.0, grad="central")
     return score, hmap
@@ -301,6 +306,41 @@ def fast_harris(img: torch.Tensor, threshold: float
     """(H, W) u8 → (NMS'd FAST-9 score, Harris map), both (H, W) f32: the
     one-level call of :func:`fast_harris_levels`."""
     return fast_harris_levels([img], threshold)[0]
+
+
+def _fast_score_plain(img: torch.Tensor, threshold: float, nms: bool = True,
+                      mask: torch.Tensor | None = None) -> torch.Tensor:
+    """``fast_score``, times ``mask`` where given, then ``nms_maxpool``
+    where ``nms`` is set: the XLA composition of fast.py:158-162."""
+    score = _fast.fast_score(img, threshold, 9)
+    if mask is not None:
+        score = score * mask
+    return _fast.nms_maxpool(score) if nms else score
+
+
+def fast_score(img: torch.Tensor, threshold: float, nms: bool = True,
+               mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(H, W) u8 → (H, W) f32: the thresholded FAST-9 score, 0 on the
+    3-px border, times the (H, W) f32 ROI ``mask`` where given, then 3×3
+    non-maximum suppression where ``nms`` is set. K1 without its Harris
+    phases, one launch; the plain version on a CPU tensor."""
+    if img.is_cpu:
+        return _fast_score_plain(img, threshold, nms, mask)
+    _check(img, "fast_score image", torch.uint8, 2)
+    if mask is not None:
+        _check(mask, "fast_score mask", torch.float32, 2)
+        if mask.shape != img.shape or mask.get_device() != img.get_device():
+            raise ValueError(f"fast_score: mask {tuple(mask.shape)} on "
+                             f"{mask.device} must be the image's "
+                             f"{tuple(img.shape)} on {img.device}")
+    h, w = img.shape
+    out = torch.empty((h, w), dtype=torch.float32, device=img.device)
+    if out.numel():
+        rc = _kernel("fast_harris", "fast_score")(
+            img.data_ptr(), h, w, 0 if mask is None else mask.data_ptr(),
+            out.data_ptr(), float(threshold), int(bool(nms)), _stream(img))
+        _launched("fast_score", rc)
+    return out
 
 
 # --------------------------------------------------------------------------

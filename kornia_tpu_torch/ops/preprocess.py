@@ -6,7 +6,10 @@ The resize + normalise + HWC→CHW core is one kernel,
 JAX package's one-program kernel, not the bf16 passes of its two-einsum
 path, which it stays within one u8 LSB of). Letterboxing resizes to the
 fitted size through the same kernel and places the result on the normalised
-pad canvas. Only ``interp="bilinear"`` is ported.
+pad canvas. The other ``interp`` modes (nearest, bicubic, lanczos, area)
+take the reference's dense route (preprocess.py:75-95): two float32
+band-matrix products (``ops/resize``'s matrices), then ``/255`` and the
+normalisation, where the reference runs two bf16 passes.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import torch
 from kornia_tpu_torch import resolve_device, to_device
 from kornia_tpu_torch.ops import cuda_kernels as ck
 from kornia_tpu_torch.ops import yuv as _yuv
+from kornia_tpu_torch.ops.filters import const_on
+from kornia_tpu_torch.ops.resize import matrix_on
 
 
 class ResizeMode(enum.Enum):
@@ -50,9 +55,6 @@ def resize_normalize_to_tensor(rgb_u8, cfg: PreprocessorConfig,
                                device="cuda") -> torch.Tensor:
     """(H, W, 3) u8 (numpy or tensor) → (1, 3, out_h, out_w) f32 on
     ``device``."""
-    if cfg.interp != "bilinear":
-        raise NotImplementedError(
-            f"interp={cfg.interp!r}: only 'bilinear' is ported")
     dev = resolve_device(device)
     rgb = to_device(rgb_u8, dev, torch.uint8).contiguous()
     out_h, out_w = cfg.out_size
@@ -69,7 +71,11 @@ def resize_normalize_to_tensor(rgb_u8, cfg: PreprocessorConfig,
     mean_std = cfg.normalize is NormalizeMode.MEAN_STD
     mean = tuple(cfg.mean) if mean_std else (0.0, 0.0, 0.0)
     std = tuple(cfg.std) if mean_std else (1.0, 1.0, 1.0)
-    t = ck.fused_preprocess(rgb, rh, rw, mean, std)          # (3, rh, rw)
+    if cfg.interp == "bilinear":
+        t = ck.fused_preprocess(rgb, rh, rw, mean, std)      # (3, rh, rw)
+    else:
+        t = _dense_resize_normalize(rgb, rh, rw, cfg.interp, mean, std,
+                                    mean_std)
     if cfg.bgr_output:
         t = t.flip(0)
 
@@ -77,14 +83,28 @@ def resize_normalize_to_tensor(rgb_u8, cfg: PreprocessorConfig,
         canvas = torch.full((3, out_h, out_w), cfg.pad_value,
                             dtype=torch.float32, device=dev)
         if mean_std:
-            mean_c = torch.tensor(mean, dtype=torch.float32,
-                                  device=dev)[:, None, None]
-            std_c = torch.tensor(std, dtype=torch.float32,
-                                 device=dev)[:, None, None]
-            canvas = (canvas - mean_c) / std_c
+            canvas = ((canvas - const_on(mean, dev)[:, None, None])
+                      / const_on(std, dev)[:, None, None])
         canvas[:, pad_top: pad_top + rh, pad_left: pad_left + rw] = t
         t = canvas
     return t[None]
+
+
+def _dense_resize_normalize(rgb: torch.Tensor, rh: int, rw: int, interp: str,
+                            mean, std, mean_std: bool) -> torch.Tensor:
+    """(H, W, 3) u8 → (3, rh, rw) f32 by the two dense products of
+    ``interp``'s matrices, rows then columns, then ``·(1/255)`` and the
+    normalisation, in the reference's order."""
+    h, w, _ = rgb.shape
+    dev = rgb.device
+    wy = matrix_on(h, rh, interp, False, dev)
+    wx = matrix_on(w, rw, interp, False, dev)
+    src = rgb.permute(2, 0, 1).to(torch.float32)               # (3, H, W)
+    t = torch.matmul(torch.matmul(wy, src), wx.T) * (1.0 / 255.0)
+    if mean_std:
+        t = ((t - const_on(mean, dev)[:, None, None])
+             / const_on(std, dev)[:, None, None])
+    return t
 
 
 def preprocess_nv12(y_plane, uv_plane, cfg: PreprocessorConfig,

@@ -1,8 +1,8 @@
 """Image pyramids (port of kornia_tpu/ops/pyramid.py: the cv2 5-tap
 binomial ``pyrdown`` / ``pyrup`` and ``gaussian_pyramid``).
 
-Images are (H, W) or (..., H, W, C). ``scale_pyramid`` is not ported yet;
-ORB builds its own levels (features/orb._pyramid).
+Images are (H, W) or (..., H, W, C); ``scale_pyramid``, ORB's geometric
+pyramid, is an entry point with ``device=``.
 """
 
 from __future__ import annotations
@@ -12,15 +12,12 @@ from typing import List
 import numpy as np
 import torch
 
-from kornia_tpu_torch.ops.filters import _conv_sep, _finalize
+from kornia_tpu_torch import entry
+from kornia_tpu_torch.ops.filters import (_conv_sep, _finalize,
+                                          _with_channels)
+from kornia_tpu_torch.ops.resize import resize
 
 _PYR_K = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
-
-
-def _with_channels(img: torch.Tensor):
-    if img.ndim == 2:
-        return img[..., None], True
-    return img, False
 
 
 def pyrdown(img: torch.Tensor) -> torch.Tensor:
@@ -49,3 +46,19 @@ def gaussian_pyramid(img: torch.Tensor, levels: int) -> List[torch.Tensor]:
     for _ in range(levels - 1):
         out.append(pyrdown(out[-1]))
     return out
+
+
+@entry
+def scale_pyramid(img: torch.Tensor, n_levels: int,
+                  scale_factor: float = 1.2) -> List[torch.Tensor]:
+    """ORB-style geometric pyramid: level i is round(dim / scale_factor^i),
+    bilinear, each level resized from the one before it (ORB-SLAM3's
+    chain), not from level 0."""
+    ay = -3 if img.ndim >= 3 else -2
+    h, w = img.shape[ay], img.shape[ay + 1]
+    levels = [img]
+    for i in range(1, n_levels):
+        s = scale_factor ** i
+        levels.append(resize(levels[-1], (int(round(h / s)),
+                                          int(round(w / s)))))
+    return levels

@@ -542,7 +542,8 @@ def test_cuda_slice3_entry_points_launch_kernels(cuda_dev):
     assert n == {"fast_harris": 1, "windows": 2, "brief_rotated": 1}
     assert odd.descriptors.shape == (201, 256)
     _, n = run(lambda: orb.orb_detect_and_describe_quadtree(gray, cfg))
-    assert n == {"windows": 6, "brief_rotated": 3}
+    # the quadtree's per-level detection runs K1's score-only entry
+    assert n == {"fast_score": 3, "windows": 6, "brief_rotated": 3}
     xy = torch.round(paired.xy[paired.octave == 0]).to(torch.int32)
     _, n = run(lambda: responses.harris_at_windows(
         torch.as_tensor(gray, device=cuda_dev).float(), xy))
@@ -1010,3 +1011,103 @@ def test_cuda_slam_frame_loop(cuda_dev):
     assert [kf.frame_idx for kf in system.map.keyframes][:2] == [0, 1]
     assert len(system.map.keyframes) >= 3
     assert cs.slam_ate(system, centres, cuda_dev) < 0.05
+
+
+def _textured_u8(seed, shape):
+    """Blocky noise (4-px cells) plus pixel noise: many FAST corners."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    base = rng.integers(0, 256, (h // 4 + 1, w // 4 + 1)).astype(np.float32)
+    up = np.kron(base, np.ones((4, 4)))[:h, :w]
+    return np.clip(up + rng.normal(0, 6, up.shape), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(480, 752), (1080, 1920)])
+@pytest.mark.parametrize("nms", [True, False], ids=["nms", "no-nms"])
+@pytest.mark.parametrize("mask", [None, "random", "ones-on-border",
+                                  "gaussian"])
+def test_cuda_fast_score_bit_equal(cuda_dev, shape, nms, mask):
+    """K1's score-only forms (no Harris; NMS on or off; an ROI mask under
+    the XLA contract: border kill kept, mask before the NMS) bit-equal to
+    the plain version, one launch each on the fast_score counter. The
+    Gaussian mask has negative values, which pool against the −inf of
+    the out-of-image cells as ``max_pool2d``'s padding does."""
+    img = convert.tensor(_textured_u8(40, shape), cuda_dev)
+    m = None
+    if mask == "random":
+        m = convert.tensor(np.random.default_rng(41).integers(
+            0, 2, shape).astype(np.float32), cuda_dev)
+    elif mask == "ones-on-border":
+        m = torch.ones(shape, device=cuda_dev)
+    elif mask == "gaussian":
+        m = convert.tensor(np.random.default_rng(45).normal(
+            size=shape).astype(np.float32), cuda_dev)
+    ck.reset_launch_counts()
+    got = ck.fast_score(img, 20.0, nms=nms, mask=m)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["fast_score"] == 1 and ck.LAUNCHES["fast_harris"] == 0
+    assert torch.equal(got, ck._fast_score_plain(img, 20.0, nms, m))
+    assert int((got > 0).sum()) > 100
+
+
+@pytest.mark.cuda
+def test_cuda_fast_score_rejects_bad_input(cuda_dev):
+    img = convert.tensor(_img(42, (40, 50)), cuda_dev)
+    with pytest.raises(ValueError, match="uint8"):
+        ck.fast_score(img.float(), 10.0)
+    with pytest.raises(ValueError, match="mask"):
+        ck.fast_score(img, 10.0, mask=torch.ones((40, 49), device=cuda_dev))
+    with pytest.raises(ValueError, match="float32"):
+        ck.fast_score(img, 10.0, mask=torch.ones((40, 50), device=cuda_dev,
+                                                 dtype=torch.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_levels,launches", [(8, 1), (16, 1), (17, 2)])
+def test_cuda_fast_harris_levels_unchanged_by_the_score_modes(
+        cuda_dev, n_levels, launches):
+    """ORB's K1 still launches once per 16 levels with outputs equal to the
+    plain version, and the score-only counter stays at 0."""
+    rng = np.random.default_rng(43)
+    levels = [convert.tensor(rng.integers(0, 256, (60 - 2 * i, 80 - 3 * i))
+                             .astype(np.uint8), cuda_dev)
+              for i in range(n_levels)]
+    ck.reset_launch_counts()
+    got = ck.fast_harris_levels(levels, 7.0)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["fast_harris"] == launches
+    assert ck.LAUNCHES["fast_score"] == 0
+    for (s_k, h_k), lv in zip(got, levels):
+        s_p, h_p = ck._fast_harris_plain(lv, 7.0)
+        assert torch.equal(s_k, s_p) and torch.equal(h_k, h_p)
+
+
+@pytest.mark.cuda
+def test_cuda_fast_detect_waits_for_nothing_and_equals_cpu_route(cuda_dev):
+    """fast_detect with and without the NMS and with an ROI mask: one K1
+    score-only launch each, no host synchronisation, keypoints equal to the
+    CPU route's."""
+    from kornia_tpu_torch.features import fast
+
+    gray = _textured_u8(44, (480, 752))
+    mask = np.zeros(gray.shape, np.float32)
+    mask[:, : int(0.6 * gray.shape[1])] = 1.0
+    g = convert.tensor(gray, cuda_dev)
+    m = convert.tensor(mask, cuda_dev)
+    for kw in (dict(), dict(border_mask=m), dict(nms=False)):
+        fast.fast_detect(g, 20.0, 2048, device="cuda", **kw)     # warm-up
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fast.fast_detect(g, 20.0, 2048, device="cuda", **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["fast_score"] == 1
+        kw_cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                  for k, v in kw.items()}
+        want = fast.fast_detect(gray, 20.0, 2048, device="cpu", **kw_cpu)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)

@@ -667,10 +667,11 @@ def test_new_wrappers_count_no_cpu_launch():
     ck.lane_gather(torch.zeros(6, 128), torch.zeros(2, 128,
                                                     dtype=torch.int32))
     ck.fused_preprocess(tensor(_img(30, (20, 30, 3))), 8, 8)
+    ck.fast_score(tensor(_img(31, (20, 30))), 10.0, nms=False)
     assert all(v == 0 for v in ck.LAUNCHES.values())
     assert len(ck.SOURCES) == 9
     assert set(ck.LAUNCHES) == set(ck.KERNELS) == set(ck.SOURCES) | {
-        "brief_rotated", "shear_y"}
+        "fast_score", "brief_rotated", "shear_y"}
 
 
 # --------------------------------------------------------------------------

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from kornia_tpu.ops import pallas_kernels as pk
 from kornia_tpu.ops import preprocess as jpp
+from kornia_tpu.ops import resize as jres
 from kornia_tpu.ops import yuv as jyuv
 
 from kornia_tpu_torch import convert
@@ -94,11 +95,39 @@ def test_unit_scale_identity_size_is_x_over_255():
                                img.transpose(2, 0, 1) / 255.0, atol=1e-6)
 
 
-def test_other_interpolations_raise():
-    cfg = tpp.PreprocessorConfig(out_size=(8, 8), interp="bicubic")
-    with pytest.raises(NotImplementedError, match="bilinear"):
-        tpp.resize_normalize_to_tensor(_img(63, (16, 16, 3)), cfg,
-                                       device="cpu")
+@pytest.mark.parametrize("interp", ["bilinear", "bicubic", "lanczos",
+                                    "area"])
+def test_other_interpolations_match_the_dense_route(interp, record_property):
+    """Every ``_resize_matrix`` mode: bilinear through the fused kernel,
+    the others through the reference's dense route (two band products,
+    then the normalisation). Held to the JAX preprocess at this file's
+    corridor, atol 0.02, with unit scaling, where that is about 5 u8 LSB
+    (the reference's two bf16 passes are up to ~2.4 LSB from exact for
+    bicubic and lanczos); the mean/std letterbox, where 1 LSB is
+    0.02 normalised, against the same products in float64 at 1e-5."""
+    img = _img(63, (96, 128, 3))
+    for kw in (dict(out_size=(64, 64)), dict(out_size=(150, 200))):
+        cfg, tcfg = _cfgs(interp=interp, **kw)
+        want = np.asarray(jpp.resize_normalize_to_tensor(jnp.asarray(img),
+                                                         cfg))
+        got = tpp.resize_normalize_to_tensor(img, tcfg, device="cpu")
+        assert got.shape == want.shape
+        record_property(f"max_abs_err_{kw['out_size']}",
+                        float(np.abs(got.numpy() - want).max()))
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=0.02)
+    cfg, tcfg = _cfgs(out_size=(64, 48), interp=interp,
+                      resize_mode=jpp.ResizeMode.LETTERBOX,
+                      normalize=jpp.NormalizeMode.MEAN_STD, mean=MEAN,
+                      std=STD, bgr_output=True)
+    got = tpp.resize_normalize_to_tensor(img, tcfg, device="cpu")[0]
+    rh, rw, top = 36, 48, 14          # 96×128 fitted into 64×48, centred
+    wy = jres._resize_matrix(96, rh, interp, False).astype(np.float64)
+    wx = jres._resize_matrix(128, rw, interp, False).astype(np.float64)
+    exact = np.einsum("oh,hwc,pw->cop", wy, img.astype(np.float64), wx)
+    exact = ((exact / 255.0 - np.asarray(MEAN)[:, None, None])
+             / np.asarray(STD)[:, None, None])[::-1]
+    np.testing.assert_allclose(got.numpy()[:, top: top + rh, :], exact,
+                               rtol=0, atol=1e-5)
 
 
 def test_preprocess_nv12_and_rgb_from_nv12():
