@@ -179,6 +179,26 @@ Phases (any failure raises, so the script exits non-zero):
    no hand kernel launched, held to the CPU route on the same input
    (IMGPROC_TOL); one ``imgproc <function>`` line each with call and
    device ms, launches and the largest difference.
+17. geometry15b (the eleventh slice, run after imgproc): fast_detect on the
+   imgproc frame's 1080p gray at arc lengths 9, 10, 11 and 12, NMS on and
+   off, and n = 10 with the ROI mask: one K1 score-only launch each, K1
+   bit-equal to its plain version at the same n, keypoints equal to the CPU
+   route's; K1 timed per form beside its plain version and its bound (the
+   integer operations of the kernel's arc loop: 99 a pixel for n = 9, 131
+   for n = 10-16). ORB (OrbConfig()) on the two-plane 480×752 pair, match,
+   estimate_relative_pose(solver="5pt"): fast_harris 2, windows_paired 4,
+   brief_rotated 2 and no other kernel; rotation < 0.5°, direction < 3°
+   from the truth (the reference test's gates); call ms and launches of
+   the 5-point two-view. ICP on a seed-made 16,384-point scan and the same
+   scan moved by 1° and 5 cm (icp_scan), 30 iterations, under sync debug
+   mode "error", no hand kernel: within 0.01° and 1 mm of the truth; after
+   4 iterations the CPU route's rotation within 1e-4 of the card's. An AugmentationPipeline (flip,
+   jitter, blur, affine, erasing) over the 1080p frame and apply_batch over
+   4 such frames, under sync debug mode "error": K7 remap 1 launch an
+   image, the output equal to the call with the same draws replayed, and
+   within IMGPROC_TOL of the CPU route on those draws. warp_frame_depth at
+   480×752 with a seed-made depth map: K7 remap 1, the CPU route within
+   IMGPROC_TOL.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object with one entry per kernel; the last line is
@@ -200,12 +220,14 @@ import time
 import numpy as np
 import torch
 
-from kornia_tpu_torch import bow
+from kornia_tpu_torch import augmentations, bow
 from kornia_tpu_torch.features import matching, orb, responses
-from kornia_tpu_torch.geometry import camera, liegroup, pnp, stereo, twoview
+from kornia_tpu_torch.geometry import camera, icp, liegroup, pnp, stereo
+from kornia_tpu_torch.geometry import twoview
 from kornia_tpu_torch.geometry.ransac import sample_minimal_sets
 from kornia_tpu_torch.features import fast
-from kornia_tpu_torch.ops import bayer, canny, color, distance_transform, draw
+from kornia_tpu_torch.ops import bayer, canny, color, depth, distance_transform
+from kornia_tpu_torch.ops import draw
 from kornia_tpu_torch.ops import cuda_kernels as ck
 from kornia_tpu_torch.ops import enhance, filters, geometry_utils, histogram
 from kornia_tpu_torch.ops import interpolation, optical_flow, preprocess
@@ -2993,6 +3015,12 @@ IMGPROC_TOL = {
         "adaptive_threshold mean", "adaptive_threshold gaussian",
         "nv12_from_rgb")},
     "canny": ("share", 1e-3),
+    # the eleventh slice: jitter's means and hue and the affine matrix's
+    # cos/sin in float32 on each device; the depth warp's map from a
+    # float32 matmul
+    "augmentation pipeline": ("lsb", 1),
+    "augmentation apply_batch": ("lsb", 1),
+    "warp_frame_depth": ("lsb", 1),
 }
 
 
@@ -3358,6 +3386,317 @@ def phase_imgproc(card_line):
         + f"; CPU route {cpu_s:.1f} s; phase "
         f"{time.perf_counter() - t_phase:.1f} s [{card_line}]")
     return k1_cases, k1_launches
+
+
+# --------------------------------------------------------------------------
+# the eleventh slice: K1's FAST-n forms, 5-point two-view, ICP,
+# augmentations, the depth warp
+# --------------------------------------------------------------------------
+
+FAST_ARCS = (9, 10, 11, 12)
+ICP_POINTS = 16384
+ICP_DEG = 1.0
+ICP_SHIFT = np.array([0.05, 0.0, 0.0])    # 5 cm
+ICP_ITERS = 30
+ICP_CPU_ITERS = 4
+
+
+def fast_arc_int_ops(n: int) -> int:
+    """Integer operations a pixel of K1's FAST-n score (fast_harris.cu's
+    arc loop): 16 ring differences; per side one min/max instruction per
+    arc per level of arcs (0 levels for n = 1, 1 for 2-3, 2 for 4-9, 3 for
+    10-16) and 8 for the best of the 16 arcs; 3 for the score."""
+    n = ck.fast_arc(n)
+    levels = 0 if n == 1 else 1 if n <= 3 else 2 if n <= 9 else 3
+    return 16 + 2 * (16 * levels + 8) + 3
+
+
+def icp_scan(seed: int = SEED + 20, n: int = ICP_POINTS):
+    """A seed-made scan of ``n`` points (a floor and two walls of a room,
+    3-4 m across, with 1 cm bumps) and the same points moved by a known
+    rigid transform, 1 degree (three Euler angles along a tilted axis)
+    and 5 cm: the source is R⁻¹(target − t), so ICP must find (R, t).
+    Returns (source, target, R, t) in float32 / float64."""
+    rng = np.random.default_rng(seed)
+    k = n // 3
+    u = rng.uniform(0, 1, (n, 2))
+    pts = np.zeros((n, 3))
+    pts[:k] = np.c_[4 * u[:k, 0], 3 * u[:k, 1], np.zeros(k)]
+    pts[k:2 * k] = np.c_[4 * u[k:2 * k, 0], np.zeros(k), 2.5 * u[k:2 * k, 1]]
+    m = n - 2 * k
+    pts[2 * k:] = np.c_[np.zeros(m), 3 * u[2 * k:, 0], 2.5 * u[2 * k:, 1]]
+    pts += 0.01 * np.sin(7 * pts[:, [1, 2, 0]])
+    ax = np.array([0.3, -0.5, 0.8])
+    r = _rot_xyz(ICP_DEG * ax / np.linalg.norm(ax))
+    src = (pts - ICP_SHIFT) @ r
+    return (src.astype(np.float32), pts.astype(np.float32), r, ICP_SHIFT)
+
+
+def _fast_arc_cases(card_line, gray, gray_cpu, roi):
+    """fast_detect at arc lengths 9-12, NMS on and off, one with the ROI
+    mask: one K1 score-only launch each, K1 bit-equal to its plain version,
+    keypoints equal to the CPU route's; K1 timed for each form."""
+    hh, ww = gray.shape
+    px = hh * ww
+    cases, launches = [], 0
+    forms = [(n, nms, None) for n in FAST_ARCS for nms in (True, False)]
+    forms.append((10, True, roi))
+    for n, nms, mask in forms:
+        label = (f"n={n}, {'nms' if nms else 'no nms'}"
+                 + (", ROI mask" if mask is not None else "") + ", 1080p")
+
+        def call(n=n, nms=nms, mask=mask):
+            return fast.fast_detect(gray, FAST_THRESHOLD, FAST_MAX_KP, nms=nms,
+                                    arc_length=n, border_mask=mask,
+                                    device=DEV)
+
+        call()                                           # warm-up
+        kps, got = counted(call)
+        only(got, {"fast_score": 1})
+        launches += got["fast_score"]
+        score = ck.fast_score(gray, FAST_THRESHOLD, nms, mask, arc_length=n)
+        plain = ck._fast_score_plain(gray, FAST_THRESHOLD, nms, mask, n)
+        if not torch.equal(score, plain):
+            raise AssertionError(f"fast_detect {label}: K1 differs from its "
+                                 f"plain version by {max_err(score, plain)}")
+        want = fast.fast_detect(gray_cpu, FAST_THRESHOLD, FAST_MAX_KP,
+                                nms=nms, arc_length=n,
+                                border_mask=None if mask is None
+                                else mask.cpu(), device="cpu")
+        for name, a, b in zip(kps._fields, kps, want):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"fast_detect {label}: keypoint {name} "
+                                     "differs from the CPU route")
+        # FAST-12 finds few corners on the frame's 6-px blocks
+        n_kp = int(kps.mask.sum())
+        if n_kp < 1:
+            raise AssertionError(f"fast_detect {label}: no keypoint")
+        times = kernel_times(
+            lambda n=n, nms=nms, mask=mask: ck.fast_score(
+                gray, FAST_THRESHOLD, nms, mask, arc_length=n),
+            lambda n=n, nms=nms, mask=mask: ck._fast_score_plain(
+                gray, FAST_THRESHOLD, nms, mask, n))
+        nbytes = px * (1 + 4 + (4 if mask is not None else 0))
+        f32 = px * (1 + (1 if mask is not None else 0) + (9 if nms else 0))
+        int_ops = px * fast_arc_int_ops(n)
+        bms, by = bound(nbytes, int_ops, f32)
+        cases.append({"case": f"score-only, {label}", "launches": 1,
+                      "max_abs_err": 0.0, "arc_length": n,
+                      "int_ops_per_pixel": fast_arc_int_ops(n),
+                      "bound_ms": bms, "bound_by": by, **times})
+        log(f"fast_detect {label}: 1 K1 launch (fast_score), {n_kp} "
+            f"keypoints equal to the CPU route, K1 bit-equal to its plain "
+            f"version; time fast_score: {fmt_times(times)}, bound {bms:.5f} "
+            f"ms ({by}: {fast_arc_int_ops(n)} int32 ops a pixel) "
+            f"[{card_line}]")
+    return cases, launches
+
+
+def _five_point_pair(card_line):
+    """ORB (OrbConfig()) on the two-plane pair, match, and the 5-point
+    two-view; gated on the truth."""
+    img1, img2, r_gt, t_gt = render_scene()
+    cfg = orb.OrbConfig()
+    params = twoview.TwoViewParams(solver="5pt")
+
+    def pose(x1, x2, mk):
+        return twoview.estimate_relative_pose(
+            x1, x2, K_EUROC, K_EUROC, mask=mk, params=params,
+            generator=torch.Generator(device=DEV).manual_seed(SEED),
+            device=DEV)
+
+    def pair():
+        f1 = orb.orb_detect_and_describe(img1, cfg, device=DEV)
+        f2 = orb.orb_detect_and_describe(img2, cfg, device=DEV)
+        m = matching.match_descriptors(f1.descriptors, f2.descriptors,
+                                       a_mask=f1.mask, b_mask=f2.mask,
+                                       max_distance=64, ratio=0.8,
+                                       device=DEV)
+        x1, x2, mk = matching.matched_points(f1.xy, f2.xy, m)
+        return x1, x2, mk, pose(x1, x2, mk)
+
+    pair()                                               # warm-up
+    (x1, x2, mk, res), launches = counted(pair)
+    only(launches, {"fast_harris": 2, "windows_paired": 4,
+                    "brief_rotated": 2})
+    r_est = res.rotation.double().cpu().numpy()
+    t_est = res.translation.double().cpu().numpy()
+    if not (np.isfinite(r_est).all() and np.isfinite(t_est).all()):
+        raise AssertionError("5-point pose not finite")
+    rerr, terr = rot_err_deg(r_est, r_gt), dir_err_deg(t_est, t_gt)
+    n_inl = int(res.n_inliers)
+    if not (rerr < 0.5 and terr < 3.0):
+        raise AssertionError(f"5-point pose: rotation {rerr} deg, direction "
+                             f"{terr} deg (bounds 0.5, 3)")
+    call_ms = cuda_ms(lambda: pose(x1, x2, mk), reps=3, warmup=1)
+    prof = device_share("5-point estimate_relative_pose",
+                        lambda: pose(x1, x2, mk), card_line,
+                        cuda_only=True) or {}
+    log(f"twoview 5pt: matches {int(mk.sum())}, inliers {n_inl}, homography "
+        f"{bool(res.use_homography)}, rotation error {rerr:.4f} deg, "
+        f"direction error {terr:.4f} deg; estimate_relative_pose call "
+        f"{call_ms:.3f} ms (median of 3), {prof.get('launches')} launches, "
+        f"device busy {prof.get('busy_share')}; the pair's hand kernels "
+        f"{ {k: v for k, v in launches.items() if v} } [{card_line}]")
+    return {"rotation_deg": rerr, "direction_deg": terr, "inliers": n_inl,
+            "call_ms": call_ms, "launches": prof.get("launches")}
+
+
+def _icp_case(card_line):
+    """ICP at 16,384² on the card, gated on the truth and held to the CPU
+    route."""
+    src, dst, r_gt, t_gt = icp_scan()
+    params = icp.ICPParams(max_iterations=ICP_ITERS)
+    s_dev = torch.as_tensor(src, device=DEV)
+    d_dev = torch.as_tensor(dst, device=DEV)
+
+    def run():
+        return icp.icp_vanilla(s_dev, d_dev, params, device=DEV)
+
+    run()                                                # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    res, launches = counted(lambda: _no_wait(run))
+    only(launches, {})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    r = res.rotation.double().cpu().numpy()
+    t = res.translation.double().cpu().numpy()
+    rerr = np.degrees(chord_rad(r, r_gt))
+    terr = float(np.linalg.norm(t - t_gt))
+    if not (rerr < 0.01 and terr < 1e-3 and float(res.rmse) < 1e-3):
+        raise AssertionError(f"ICP: rotation {rerr} deg, translation {terr}, "
+                             f"rmse {float(res.rmse)} off the truth")
+    # card against the CPU route over the first ICP_CPU_ITERS iterations:
+    # each CPU iteration writes and reads four 1.07 GB matrices (~2 s on
+    # 8 CPU cores), so all 30 would take a minute
+    short = icp.ICPParams(max_iterations=ICP_CPU_ITERS)
+    r_short = icp.icp_vanilla(s_dev, d_dev, short, device=DEV).rotation
+    t0 = time.perf_counter()
+    cpu = icp.icp_vanilla(torch.as_tensor(src), torch.as_tensor(dst), short,
+                          device="cpu")
+    cpu_s = time.perf_counter() - t0
+    dr = float((r_short.cpu() - cpu.rotation).abs().max())
+    if dr > 1e-4:
+        raise AssertionError(f"ICP: card and CPU rotations differ by {dr}")
+    call_ms = cuda_ms(run, reps=3, warmup=0)
+    dev_ms = device_ms(run, reps=2, warmup=0, cuda_only=True)
+    log(f"icp {ICP_POINTS} x {ICP_POINTS}, {ICP_ITERS} iterations: rotation "
+        f"error {rerr:.5f} deg, translation error {terr:.2e}, rmse "
+        f"{float(res.rmse):.3e}; after {ICP_CPU_ITERS} iterations card vs "
+        f"CPU route rotation {dr:.2e} (CPU {cpu_s:.1f} s); call {call_ms:.3f} ms (median of 3), device "
+        f"{dev_ms:.3f} ms, peak device memory {peak:.2f} GiB, no hand "
+        f"kernel, no host sync [{card_line}]")
+    return {"call_ms": call_ms, "device_ms": dev_ms, "rotation_deg": rerr,
+            "card_vs_cpu": dr, "peak_gib": peak}
+
+
+def _aug_case(card_line, frame):
+    """The augmentation pipeline at 1080p (flip, jitter, blur, affine,
+    erasing) and apply_batch over 4: K7 once per image, held to the CPU
+    route on the same draws."""
+    augs = [augmentations.RandomHorizontalFlip(), augmentations.ColorJitter(),
+            augmentations.RandomGaussianBlur(p=1.0),
+            augmentations.RandomAffine(), augmentations.RandomErasing(p=1.0)]
+    pipe = augmentations.AugmentationPipeline(augs, seed=SEED, device=DEV)
+    cpu_pipe = augmentations.AugmentationPipeline(augs, seed=SEED,
+                                                  device="cpu")
+    img = torch.as_tensor(frame, device=DEV)
+    batch = torch.stack([img, img.flip(0), img.flip(1), img.roll(97, 1)])
+    pipe(img)                                            # warm-up
+    out = {}
+    for label, fn, n_img in (
+            ("pipeline", lambda: pipe(img), 1),
+            ("apply_batch", lambda: pipe.apply_batch(batch), 4)):
+        pipe.set_seed(SEED + 1)
+        got, launches = counted(lambda: _no_wait(fn))
+        only(launches, {"remap": n_img})
+        # the same draws again, taken from the generator in the call's order
+        pipe.set_seed(SEED + 1)
+        imgs = img[None] if n_img == 1 else batch
+        draws = [[a.draw(pipe._gen, imgs[i]) for a in augs]
+                 for i in range(n_img)]
+        again = (pipe(img, draws=draws[0]) if n_img == 1
+                 else pipe.apply_batch(batch, draws=draws))
+        if not torch.equal(again, got):
+            raise AssertionError(f"augmentation {label}: the replayed draws "
+                                 "give another image")
+        cpu_draws = [[{k: v.cpu() for k, v in d.items()} for d in per]
+                     for per in draws]
+        want = (cpu_pipe(img.cpu(), draws=cpu_draws[0]) if n_img == 1
+                else cpu_pipe.apply_batch(batch.cpu(), draws=cpu_draws))
+        err, kind = imgproc_err(f"augmentation {label}", got, want)
+        share = float(((got.cpu().int() - want.int()).abs() > 0)
+                      .double().mean())
+        call_ms = cuda_ms(fn, reps=5, warmup=1)
+        dev = {}
+        dev_ms = device_ms(fn, reps=3, warmup=0, cuda_only=True, out=dev)
+        out[label] = {"call_ms": call_ms, "device_ms": dev_ms,
+                      "remap_launches": launches["remap"],
+                      "launches": dev["launches"]}
+        log(f"augmentation {label} ({n_img} x 1080x1920x3 u8; flip, jitter, "
+            f"blur, affine, erasing): K7 remap {launches['remap']} (1 an "
+            f"image), no host sync; card vs CPU route on the same draws "
+            f"{err:.3g} ({kind}) on {share:.2e} of the values; call "
+            f"{call_ms:.3f} ms, device {dev_ms:.3f} ms, {dev['launches']} "
+            f"launches [{card_line}]")
+    return out
+
+
+def _depth_case(card_line):
+    """warp_frame_depth at 480×752: one K7 launch, held to the CPU
+    route."""
+    img = render_scene()[0]
+    yy, xx = np.mgrid[0:H, 0:W]
+    rng = np.random.default_rng(SEED + 21)
+    d = (3.0 + 0.8 * np.sin(xx / 60.0) + 0.5 * yy / H
+         + rng.normal(0, 0.005, (H, W))).astype(np.float32)
+    t44 = np.eye(4, dtype=np.float32)
+    t44[:3, :3] = _rot_xyz((0.5, -1.0, 0.3))
+    t44[:3, 3] = (0.05, -0.02, 0.01)
+    args = [torch.as_tensor(a, device=DEV) for a in (img, d, t44, K_EUROC)]
+
+    def run():
+        return depth.warp_frame_depth(*args, device=DEV)
+
+    run()                                                # warm-up
+    got, launches = counted(lambda: _no_wait(run))
+    only(launches, {"remap": 1})
+    want = depth.warp_frame_depth(img, d, t44, K_EUROC, device="cpu")
+    err, kind = imgproc_err("warp_frame_depth", got, want)
+    share = float(((got.cpu().int() - want.int()).abs() > 0).double().mean())
+    call_ms = cuda_ms(run)
+    dev = {}
+    dev_ms = device_ms(run, out=dev)
+    log(f"warp_frame_depth {H}x{W} u8: K7 remap 1, no host sync; card vs CPU "
+        f"route {err:.3g} ({kind}) on {share:.2e} of the pixels; call "
+        f"{call_ms:.4f} ms, device {dev_ms:.4f} ms, {dev['launches']} "
+        f"launches [{card_line}]")
+    return {"call_ms": call_ms, "device_ms": dev_ms}
+
+
+def phase_geometry15b(card_line):
+    """The eleventh slice (docstring 17). Returns K1's FAST-n cases and
+    their launches, and K7's launches on the new paths."""
+    t_phase = time.perf_counter()
+    frame = imgproc_frame()
+    hh, ww = HW_1080P
+    rgb = torch.as_tensor(frame, device=DEV)
+    gray = color.rgb_to_gray(rgb, device=DEV)[..., 0]
+    roi = torch.zeros((hh, ww), dtype=torch.float32, device=DEV)
+    roi[:, : int(ROI_SHARE * ww)] = 1.0
+    k1_cases, k1_launches = _fast_arc_cases(card_line, gray, gray.cpu(), roi)
+    summary = {"twoview_5pt": _five_point_pair(card_line),
+               "icp": _icp_case(card_line)}
+    augs = _aug_case(card_line, frame)
+    summary["augmentations"] = augs
+    summary["warp_frame_depth"] = _depth_case(card_line)
+    k7_paths = {"augmentation pipeline": augs["pipeline"]["remap_launches"],
+                "augmentation apply_batch":
+                    augs["apply_batch"]["remap_launches"],
+                "warp_frame_depth": 1}
+    log(f"geometry15b: {json.dumps(summary)}")
+    log(f"geometry15b phase: {time.perf_counter() - t_phase:.1f} s "
+        f"[{card_line}]")
+    return k1_cases, k1_launches, k7_paths
 
 
 def main():
@@ -3818,6 +4157,10 @@ def main():
     k6 = phase_preprocess(card_line)
     # 16. the tenth slice: the FAST detector path and the dense chain
     k1_cases, k1_fast_detect = phase_imgproc(card_line)
+    # 17. the eleventh slice: FAST-n, 5-point, ICP, augmentations, depth
+    k1_arc_cases, k1_arc_launches, k7_new = phase_geometry15b(card_line)
+    k7["paths"].update(k7_new)
+    k7["launches"] = sum(k7["paths"].values())
 
     # 13. the tracking step (the seventh slice)
     track_launches, track_errs = phase_track(card_line)
@@ -3838,7 +4181,8 @@ def main():
     k1 = rows_out[0]
     k1["launches_by_path"]["fast_detect (score-only entry)"] = \
         k1_fast_detect
-    k1["cases"] = k1_cases
+    k1["launches_by_path"]["fast_detect arc lengths 9-12"] = k1_arc_launches
+    k1["cases"] = k1_cases + k1_arc_cases
     host = phase_host(card_line, parent)
     for c in k5["cases"]:
         c["host_us_turns"] = host["lane_gather" + (

@@ -67,3 +67,31 @@ def entry(fn):
                   **{k: _moved(v, dev) for k, v in kwargs.items()})
 
     return on_device
+
+
+# The subpackages, in kornia_tpu/__init__.py's order, restricted to what is
+# ported (io, apriltag, parallel and models are not yet). They import
+# ``entry`` and ``resolve_device`` from here, so they come after them.
+# Nothing here builds a kernel: that happens at a kernel's first launch.
+from kornia_tpu_torch import image  # noqa: E402
+from kornia_tpu_torch import ops  # noqa: E402
+from kornia_tpu_torch import features  # noqa: E402
+from kornia_tpu_torch import geometry  # noqa: E402
+from kornia_tpu_torch import optim  # noqa: E402
+from kornia_tpu_torch import utils  # noqa: E402
+from kornia_tpu_torch import augmentations  # noqa: E402
+from kornia_tpu_torch import bow  # noqa: E402
+from kornia_tpu_torch import slam  # noqa: E402
+
+__all__ = [
+    "image",
+    "ops",
+    "features",
+    "geometry",
+    "optim",
+    "utils",
+    "augmentations",
+    "bow",
+    "slam",
+    "__version__",
+]

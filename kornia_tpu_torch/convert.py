@@ -1,10 +1,12 @@
 """Carry state from the JAX package into the port.
 
 There are no learned weights on the ported paths. The state is the
-configurations (ORB, two-view, LK, preprocessor, SLAM, BA, PGO), the
-stereo calibration, BA problems, bag-of-words vocabularies, SLAM maps and,
-for
-stage-by-stage comparison, the reference's intermediate arrays. They
+configurations (ORB, two-view, LK, preprocessor, SLAM, BA, PGO, ICP, the
+augmentations), the stereo calibration, BA problems, bag-of-words
+vocabularies, SLAM maps, images and, for stage-by-stage comparison, the
+reference's intermediate arrays. The augmentations hold no weights: their
+state across the packages is their settings, and the draws each call
+takes (``draws=``, kornia_tpu_torch/augmentations.py). They
 arrive as plain numpy / Python values (so this module imports nothing of
 the JAX package) and leave as the port's objects and tensors on a given
 device.
@@ -18,11 +20,14 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from kornia_tpu_torch import augmentations as _aug
 from kornia_tpu_torch import resolve_device, to_device
 from kornia_tpu_torch.bow.vocabulary import Vocabulary
 from kornia_tpu_torch.features.orb import OrbConfig
+from kornia_tpu_torch.geometry.icp import ICPParams
 from kornia_tpu_torch.geometry.stereo import StereoRectifier
 from kornia_tpu_torch.geometry.twoview import TwoViewParams
+from kornia_tpu_torch.image import ColorSpace, Image, ImageLayout
 from kornia_tpu_torch.ops.optical_flow import PyrLKParams
 from kornia_tpu_torch.ops.preprocess import (NormalizeMode,
                                              PreprocessorConfig, ResizeMode)
@@ -189,6 +194,55 @@ def stereo_rectifier_from_reference(fields: Mapping[str, Any]
         image_size=tuple(int(v) for v in fields["image_size"]),
         r1=arr(fields["r1"]), r2=arr(fields["r2"]), p1=arr(fields["p1"]),
         p2=arr(fields["p2"]), q=arr(fields["q"]))
+
+
+def icp_params(values: Mapping[str, Any]) -> ICPParams:
+    """``dataclasses.asdict`` of the reference's ICPParams → ICPParams."""
+    return _config(ICPParams, values)
+
+
+def image(fields: Mapping[str, Any], device="cuda") -> Image:
+    """The reference Image's ``data`` (a numpy array), ``color_space`` and
+    ``layout`` (its enum members or their ``.value`` strings) → an Image
+    of the same tags, its data on ``device``."""
+    unknown = set(fields) - {"data", "color_space", "layout"}
+    if unknown or "data" not in fields:
+        raise ValueError(f"Image fields: expected data, color_space, layout;"
+                         f" got {sorted(fields)}")
+    cs = fields.get("color_space", ColorSpace.UNKNOWN)
+    lay = fields.get("layout", ImageLayout.HWC)
+    return Image(tensor(fields["data"], device),
+                 ColorSpace(getattr(cs, "value", cs)),
+                 ImageLayout(getattr(lay, "value", lay)))
+
+
+_AUGMENTATIONS = {cls.__name__: cls for cls in (
+    _aug.RandomHorizontalFlip, _aug.RandomVerticalFlip, _aug.ColorJitter,
+    _aug.RandomGaussianBlur, _aug.RandomAffine, _aug.RandomErasing)}
+
+
+def augmentation(values: Mapping[str, Any]):
+    """One augmentation: ``{"type": <the reference class's name>,
+    **dataclasses.asdict(aug)}`` → the port's augmentation with the same
+    settings (range pairs as tuples)."""
+    values = dict(values)
+    kind = values.pop("type", None)
+    if kind not in _AUGMENTATIONS:
+        raise ValueError(f"unknown augmentation type {kind!r}; expected one "
+                         f"of {sorted(_AUGMENTATIONS)}")
+    return _config(_AUGMENTATIONS[kind], {
+        k: (tuple(np.asarray(v).tolist()) if isinstance(v, (list, tuple,
+                                                            np.ndarray))
+            else v) for k, v in values.items()})
+
+
+def augmentation_pipeline(values: Mapping[str, Any], device="cuda"
+                          ) -> "_aug.AugmentationPipeline":
+    """``{"augs": [augmentation values, ...], "seed": int}`` → an
+    AugmentationPipeline whose generator lives on ``device``."""
+    return _aug.AugmentationPipeline(
+        [augmentation(v) for v in values["augs"]],
+        seed=int(values.get("seed", 0)), device=device)
 
 
 def tensor(array, device="cuda", dtype: torch.dtype | None = None

@@ -7,8 +7,8 @@ packed max-reduce. On the card the score, NMS and Harris map of ORB's levels
 come from one CUDA kernel (ops/cuda_kernels.fast_harris), and the score of
 the detector path (:func:`fast_detect`, ``_score_dispatch``,
 ``_score_nms_dispatch``, ``_two_tier_select``) from the same kernel's
-score-only forms (ops/cuda_kernels.fast_score); ``fast_score`` and
-``nms_maxpool`` here are their plain versions.
+score-only forms, at any arc length (ops/cuda_kernels.fast_score);
+``fast_score`` and ``nms_maxpool`` here are their plain versions.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from kornia_tpu_torch import entry
+from kornia_tpu_torch.ops.filters import div_scalar
 
 # 16-point Bresenham circle of radius 3, clockwise from 12 o'clock
 # ((dy, dx) offsets) — the standard FAST-16 ring.
@@ -124,10 +125,8 @@ def _score_nms_dispatch(gray, threshold, arc_length, border_mask=None):
 def _kernel_score(gray, threshold, arc_length, nms, mask):
     from kornia_tpu_torch.ops import cuda_kernels as ck
 
-    if arc_length != 9:
-        raise ValueError(f"FAST on {gray.device}: the kernel computes arc "
-                         f"length 9, got {arc_length}")
-    return ck.fast_score(gray, threshold, nms=nms, mask=mask)
+    return ck.fast_score(gray, threshold, nms=nms, mask=mask,
+                         arc_length=arc_length)
 
 
 @entry
@@ -217,7 +216,7 @@ def cell_topk_packed(rank: torch.Tensor, cell_size: int, per_cell: int):
     k = torch.stack(keys)                            # (per_cell, gy, gx)
     score = torch.floor(k / 2048.0)
     p = 2047.0 - (k - score * 2048.0)
-    py = torch.floor(p / cs)
+    py = torch.floor(div_scalar(p, cs))
     px = p - py * cs
     cyo = (torch.arange(gy, device=dev, dtype=torch.float32) * cs)[None, :, None]
     cxo = (torch.arange(gx, device=dev, dtype=torch.float32) * cs)[None, None, :]
@@ -294,6 +293,6 @@ def fast_harris_cells(gray: torch.Tensor, harris_map: torch.Tensor,
         xy, qv = cell_topk_packed(q, cell_size, per_cell)
     else:
         xy, qv = _cell_topk_general(q, cell_size, per_cell)
-    score = torch.where(qv > 0, (qv - 1.0) / 8190.0 * span + hmin,
+    score = torch.where(qv > 0, div_scalar(qv - 1.0, 8190.0) * span + hmin,
                         torch.zeros_like(qv))
     return FastKeypoints(xy=xy, score=score, mask=qv > 0.0)

@@ -5,6 +5,8 @@ so the whole N×M distance matrix is one float32 matmul (exact: the sums are
 integers ≤ 256; TF32 is off). The JAX package leaves that product to XLA
 (matching.py:40-49, no Pallas kernel). Lowe ratio and cross-check are
 fixed-shape argmin passes; ties go to the lower index, as in the reference.
+Float descriptors match by L2 (:func:`match_descriptors_f32`), map points
+by projection into a frame (:func:`match_by_projection`).
 """
 
 from __future__ import annotations
@@ -45,6 +47,18 @@ def hamming_distance_matrix(a_bits: torch.Tensor, b_bits: torch.Tensor,
     return d
 
 
+def _best_two(d: torch.Tensor):
+    """Per row of ``d``: (the first minimum's column, the minimum, the
+    smallest of the rest), as ``top_k`` of ``−d`` gives them: ties go to
+    the lower index, and a tied second is the minimum again."""
+    best_idx = torch.argmin(d, dim=1)
+    best = d.gather(1, best_idx[:, None])[:, 0]
+    big = (float("inf") if d.dtype.is_floating_point
+           else torch.iinfo(d.dtype).max)
+    second = d.scatter(1, best_idx[:, None], big).amin(dim=1)
+    return best_idx, best, second
+
+
 def match_descriptors(a_bits, b_bits, a_mask=None, b_mask=None,
                       max_distance: float = 64.0,
                       ratio: Optional[float] = 0.75,
@@ -58,12 +72,7 @@ def match_descriptors(a_bits, b_bits, a_mask=None, b_mask=None,
     d = hamming_distance_matrix(a_bits, b_bits, a_mask, b_mask)   # (N, M)
     n = d.shape[0]
     rows = torch.arange(n, device=dev)
-    # the two smallest per row (top_k of −d): the first minimum, then the
-    # smallest of the rest
-    best_idx = torch.argmin(d, dim=1)
-    best = d[rows, best_idx]
-    rest = d.scatter(1, best_idx[:, None], torch.iinfo(torch.int32).max)
-    second = rest.amin(dim=1)
+    best_idx, best, second = _best_two(d)
     ok = best <= max_distance
     if ratio is not None:
         ok = ok & (best.to(torch.float32) <= ratio * second.to(torch.float32))
@@ -75,6 +84,85 @@ def match_descriptors(a_bits, b_bits, a_mask=None, b_mask=None,
         dist=best.to(torch.float32),
         mask=ok,
     )
+
+
+def match_descriptors_f32(a, b, ratio: Optional[float] = 0.8,
+                          cross_check: bool = True, a_mask=None, b_mask=None,
+                          device="cuda") -> Matches:
+    """L2 matcher for (N, D) × (M, D) float descriptors on ``device``:
+    ‖a−b‖² = |a|² + |b|² − 2ab from one float32 matmul, Lowe ratio on the
+    distances, cross-check; ``dist`` is the best distance (not squared)."""
+    dev = resolve_device(device)
+    a = to_device(a, dev, torch.float32)
+    b = to_device(b, dev, torch.float32)
+    dots = a @ b.T
+    na = (a * a).sum(dim=1, keepdim=True)
+    nb = (b * b).sum(dim=1, keepdim=True).T
+    d = torch.clamp(na + nb - 2.0 * dots, min=0.0)
+    inf = torch.full_like(d, float("inf"))
+    if a_mask is not None:
+        d = torch.where(to_device(a_mask, dev, torch.bool)[:, None], d, inf)
+    if b_mask is not None:
+        d = torch.where(to_device(b_mask, dev, torch.bool)[None, :], d, inf)
+    best_idx, best2, second2 = _best_two(d)
+    best = torch.sqrt(best2)
+    second = torch.sqrt(torch.clamp(second2, min=0.0))
+    ok = torch.isfinite(best)
+    if ratio is not None:
+        ok = ok & (best <= ratio * second)
+    if cross_check:
+        rows = torch.arange(d.shape[0], device=dev)
+        ok = ok & (torch.argmin(d, dim=0)[best_idx] == rows)
+    return Matches(idx=torch.where(ok, best_idx, -1).to(torch.int32),
+                   dist=best, mask=ok)
+
+
+def match_by_projection(points3d, point_desc_bits, pose7, k, frame_xy,
+                        frame_desc_bits, radius_px: float = 15.0,
+                        max_distance: float = 64.0, point_mask=None,
+                        frame_mask=None, device="cuda") -> Matches:
+    """Projection-guided matching: each (P, 3) map point, moved into the
+    camera by the world → camera ``pose7`` and projected with ``k``, is
+    matched by Hamming distance only against the (N, 2) frame keypoints
+    within ``radius_px`` (the gate folded into the distance matrix). A
+    keypoint serves at most one map point: the closest claimant keeps it,
+    ties to all of them. Returns Matches over the map points."""
+    from kornia_tpu_torch.geometry import liegroup as lg
+
+    dev = resolve_device(device)
+    points3d = to_device(points3d, dev, torch.float32)
+    pose7 = to_device(pose7, dev, torch.float32)
+    k = to_device(k, dev, torch.float32)
+    frame_xy = to_device(frame_xy, dev, torch.float32)
+    point_mask = (None if point_mask is None
+                  else to_device(point_mask, dev, torch.bool))
+    frame_mask = (None if frame_mask is None
+                  else to_device(frame_mask, dev, torch.bool))
+    cam = lg.se3_apply(pose7[None], points3d)
+    z = cam[..., 2]
+    zs = z[..., None]
+    uv = cam[..., :2] / torch.where(torch.abs(zs) < 1e-9,
+                                    torch.full_like(zs, 1e-9), zs)
+    uv = uv * torch.stack([k[0, 0], k[1, 1]]) + torch.stack([k[0, 2],
+                                                             k[1, 2]])
+    d = hamming_distance_matrix(to_device(point_desc_bits, dev),
+                                to_device(frame_desc_bits, dev),
+                                a_mask=point_mask, b_mask=frame_mask)
+    sq = ((uv[:, None, :] - frame_xy[None, :, :]) ** 2).sum(dim=-1)
+    gate = (sq <= radius_px * radius_px) & (z[:, None] > 1e-6)
+    d = torch.where(gate, d, torch.full_like(d, _BIG))
+    best = torch.argmin(d, dim=1)
+    dmin = d.gather(1, best[:, None])[:, 0]
+    ok = dmin <= max_distance
+    owner = torch.full((frame_xy.shape[0],), float("inf"), device=dev)
+    owner = owner.scatter_reduce(
+        0, torch.where(ok, best, torch.zeros_like(best)),
+        torch.where(ok, dmin.to(torch.float32),
+                    torch.full_like(dmin, float("inf"), dtype=torch.float32)),
+        "amin")
+    ok = ok & (dmin <= owner[best])
+    return Matches(idx=torch.where(ok, best, -1).to(torch.int32),
+                   dist=dmin.to(torch.float32), mask=ok)
 
 
 def unpack_descriptor_bits(packed: torch.Tensor) -> torch.Tensor:

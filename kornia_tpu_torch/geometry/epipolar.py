@@ -150,6 +150,20 @@ def sampson_distance(f: torch.Tensor, x1: torch.Tensor,
                        torch.full_like(den, 1e12))
 
 
+def epipolar_distance(f: torch.Tensor, x1: torch.Tensor,
+                      x2: torch.Tensor) -> torch.Tensor:
+    """Symmetric point-to-epiline distance², the mean of the squared
+    distances of x2 to F·x1 and of x1 to Fᵀ·x2."""
+    p1 = homogenize(x1)
+    p2 = homogenize(x2)
+    fx1 = torch.einsum("...ij,...nj->...ni", f, p1)
+    ftx2 = torch.einsum("...ji,...nj->...ni", f, p2)
+    dot = torch.sum(p2 * fx1, dim=-1) ** 2
+    d1 = dot / torch.clamp(fx1[..., 0] ** 2 + fx1[..., 1] ** 2, min=1e-12)
+    d2 = dot / torch.clamp(ftx2[..., 0] ** 2 + ftx2[..., 1] ** 2, min=1e-12)
+    return 0.5 * (d1 + d2)
+
+
 _W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
 
 

@@ -16,6 +16,7 @@ handed a draw (the tests pass the reference's).
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -26,6 +27,13 @@ class RansacResult(NamedTuple):
     inliers: torch.Tensor    # (N,) bool
     n_inliers: torch.Tensor  # () int64
     score: torch.Tensor      # () float32 score of the winner (lower = better)
+
+
+def num_hypotheses(sample_size: int, inlier_ratio: float = 0.3,
+                   confidence: float = 0.999) -> int:
+    """Static hypothesis budget from the classic formula, at least 32."""
+    denom = math.log(max(1.0 - inlier_ratio ** sample_size, 1e-12))
+    return max(32, int(math.ceil(math.log(1.0 - confidence) / denom)))
 
 
 def _map(fn: Callable, model, *others):

@@ -1,11 +1,14 @@
 """Two-view relative pose, the monocular SLAM bootstrap (port of
-kornia_tpu/geometry/twoview.py, 8-point solver).
+kornia_tpu/geometry/twoview.py).
 
-F-RANSAC (8-point, Sampson scoring) and H-RANSAC (4-point DLT, symmetric
+The epipolar RANSAC (the 8-point F, Sampson scoring; or with
+``solver="5pt"`` Nistér's 5-point E on normalized coordinates, 6-point
+samples, the LO refits as a weighted 8-point fit of E, Sampson residuals in
+pixels through F = K2⁻ᵀ E K1⁻¹) and H-RANSAC (4-point DLT, symmetric
 transfer scoring) run as batched programs; H wins when its support is at
 least ``h_over_e_ratio`` of F's. The four (R, t) candidates of the winner
 are voted on by cheirality, the winner is polished by the Sampson LM and
-the inliers are triangulated. Not ported yet: the 5-point solver.
+the inliers are triangulated.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from kornia_tpu_torch import resolve_device, to_device
 from kornia_tpu_torch.geometry import epipolar as epi
 from kornia_tpu_torch.geometry import triangulation as tri
 from kornia_tpu_torch.geometry.camera import normalize_points
+from kornia_tpu_torch.geometry.essential5pt import essential_5pt
 from kornia_tpu_torch.geometry.ransac import ransac
 from kornia_tpu_torch.geometry.refine import refine_pose_sampson, skew
 
@@ -48,6 +52,33 @@ class TwoViewResult(NamedTuple):
     cheirality_votes: torch.Tensor  # (4,)
 
 
+def _essential_ransac(generator, x1, x2, k1, k2, mask,
+                      params: TwoViewParams, sample_idx):
+    """The 5-point E-RANSAC on normalized coordinates
+    (kornia_tpu/geometry/twoview.py:79-110), its model returned as the
+    pixel F = K2⁻ᵀ E K1⁻¹ of unit norm."""
+    kinv1 = torch.linalg.inv_ex(k1)[0]
+    kinv2 = torch.linalg.inv_ex(k2)[0]
+    xn1 = normalize_points(x1, k1)
+    xn2 = normalize_points(x2, k2)
+
+    def solve_e(a, b, weights=None):
+        if weights is not None:            # LO refit: weighted 8-point on E
+            return epi.fundamental_8pt(a, b, weights)
+        return essential_5pt(a, b)
+
+    def resid_e(models, _a, _b):           # Sampson in pixels
+        return epi.sampson_distance(kinv2.T @ models @ kinv1, x1, x2)
+
+    e_res = ransac(generator, xn1, xn2, solve_e, resid_e, sample_size=6,
+                   threshold=params.threshold_px, mask=mask,
+                   n_hypotheses=params.n_hypotheses,
+                   lo_iters=params.lo_iters, sample_idx=sample_idx)
+    f = kinv2.T @ e_res.model @ kinv1
+    f = f / torch.clamp(torch.linalg.vector_norm(f.reshape(9)), min=1e-12)
+    return e_res._replace(model=f)
+
+
 def estimate_relative_pose(
     x1, x2, k1, k2, mask=None, params: TwoViewParams = TwoViewParams(),
     generator: Optional[torch.Generator] = None,
@@ -56,10 +87,12 @@ def estimate_relative_pose(
     """Two-view bootstrap on (N, 2) pixel correspondences on ``device``.
 
     ``generator`` drives both hypothesis draws; ``samples=(idx_f, idx_h)``
-    ((B, 8) and (B, 4) indices) replaces them, so a test can hand in the
-    reference's draws."""
-    if params.solver != "8pt":
-        raise NotImplementedError("only the 8-point solver is ported")
+    ((B, 8) and (B, 4) indices, or (B, 6) and (B, 4) with
+    ``solver="5pt"``) replaces them, so a test can hand in the reference's
+    draws."""
+    if params.solver not in ("8pt", "5pt"):
+        raise ValueError(f"unknown epipolar solver {params.solver!r}; "
+                         f"pass '8pt' or '5pt'")
     dev = resolve_device(device)
     x1 = to_device(x1, dev, torch.float32)
     x2 = to_device(x2, dev, torch.float32)
@@ -68,13 +101,18 @@ def estimate_relative_pose(
     n = x1.shape[0]
     mask = (torch.ones(n, dtype=torch.bool, device=dev) if mask is None
             else to_device(mask, dev, torch.bool))
-    idx_f, idx_h = samples if samples is not None else (None, None)
+    idx_f, idx_h = ((to_device(i, dev, torch.int64) for i in samples)
+                    if samples is not None else (None, None))
 
-    f_res = ransac(generator, x1, x2, epi.fundamental_8pt,
-                   epi.sampson_distance,
-                   sample_size=8, threshold=params.threshold_px, mask=mask,
-                   n_hypotheses=params.n_hypotheses,
-                   lo_iters=params.lo_iters, sample_idx=idx_f)
+    if params.solver == "5pt":
+        f_res = _essential_ransac(generator, x1, x2, k1, k2, mask, params,
+                                  idx_f)
+    else:
+        f_res = ransac(generator, x1, x2, epi.fundamental_8pt,
+                       epi.sampson_distance,
+                       sample_size=8, threshold=params.threshold_px,
+                       mask=mask, n_hypotheses=params.n_hypotheses,
+                       lo_iters=params.lo_iters, sample_idx=idx_f)
     h_res = ransac(generator, x1, x2, epi.homography_dlt,
                    epi.homography_transfer_error, sample_size=4,
                    threshold=params.h_threshold_px, mask=mask,

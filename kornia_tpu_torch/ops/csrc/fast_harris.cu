@@ -2,13 +2,16 @@
 // Harris map (central gradients, 5-tap Gaussian window), in one pass over
 // every level of an image pyramid: one launch per frame (kt_fast_harris).
 // The same kernel, without its Harris phases, is the score-only entry
-// kt_fast_score: one level, the NMS optional, an optional f32 ROI mask.
+// kt_fast_score: one level, the NMS optional, an optional f32 ROI mask, and
+// any arc length n in [1, 16] (FAST-n).
 //
 // Replaces: kornia_tpu/ops/pallas_kernels.py::fast_score_pallas in every
 //   compiled form the JAX package reaches: (nms=True, harris=True), called
 //   once per pyramid level by ORB (kornia_tpu/features/orb.py:458), and
 //   (nms, border_mask, harris=False), reached through features/fast.py's
-//   _score_dispatch, _score_nms_dispatch, fast_detect and _two_tier_select.
+//   _score_dispatch, _score_nms_dispatch, fast_detect and _two_tier_select,
+//   at every static arc_length (pallas_kernels.py:141-144: each value is its
+//   own compiled kernel; the caller maps n to [1, 16], see kt_fast_score).
 //
 // Mask contract (kt_fast_score): the XLA path's (fast.py:158-162), not the
 //   Pallas path's: the score keeps the threshold and the 3-px border kill
@@ -62,6 +65,13 @@
 //   for the arc test or tested in place, was slower on the H100 in every
 //   tile shape tried: the arc test costs less than the exit's test and the
 //   divergence or the list.)
+// - Other arc lengths (score-only entry): the arcs of n are built the same
+//   way, three overlapping arcs of c = ceil(n/3) each (arc_reduce below),
+//   down to arcs of 1, 2 or 3; n = 9 keeps the form above. Integer ops per
+//   pixel: 16 differences; per side 16 min/max ops (one instruction each,
+//   two- or three-way) per level of arcs (none for n = 1, one for n = 2-3,
+//   two for n = 4-9, three for n = 10-16) and 8 for the best arc; 3 for the
+//   score: 35, 67, 99 or 131.
 // - Tiles at least 4 px inside their level take a path without the
 //   reflect-101 and clamp index arithmetic that the border tiles need.
 // - The window passes keep what a thread reuses in registers: 8 rows of a
@@ -116,9 +126,57 @@ __device__ __forceinline__ int reflect101(int i, int n) {
   return i > n - 1 ? period - i : i;
 }
 
-// FAST-9 score of the staged pixel (cy, cx): the best 9-arc minimum
+// min (MIN) or max of three ring values
+template <bool MIN>
+__device__ __forceinline__ int op3(int a, int b, int c) {
+  return MIN ? __vimin3_s32(a, b, c) : __vimax3_s32(a, b, c);
+}
+
+// out[k] = min (MIN) or max over the N ring entries k, k+1, ..., k+N-1
+// (mod 16) of a[], for 1 <= N <= 16: from the arcs of c = ceil(N/3),
+// three of them starting at k, k+s and k+N-c, which cover the N entries
+// as s <= c and N-c-s <= c; arcs of 2 and 3 come straight from a[]. Min
+// and max are exact, so any cover gives the plain version's value.
+template <int N, bool MIN>
+__device__ __forceinline__ void arc_reduce(const int a[16], int out[16]) {
+  if constexpr (N == 1) {
+#pragma unroll
+    for (int k = 0; k < 16; ++k) out[k] = a[k];
+  } else if constexpr (N == 2) {
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      out[k] = MIN ? min(a[k], a[(k + 1) & 15]) : max(a[k], a[(k + 1) & 15]);
+  } else if constexpr (N == 3) {
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      out[k] = op3<MIN>(a[k], a[(k + 1) & 15], a[(k + 2) & 15]);
+  } else {
+    constexpr int C = (N + 2) / 3;
+    constexpr int S = (N - C) / 2;
+    int sub[16];
+    arc_reduce<C, MIN>(a, sub);
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      out[k] = op3<MIN>(sub[k], sub[(k + S) & 15], sub[(k + N - C) & 15]);
+  }
+}
+
+// the best (largest for MIN arcs, smallest for MAX arcs) of 16 values
+template <bool MIN>
+__device__ __forceinline__ int best16(const int v[16]) {
+  int t[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k)
+    t[k] = op3<!MIN>(v[3 * k], v[3 * k + 1], v[3 * k + 2]);
+  const int a = op3<!MIN>(t[0], t[1], t[2]);
+  const int b = op3<!MIN>(t[3], t[4], v[15]);
+  return MIN ? max(a, b) : min(a, b);
+}
+
+// FAST-N score of the staged pixel (cy, cx): the best N-arc minimum
 // (brighter) or maximum (darker) of the 16 ring differences, 0 unless
 // above the threshold
+template <int N>
 __device__ __forceinline__ float fast_score(const int (*s_img)[IW], int cy,
                                             int cx, float threshold) {
   int ctr = s_img[cy][cx];
@@ -129,30 +187,39 @@ __device__ __forceinline__ float fast_score(const int (*s_img)[IW], int cy,
   RING(8, 3, 0) RING(9, 3, -1) RING(10, 2, -2) RING(11, 1, -3)
   RING(12, 0, -3) RING(13, -1, -3) RING(14, -2, -2) RING(15, -3, -1)
 #undef RING
-  // arcs of 3, then of 9 = three arcs of 3, then the best of the 16:
-  // Hopper's three-way integer min/max (DPX) do each step in one op
-  int n3[16], x3[16], n9[16], x9[16];
+  int bright, darkmin;
+  if constexpr (N == 9) {
+    // arcs of 3, then of 9 = three arcs of 3, then the best of the 16:
+    // Hopper's three-way integer min/max (DPX) do each step in one op
+    int n3[16], x3[16], n9[16], x9[16];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    n3[k] = __vimin3_s32(d[k], d[(k + 1) & 15], d[(k + 2) & 15]);
-    x3[k] = __vimax3_s32(d[k], d[(k + 1) & 15], d[(k + 2) & 15]);
-  }
+    for (int k = 0; k < 16; ++k) {
+      n3[k] = __vimin3_s32(d[k], d[(k + 1) & 15], d[(k + 2) & 15]);
+      x3[k] = __vimax3_s32(d[k], d[(k + 1) & 15], d[(k + 2) & 15]);
+    }
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    n9[k] = __vimin3_s32(n3[k], n3[(k + 3) & 15], n3[(k + 6) & 15]);
-    x9[k] = __vimax3_s32(x3[k], x3[(k + 3) & 15], x3[(k + 6) & 15]);
-  }
-  int bt[5], dt[5];
+    for (int k = 0; k < 16; ++k) {
+      n9[k] = __vimin3_s32(n3[k], n3[(k + 3) & 15], n3[(k + 6) & 15]);
+      x9[k] = __vimax3_s32(x3[k], x3[(k + 3) & 15], x3[(k + 6) & 15]);
+    }
+    int bt[5], dt[5];
 #pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    bt[k] = __vimax3_s32(n9[3 * k], n9[3 * k + 1], n9[3 * k + 2]);
-    dt[k] = __vimin3_s32(x9[3 * k], x9[3 * k + 1], x9[3 * k + 2]);
+    for (int k = 0; k < 5; ++k) {
+      bt[k] = __vimax3_s32(n9[3 * k], n9[3 * k + 1], n9[3 * k + 2]);
+      dt[k] = __vimin3_s32(x9[3 * k], x9[3 * k + 1], x9[3 * k + 2]);
+    }
+    // the best arc minimum (brighter) and the lowest arc maximum (darker)
+    bright = max(__vimax3_s32(bt[0], bt[1], bt[2]),
+                 __vimax3_s32(bt[3], bt[4], n9[15]));
+    darkmin = min(__vimin3_s32(dt[0], dt[1], dt[2]),
+                  __vimin3_s32(dt[3], dt[4], x9[15]));
+  } else {
+    int arc[16];
+    arc_reduce<N, true>(d, arc);
+    bright = best16<true>(arc);
+    arc_reduce<N, false>(d, arc);
+    darkmin = best16<false>(arc);
   }
-  // the best arc minimum (brighter) and the lowest arc maximum (darker)
-  const int bright = max(__vimax3_s32(bt[0], bt[1], bt[2]),
-                         __vimax3_s32(bt[3], bt[4], n9[15]));
-  const int darkmin = min(__vimin3_s32(dt[0], dt[1], dt[2]),
-                          __vimin3_s32(dt[3], dt[4], x9[15]));
   const int sc = bright > -darkmin ? bright : -darkmin;
   const float fs = (float)sc;
   return fs > threshold ? fs : 0.0f;
@@ -178,8 +245,9 @@ __device__ __forceinline__ float harris(const float s[3], float harris_k) {
 }
 
 // HARRIS: also the Harris map (phases 3-4 and its half of phase 5);
-// NMS: the 3x3 pool of the score, else the masked score as it is
-template <bool HARRIS, bool NMS>
+// NMS: the 3x3 pool of the score, else the masked score as it is;
+// ARC: the arc length n of the FAST-n score
+template <bool HARRIS, bool NMS, int ARC>
 __global__ void __launch_bounds__(NTHR)
 fast_harris_kernel(const LevelTable tab, float* __restrict__ score_all,
                    float* __restrict__ harris_all, float threshold,
@@ -238,7 +306,8 @@ fast_harris_kernel(const LevelTable tab, float* __restrict__ score_all,
     float v = -INFINITY;
     if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
       v = (gy >= 3 && gy < h - 3 && gx >= 3 && gx < w - 3)
-              ? fast_score(s_img, r + HALO - 1, c + HALO - 1, threshold)
+              ? fast_score<ARC>(s_img, r + HALO - 1, c + HALO - 1,
+                                        threshold)
               : 0.0f;
       if (mask != nullptr) v = __fmul_rn(v, mask[(size_t)gy * w + gx]);
     }
@@ -371,19 +440,37 @@ extern "C" int kt_fast_harris(int n, const void* const* imgs, const int* hs,
   }
   tab.n = n;
   if (blocks == 0) return 0;
-  fast_harris_kernel<true, true><<<blocks, NTHR, 0, (cudaStream_t)stream>>>(
+  fast_harris_kernel<true, true, 9><<<blocks, NTHR, 0, (cudaStream_t)stream>>>(
       tab, (float*)score_out, (float*)harris_out, threshold, window5[0],
       window5[1], window5[2], window5[3], window5[4], harris_k);
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+// one launch of the score-only kernel at arc length N
+template <int N>
+void launch_score(const LevelTable& tab, int blocks, float* out,
+                  float threshold, int nms, cudaStream_t stream) {
+  if (nms)
+    fast_harris_kernel<false, true, N><<<blocks, NTHR, 0, stream>>>(
+        tab, out, nullptr, threshold, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f);
+  else
+    fast_harris_kernel<false, false, N><<<blocks, NTHR, 0, stream>>>(
+        tab, out, nullptr, threshold, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f);
+}
+
+}  // namespace
+
 // The score-only forms on one (h, w) u8 image: the thresholded,
-// border-killed FAST-9 score, times the (h, w) f32 mask unless mask is
-// null, then the 3x3 NMS if nms != 0, into the (h, w) f32 score_out.
-// Returns a cudaError_t; launches nothing for an empty image.
+// border-killed FAST-n score (n = arc_length, in [1, 16]), times the (h, w)
+// f32 mask unless mask is null, then the 3x3 NMS if nms != 0, into the
+// (h, w) f32 score_out. Returns a cudaError_t (cudaErrorInvalidValue for n
+// outside [1, 16]); launches nothing for an empty image.
 extern "C" int kt_fast_score(const void* img, int h, int w, const void* mask,
                              void* score_out, float threshold, int nms,
-                             void* stream) {
+                             int arc_length, void* stream) {
+  if (arc_length < 1 || arc_length > 16) return (int)cudaErrorInvalidValue;
   if (h <= 0 || w <= 0) return 0;
   LevelTable tab = {};
   Level& L = tab.lv[0];
@@ -396,14 +483,16 @@ extern "C" int kt_fast_score(const void* img, int h, int w, const void* mask,
   L.tiles_x = (w + TW - 1) / TW;
   tab.n = 1;
   const int blocks = L.tiles_x * ((h + TH - 1) / TH);
-  if (nms)
-    fast_harris_kernel<false, true><<<blocks, NTHR, 0, (cudaStream_t)stream>>>(
-        tab, (float*)score_out, nullptr, threshold, 0.f, 0.f, 0.f, 0.f, 0.f,
-        0.f);
-  else
-    fast_harris_kernel<false, false>
-        <<<blocks, NTHR, 0, (cudaStream_t)stream>>>(
-            tab, (float*)score_out, nullptr, threshold, 0.f, 0.f, 0.f, 0.f,
-            0.f, 0.f);
+  float* out = (float*)score_out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (arc_length) {
+#define ARC(n) \
+  case n:      \
+    launch_score<n>(tab, blocks, out, threshold, nms, st); \
+    break;
+    ARC(1) ARC(2) ARC(3) ARC(4) ARC(5) ARC(6) ARC(7) ARC(8)
+    ARC(9) ARC(10) ARC(11) ARC(12) ARC(13) ARC(14) ARC(15) ARC(16)
+#undef ARC
+  }
   return (int)cudaGetLastError();
 }

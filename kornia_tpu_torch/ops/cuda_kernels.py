@@ -13,7 +13,8 @@ levels,         (nms=True, harris=True): up to 16 levels
 fast_harris     of a pyramid in one launch, or one level
 fast_score      the same kernel's score-only forms          fast_harris.cu
                 (harris=False; nms on or off; border_mask
-                under the XLA path's contract), one level
+                under the XLA path's contract; any
+                arc_length), one level
 windows_paired  pallas_kernels.py::                         windows_paired.cu
                 extract_windows_prepared_paired
 brief_sample    pallas_kernels.py::brief_sample_pallas      brief_sample.cu
@@ -53,6 +54,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
@@ -144,7 +146,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> Dict[str, object]:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
         "fast_harris": [i, p, p, p, p, p, f, ctypes.POINTER(f), f, p],
-        "fast_score": [p, i, i, p, p, f, i, p],
+        "fast_score": [p, i, i, p, p, f, i, i, p],
         "windows_paired": [p, p, p, i, i, i, i, i, i, p],
         "brief_sample": [p, p, p, p, i, i, i, i, p],
         "brief_rotated": [p, p, p, p, p, i, i, i, p],
@@ -309,23 +311,37 @@ def fast_harris(img: torch.Tensor, threshold: float
 
 
 def _fast_score_plain(img: torch.Tensor, threshold: float, nms: bool = True,
-                      mask: torch.Tensor | None = None) -> torch.Tensor:
-    """``fast_score``, times ``mask`` where given, then ``nms_maxpool``
-    where ``nms`` is set: the XLA composition of fast.py:158-162."""
-    score = _fast.fast_score(img, threshold, 9)
+                      mask: torch.Tensor | None = None,
+                      arc_length: int = 9) -> torch.Tensor:
+    """``fast_score`` at ``arc_length``, times ``mask`` where given, then
+    ``nms_maxpool`` where ``nms`` is set: the XLA composition of
+    fast.py:158-162."""
+    score = _fast.fast_score(img, threshold, arc_length)
     if mask is not None:
         score = score * mask
     return _fast.nms_maxpool(score) if nms else score
 
 
+def fast_arc(arc_length: int) -> int:
+    """The arc length K1 computes for ``arc_length`` (it is compiled for
+    1..16): the same value, with n <= 1 taken as 1 and n >= 16 as 16, as
+    the reference's log-step doubling reduces them (pallas_kernels.py:
+    262-272: an arc of n <= 1 is the ring entry itself, an arc of n >= 16
+    covers the whole ring)."""
+    return min(max(operator.index(arc_length), 1), 16)
+
+
 def fast_score(img: torch.Tensor, threshold: float, nms: bool = True,
-               mask: torch.Tensor | None = None) -> torch.Tensor:
-    """(H, W) u8 → (H, W) f32: the thresholded FAST-9 score, 0 on the
-    3-px border, times the (H, W) f32 ROI ``mask`` where given, then 3×3
-    non-maximum suppression where ``nms`` is set. K1 without its Harris
-    phases, one launch; the plain version on a CPU tensor."""
+               mask: torch.Tensor | None = None,
+               arc_length: int = 9) -> torch.Tensor:
+    """(H, W) u8 → (H, W) f32: the thresholded FAST-n score (n =
+    ``arc_length``), 0 on the 3-px border, times the (H, W) f32 ROI
+    ``mask`` where given, then 3×3 non-maximum suppression where ``nms``
+    is set. K1 without its Harris phases, one launch; the plain version on
+    a CPU tensor."""
     if img.is_cpu:
-        return _fast_score_plain(img, threshold, nms, mask)
+        return _fast_score_plain(img, threshold, nms, mask, arc_length)
+    n = fast_arc(arc_length)
     _check(img, "fast_score image", torch.uint8, 2)
     if mask is not None:
         _check(mask, "fast_score mask", torch.float32, 2)
@@ -338,7 +354,8 @@ def fast_score(img: torch.Tensor, threshold: float, nms: bool = True,
     if out.numel():
         rc = _kernel("fast_harris", "fast_score")(
             img.data_ptr(), h, w, 0 if mask is None else mask.data_ptr(),
-            out.data_ptr(), float(threshold), int(bool(nms)), _stream(img))
+            out.data_ptr(), float(threshold), int(bool(nms)), n,
+            _stream(img))
         _launched("fast_score", rc)
     return out
 

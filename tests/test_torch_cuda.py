@@ -1111,3 +1111,68 @@ def test_cuda_fast_detect_waits_for_nothing_and_equals_cpu_route(cuda_dev):
         want = fast.fast_detect(gray, 20.0, 2048, device="cpu", **kw_cpu)
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(480, 752), (1080, 1920)])
+@pytest.mark.parametrize("nms", [True, False], ids=["nms", "no-nms"])
+@pytest.mark.parametrize("mask", [None, "gaussian"])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8, 10, 11, 12, 13, 16])
+def test_cuda_fast_score_arc_lengths_bit_equal(cuda_dev, shape, nms, mask,
+                                               n):
+    """K1's score-only forms at arc lengths other than 9 (the FAST-n
+    compiled forms of fast_score_pallas): bit-equal to the plain version at
+    the same n, one launch each on the fast_score counter."""
+    img = convert.tensor(_textured_u8(46, shape), cuda_dev)
+    m = None
+    if mask == "gaussian":
+        m = convert.tensor(np.random.default_rng(47).normal(
+            size=shape).astype(np.float32), cuda_dev)
+    ck.reset_launch_counts()
+    got = ck.fast_score(img, 20.0, nms=nms, mask=m, arc_length=n)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["fast_score"] == 1 and ck.LAUNCHES["fast_harris"] == 0
+    assert torch.equal(got, ck._fast_score_plain(img, 20.0, nms, m, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [-2, 0, 17, 40])
+def test_cuda_fast_score_arc_lengths_outside_the_ring(cuda_dev, n):
+    """n <= 1 computes the arc of 1 and n >= 16 the whole ring, as the
+    reference's doubling reduces them: bit-equal to the plain version at
+    the same n."""
+    img = convert.tensor(_textured_u8(48, (120, 160)), cuda_dev)
+    got = ck.fast_score(img, 5.0, nms=True, arc_length=n)
+    assert torch.equal(got, ck._fast_score_plain(img, 5.0, True, None, n))
+    with pytest.raises(TypeError):
+        ck.fast_score(img, 5.0, arc_length=9.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [9, 10, 11, 12])
+def test_cuda_fast_detectors_at_arc_lengths_equal_cpu_route(cuda_dev, n):
+    """fast_detect, fast_detect_cells and fast_harris_cells with
+    ``arc_length=n`` on the card: one K1 score-only launch each (nothing
+    falls back to the CPU or raises), results equal to the CPU route (cell
+    41: the in-cell row p / 41 is a true division on the card too)."""
+    from kornia_tpu_torch.features import fast, responses
+
+    gray = _textured_u8(49, (240, 320))
+    g = convert.tensor(gray, cuda_dev)
+    hmap = responses.harris_response(torch.as_tensor(gray).float())
+    cases = (
+        lambda x, d: fast.fast_detect(x, 20.0, 1024, arc_length=n, device=d),
+        lambda x, d: fast.fast_detect(x, 20.0, 1024, nms=False,
+                                      arc_length=n, device=d),
+        lambda x, d: fast.fast_detect_cells(x, arc_length=n),
+        lambda x, d: fast.fast_detect_cells(x, cell_size=41, arc_length=n),
+        lambda x, d: fast.fast_harris_cells(
+            x, hmap.to(x.device), arc_length=n))
+    for fn in cases:
+        ck.reset_launch_counts()
+        got = fn(g, "cuda")
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["fast_score"] == 1
+        want = fn(torch.as_tensor(gray), "cpu")
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)

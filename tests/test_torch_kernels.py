@@ -695,12 +695,25 @@ def test_port_imports_neither_jax_nor_reference():
         "assert not torch.backends.cudnn.allow_tf32\n"
         "assert torch.get_float32_matmul_precision() == 'highest'\n"
         "print('ok')\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120,
-                         cwd=os.path.dirname(os.path.dirname(
-                             os.path.abspath(__file__))))
+                         text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+    # chip_smoke.py, read without running it: no import of jax or of the
+    # JAX package anywhere in it (top level or inside a function)
+    import ast
+    with open(os.path.join(root, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            imported.add(node.module)
+    assert "kornia_tpu_torch" in {m.split(".")[0] for m in imported}
+    bad = {m for m in imported if m.split(".")[0] in ("jax", "kornia_tpu")}
+    assert not bad, bad
 
 
 def test_cuda_entry_point_without_card_raises():
