@@ -70,16 +70,18 @@ def entry(fn):
 
 
 # The subpackages, in kornia_tpu/__init__.py's order, restricted to what is
-# ported (io, apriltag, parallel and models are not yet). They import
-# ``entry`` and ``resolve_device`` from here, so they come after them.
-# Nothing here builds a kernel: that happens at a kernel's first launch.
+# ported (parallel and models are not yet). They import ``entry`` and
+# ``resolve_device`` from here, so they come after them. Nothing here
+# builds a kernel or the native library: that happens at first use.
 from kornia_tpu_torch import image  # noqa: E402
 from kornia_tpu_torch import ops  # noqa: E402
 from kornia_tpu_torch import features  # noqa: E402
 from kornia_tpu_torch import geometry  # noqa: E402
 from kornia_tpu_torch import optim  # noqa: E402
+from kornia_tpu_torch import io  # noqa: E402
 from kornia_tpu_torch import utils  # noqa: E402
 from kornia_tpu_torch import augmentations  # noqa: E402
+from kornia_tpu_torch import apriltag  # noqa: E402
 from kornia_tpu_torch import bow  # noqa: E402
 from kornia_tpu_torch import slam  # noqa: E402
 
@@ -89,8 +91,10 @@ __all__ = [
     "features",
     "geometry",
     "optim",
+    "io",
     "utils",
     "augmentations",
+    "apriltag",
     "bow",
     "slam",
     "__version__",

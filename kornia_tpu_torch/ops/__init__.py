@@ -1,10 +1,9 @@
 """Dense image ops and the CUDA kernels of the port (port of
 kornia_tpu/ops/).
 
-The modules are imported in kornia_tpu/ops/__init__.py's order, restricted
-to what is ported (connected_components and contours are not yet);
+The modules are imported in kornia_tpu/ops/__init__.py's order;
 ``cuda_kernels`` stands where the reference imports ``pallas_kernels``.
-Importing them builds no kernel.
+Importing them builds no kernel and not the native library.
 """
 
 from kornia_tpu_torch.ops import color
@@ -25,6 +24,8 @@ from kornia_tpu_torch.ops import histogram
 from kornia_tpu_torch.ops import canny
 from kornia_tpu_torch.ops import draw
 from kornia_tpu_torch.ops import bayer
+from kornia_tpu_torch.ops import connected_components
+from kornia_tpu_torch.ops import contours
 from kornia_tpu_torch.ops import distance_transform
 from kornia_tpu_torch.ops import optical_flow
 from kornia_tpu_torch.ops import depth
@@ -36,6 +37,8 @@ __all__ = [
     "segmentation",
     "cuda_kernels",
     "bayer",
+    "connected_components",
+    "contours",
     "distance_transform",
     "optical_flow",
     "color",

@@ -1176,3 +1176,85 @@ def test_cuda_fast_detectors_at_arc_lengths_equal_cpu_route(cuda_dev, n):
         want = fn(torch.as_tensor(gray), "cpu")
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
+
+
+# --------------------------------------------------------------------------
+# AprilTag: the threshold and the dense CCL on the card, the decode
+# --------------------------------------------------------------------------
+
+
+def _tag_scene(shape=(480, 640)):
+    """Three tag36h11 tags on blocky texture, with their quiet zones."""
+    from kornia_tpu_torch import apriltag
+
+    fam = apriltag.get_family("tag36h11")
+    img = _textured_u8(71, shape)
+    for i, tag_id in enumerate((3, 17, 99)):
+        tag = apriltag.render_tag(fam, tag_id, scale=12)
+        y, x = 60 + 110 * i, 60 + 180 * i
+        img[y:y + tag.shape[0], x:x + tag.shape[1]] = tag
+    return img
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(480, 640), (1080, 1920), (61, 83)])
+@pytest.mark.parametrize("tile,split", [(4, 0.6), (8, 0.33)])
+def test_cuda_adaptive_threshold_equals_cpu_route(cuda_dev, shape, tile,
+                                                  split):
+    """The threshold on the card equals its CPU route bit for bit, and
+    launches no hand kernel."""
+    from kornia_tpu_torch.apriltag import adaptive_threshold
+
+    g = _textured_u8(72, shape)
+    ck.reset_launch_counts()
+    got = adaptive_threshold(convert.tensor(g, cuda_dev), tile, 5, split,
+                             device="cuda")
+    torch.cuda.synchronize()
+    assert got.is_cuda and all(v == 0 for v in ck.LAUNCHES.values())
+    want = adaptive_threshold(g, tile, 5, split, device="cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("max_sweeps", [1, 64])
+def test_cuda_connected_components_equals_cpu_route(cuda_dev, connectivity,
+                                                    max_sweeps):
+    """The dense CCL on the card: labels and sweep count equal the CPU
+    route's; once converged, its partition is the host union-find's."""
+    from kornia_tpu_torch.apriltag import adaptive_threshold
+    from kornia_tpu_torch.ops import connected_components as ccl
+
+    t = adaptive_threshold(_tag_scene(), device="cpu")
+    mask = (t == 0).to(torch.uint8)
+    got, n_got = ccl._labels_sweeps(mask.to(cuda_dev), connectivity,
+                                    max_sweeps)
+    want, n_want = ccl._labels_sweeps(mask, connectivity, max_sweeps)
+    assert n_got == n_want and torch.equal(got.cpu(), want)
+    assert torch.equal(ccl.connected_components(
+        mask, connectivity, max_sweeps, device="cuda").cpu(), want)
+    if n_got <= max_sweeps:
+        np.testing.assert_array_equal(
+            ccl.relabel_sequential(got),
+            ccl.connected_components_host(mask.numpy(), connectivity))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["native", "numpy"])
+def test_cuda_decode_equals_cpu_route(cuda_dev, route, monkeypatch):
+    """One 480×640 decode on the card equals the CPU route's detections,
+    from a numpy array and from a device tensor (one read-back)."""
+    from kornia_tpu_torch import apriltag
+
+    monkeypatch.setenv("KORNIA_TPU_APRILTAG_MID", route)
+    img = _tag_scene()
+    want = apriltag.AprilTagDecoder(device="cpu").decode(img)
+    assert sorted(d.tag_id for d in want) == [3, 17, 99]
+    dec = apriltag.AprilTagDecoder(device="cuda")
+    for inp in (img, convert.tensor(img, cuda_dev)):
+        got = dec.decode(inp)
+        assert [(d.tag_id, d.hamming) for d in got] == \
+            [(d.tag_id, d.hamming) for d in want]
+        for a, b in zip(got, want):
+            assert np.array_equal(a.corners, b.corners)
+            assert np.array_equal(a.homography, b.homography)

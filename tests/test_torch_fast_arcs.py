@@ -167,25 +167,36 @@ def test_bare_import_exposes_every_ported_name():
     """After ``import kornia_tpu_torch`` alone, in a fresh interpreter:
     every subpackage of the reference's top-level ``__all__`` that the
     port has, every module of ``ops``' and ``geometry``'s (``cuda_kernels``
-    for ``pallas_kernels``), and every name of ``optim``'s, ``slam``'s,
-    ``bow``'s and ``utils``' ``__all__`` is an attribute, and the
-    subpackages this PR brings are among them."""
+    for ``pallas_kernels``), every name of ``optim``'s, ``slam``'s,
+    ``bow``'s, ``utils``' and ``apriltag``'s ``__all__`` and the ported
+    names of ``io``'s is an attribute, and the subpackages ported so far
+    are among them; neither jax nor kornia_tpu, PIL or cv2 is imported."""
     rename = {"pallas_kernels": "cuda_kernels"}
     want = [n for n in _reference_all("__init__.py")
             if n == "__version__" or _ported((), n)]
     assert {"ops", "features", "geometry", "optim", "slam", "bow", "utils",
-            "image", "augmentations"} <= set(want)
+            "image", "augmentations", "io", "apriltag"} <= set(want)
     attrs = list(want)
     for sub in ("ops", "geometry"):
         names = [rename.get(n, n) for n in _reference_all(f"{sub}/__init__.py")]
-        ported = [n for n in names if _ported((sub,), n)]
-        assert len(ported) >= len(names) - 2      # CCL and contours: item 16
-        attrs += [f"{sub}.{n}" for n in ported]
-    for sub in ("optim", "slam", "bow", "utils"):
+        assert [n for n in names if not _ported((sub,), n)] == []
+        attrs += [f"{sub}.{n}" for n in names]
+    for sub in ("optim", "slam", "bow", "utils", "apriltag"):
         attrs += [f"{sub}.{n}" for n in _reference_all(f"{sub}/__init__.py")]
+    # io: the formats that need no image codec (item 17b has the rest)
+    io_names = _reference_all("io/__init__.py")
+    io_ported = ["rvl_compress", "rvl_decompress", "read_ply", "write_ply",
+                 "read_pcd", "write_pcd", "ColmapCamera", "ColmapImage",
+                 "ColmapPoint3d", "read_cameras_txt", "read_images_txt",
+                 "read_points3d_txt", "read_colmap_model", "FpsCounter"]
+    assert set(io_ported) <= set(io_names)
+    attrs += [f"io.{n}" for n in io_ported]
     attrs += ["ops.color.rgb_to_gray", "features.fast.fast_detect",
               "features.orb.orb_detect_and_describe",
-              "geometry.essential5pt.essential_5pt", "image.Image"]
+              "geometry.essential5pt.essential_5pt", "image.Image",
+              "apriltag.AprilTagDecoder",
+              "ops.connected_components.connected_components",
+              "ops.contours.find_contours", "io.rvl_compress"]
     code = (
         "import sys, functools\n"
         "import kornia_tpu_torch\n"
@@ -197,8 +208,9 @@ def test_bare_import_exposes_every_ported_name():
         "    except AttributeError:\n"
         "        missing.append(a)\n"
         "assert not missing, missing\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m == 'kornia_tpu'\n"
-        "       or m.startswith(('jax.', 'kornia_tpu.'))]\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'kornia_tpu', 'PIL',\n"
+        "       'cv2') or m.startswith(('jax.', 'kornia_tpu.', 'PIL.',\n"
+        "       'cv2.'))]\n"
         "assert not bad, bad\n"
         "print('ok', len(attrs))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
