@@ -219,6 +219,45 @@ Phases (any failure raises, so the script exits non-zero):
    The host formats once each: find_contours on a 480×752 mask, an RVL
    round trip of a 480×752 u16 depth map, PLY and PCD round trips of
    100,000 points in a temporary directory.
+19. io (the thirteenth slice, host code; no hand kernel), in a temporary
+   directory: the 40 slam_sequence frames written as a TUM RGB-D layout
+   (RGB PNG, u16 depth PNG, groundtruth.txt) and read back through
+   io.TumRgbdDataset (frames, depth and poses equal), EuRoC and KITTI
+   layouts of 5 frames likewise; the 1080p imgproc frame through PNG, TIFF
+   and lossless WebP (equal) and JPEG q95 (mean |error| printed and held
+   under JPEG_TEXTURED_BOUND: the frame is noise, far from the smooth
+   image of tests/test_io.py's corridor, which a 1080p gradient is held to:
+   mean < 4), write and read ms each; 60 frames at 480×752 written through
+   VideoWriter(codec="mjpg"), read back by MjpegReader and by cv2's
+   VideoReader (count, fps, size, mean error < 12 as tests/test_io.py),
+   ms a frame; NativeCapture over a directory of PPM frames (equal).
+20. vlm (the thirteenth slice; no hand kernel, the counts stay 0):
+   SmolVLM-256M (smolvlm_256m(), float32, random weights from seed 0) on
+   the card serves three requests through the port's entry points: (1)
+   the 1080p frame written as a JPEG, io.read_image_any_rgb8,
+   preprocess_image(img, 512), build_prompt_tokens of 10 ids and 64
+   <image> tokens, 32 greedy tokens with a stream callback; (2) the same
+   at temperature 0.7 with a seeded generator, twice, equal tokens; (3)
+   the io phase's AVI through VideoReader, sample_video(reader, 4),
+   preprocess_video(..., 512), four rows, 32 greedy tokens. Then one
+   greedy request of 16 tokens each from PaliGemmaConfig() (224 px, 256
+   image tokens, vocabulary 257,216), smolvlm_500m() and smolvlm_2_2b(),
+   built one at a time and freed. Gates: every logit finite; n_generated
+   and the stream as the reference defines them; SmolVLM-256M's prefill
+   logits on the card within VLM_LOGIT_TOL of the CPU route on the same
+   weights, and its greedy tokens equal to the CPU's (teacher-forced on
+   the card's tokens) wherever the CPU's top-2 margin exceeds 10×
+   VLM_LOGIT_TOL (steps below it are printed); the four video rows'
+   prefill logits within VLM_LOGIT_TOL of the CPU route; the same for
+   each of the other three presets at 2 layers of depth and full width.
+   Printed per model: build, preprocess, vision-encode, prefill and
+   request ms; from generate's own decode loop (CUDA events at each
+   decoder call, recorded by a forward hook) decode ms a token p50 / p95
+   and tokens/s, and from two traced requests (n and 2 tokens) launches,
+   copies and device ms a decode step; host syncs a request, the device
+   busy share of a traced request, max_memory_allocated, FLOPs a prefill and a decode token and their
+   share of the float32 peak (2 × the f32 issue rate), and the decode's
+   byte bound (the weights a token at 3.35 TB/s).
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object with one entry per kernel; the last line is
@@ -229,6 +268,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import inspect
 import io as stdio
 import json
@@ -242,7 +282,7 @@ import time
 import numpy as np
 import torch
 
-from kornia_tpu_torch import apriltag, augmentations, bow
+from kornia_tpu_torch import apriltag, augmentations, bow, models
 from kornia_tpu_torch import io as kio
 from kornia_tpu_torch.features import matching, orb, responses
 from kornia_tpu_torch.geometry import camera, icp, liegroup, pnp, stereo
@@ -2720,7 +2760,7 @@ def _frame_trace(call):
                 torch.cuda.set_sync_debug_mode(0)
             wall = (time.perf_counter() - t0) * 1e3
     sites = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-             if "synchroniz" in str(w.message)]
+             if "called a synchronizing" in str(w.message)]
     tr = {"wall_ms": wall, "launches": 0, "copies": 0, "device_records": 0,
           "busy_ms": 0.0, "syncs": len(sites), "sync_sites": sites}
     for e in prof.profiler.kineto_results.events():
@@ -4190,6 +4230,610 @@ def phase_apriltag(card_line):
     return summary
 
 
+# --------------------------------------------------------------------------
+# the thirteenth slice: io and VLM serving
+# --------------------------------------------------------------------------
+
+# tests/test_io.py:42-50: mean |error| of a JPEG q95 round trip of a
+# smooth image
+JPEG_SMOOTH_CORRIDOR = 4.0
+# the same round trip of the textured imgproc frame (6-px blocks of noise,
+# σ 6): JPEG drops the noise; 12.96 on the CPU before any chip run
+JPEG_TEXTURED_BOUND = 16.0
+MJPEG_FRAMES = 60
+MJPEG_MEAN_ERR = 12.0          # tests/test_io.py's per-frame corridor
+TUM_DEPTH_SCALE = 5000.0
+
+
+def _ms_since(t0: float) -> float:
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _tum_layout(root, frames, gt):
+    """The frames as TUM RGB-D: rgb/*.png (the gray frame in 3 channels),
+    depth/*.png (u16, a seed-made plane at 2.7–5 m, 5000 ticks a metre),
+    rgb.txt, depth.txt and groundtruth.txt (tx ty tz qx qy qz qw). Returns
+    the depth maps in metres as the reader computes them."""
+    os.makedirs(os.path.join(root, "rgb"))
+    os.makedirs(os.path.join(root, "depth"))
+    h, w = frames[0].shape
+    ramp = np.linspace(2.7, 5.0, w)[None, :].repeat(h, 0)
+    lines = {"rgb": ["# rgb"], "depth": ["# depth"], "gt": ["# gt"]}
+    depths = []
+    for i, (f, pose) in enumerate(zip(frames, gt)):
+        t = 1305031102.0 + i / 30.0
+        d16 = np.round((ramp + 0.01 * i) * TUM_DEPTH_SCALE).astype(np.uint16)
+        kio.write_image_png(os.path.join(root, "rgb", f"{t:.6f}.png"),
+                            np.repeat(f[:, :, None], 3, 2))
+        kio.write_image_png(os.path.join(root, "depth", f"{t:.6f}.png"), d16)
+        lines["rgb"].append(f"{t:.6f} rgb/{t:.6f}.png")
+        lines["depth"].append(f"{t + 0.002:.6f} depth/{t:.6f}.png")
+        q, tr = pose[:4], pose[4:]
+        lines["gt"].append(" ".join([f"{t:.6f}"] + [repr(float(v)) for v in (
+            *tr, q[1], q[2], q[3], q[0])]))
+        depths.append(d16.astype(np.float32) / TUM_DEPTH_SCALE)
+    for name, fname in (("rgb", "rgb.txt"), ("depth", "depth.txt"),
+                        ("gt", "groundtruth.txt")):
+        with open(os.path.join(root, fname), "w") as fh:
+            fh.write("\n".join(lines[name]) + "\n")
+    return depths
+
+
+def _datasets_case(tmp, frames, gt):
+    """TUM (40 frames), EuRoC and KITTI (5 frames) written and read back."""
+    out = {}
+    t0 = time.perf_counter()
+    depths = _tum_layout(os.path.join(tmp, "tum"), frames, gt)
+    out["tum_write_ms"] = _ms_since(t0)
+    t0 = time.perf_counter()
+    ds = kio.TumRgbdDataset(os.path.join(tmp, "tum"))
+    got = [ds[i] for i in range(len(ds))]
+    out["tum_read_ms"] = _ms_since(t0)
+    if len(ds) != len(frames) or any(
+            not np.array_equal(g.rgb[:, :, 0], f) or
+            not np.array_equal(g.depth, d)
+            for g, f, d in zip(got, frames, depths)):
+        raise AssertionError("TUM RGB-D: frames or depth differ")
+    if not np.array_equal(ds.groundtruth["poses"], gt):
+        raise AssertionError("TUM RGB-D: ground-truth poses differ")
+    # EuRoC: mav0/cam0/data.csv + data/, ns stamps; KITTI: image_0, times
+    root = os.path.join(tmp, "euroc", "mav0", "cam0")
+    os.makedirs(os.path.join(root, "data"))
+    rows = ["#timestamp [ns],filename"]
+    kroot = os.path.join(tmp, "kitti", "sequences", "00")
+    os.makedirs(os.path.join(kroot, "image_0"))
+    for i, f in enumerate(frames[:5]):
+        ts = 1403636579763555584 + i * 50_000_000
+        kio.write_image_png(os.path.join(root, "data", f"{ts}.png"), f)
+        rows.append(f"{ts},{ts}.png")
+        kio.write_image_png(os.path.join(kroot, "image_0", f"{i:06d}.png"), f)
+    with open(os.path.join(root, "data.csv"), "w") as fh:
+        fh.write("\n".join(rows) + "\n")
+    with open(os.path.join(kroot, "times.txt"), "w") as fh:
+        fh.write("".join(f"{0.1 * i:.6f}\n" for i in range(5)))
+    eu = kio.EurocDataset(os.path.join(tmp, "euroc"))
+    ki = kio.KittiOdometryDataset(os.path.join(tmp, "kitti"), "00")
+    for name, d in (("EuRoC", eu), ("KITTI", ki)):
+        if len(d) != 5 or any(not np.array_equal(d[i].gray, frames[i])
+                              for i in range(5)):
+            raise AssertionError(f"{name}: frames differ")
+    if abs(eu.timestamps[1] - eu.timestamps[0] - 0.05) > 1e-6:
+        raise AssertionError("EuRoC: timestamps")
+    return out
+
+
+def _codec_case(tmp, frame):
+    """The 1080p frame through every codec: write and read ms, equality or
+    the JPEG corridors. Returns the rows and the JPEG's path."""
+    rows = {}
+    cases = (("png", kio.write_image_png, kio.read_image_png_rgb8),
+             ("tif", kio.write_image_tiff, kio.read_image_tiff),
+             ("webp", lambda p, a: kio.write_image_webp(p, a, lossless=True),
+              kio.read_image_webp_rgb8),
+             ("jpg", lambda p, a: kio.write_image_jpeg(p, a, quality=95),
+              kio.read_image_jpeg_rgb8))
+    for ext, write, read in cases:
+        path = os.path.join(tmp, f"frame.{ext}")
+        t0 = time.perf_counter()
+        write(path, frame)
+        w_ms = _ms_since(t0)
+        t0 = time.perf_counter()
+        back = read(path)
+        r_ms = _ms_since(t0)
+        err = float(np.abs(back.astype(np.int32) - frame).mean())
+        rows[ext] = {"write_ms": w_ms, "read_ms": r_ms, "mean_abs_err": err,
+                     "bytes": os.path.getsize(path)}
+        if ext != "jpg" and not np.array_equal(back, frame):
+            raise AssertionError(f"{ext}: the lossless round trip differs")
+    if rows["jpg"]["mean_abs_err"] >= JPEG_TEXTURED_BOUND:
+        raise AssertionError(f"jpeg q95 of the textured frame: mean error "
+                             f"{rows['jpg']['mean_abs_err']}")
+    hh, ww = frame.shape[:2]
+    yy, xx = np.mgrid[0:hh, 0:ww]
+    smooth = np.stack([xx * 255 // (ww - 1), yy * 255 // (hh - 1),
+                       (xx + yy) * 255 // (hh + ww - 2)], -1).astype(np.uint8)
+    path = os.path.join(tmp, "smooth.jpg")
+    kio.write_image_jpeg(path, smooth, quality=95)
+    err = float(np.abs(kio.read_image_jpeg_rgb8(path).astype(np.int32)
+                       - smooth).mean())
+    rows["jpg_smooth"] = {"mean_abs_err": err}
+    if err >= JPEG_SMOOTH_CORRIDOR:
+        raise AssertionError(f"jpeg q95 of a smooth 1080p image: mean error "
+                             f"{err}")
+    return rows, os.path.join(tmp, "frame.jpg")
+
+
+def mjpeg_frames(n: int = MJPEG_FRAMES, h: int = H, w: int = W):
+    """tests/test_io.py's clip at 480×752: gradients and a square that
+    moves 6 px a frame, the blue level rising 3 a frame."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for i in range(n):
+        f = np.stack([xx * 255 / (w - 1), yy * 255 / (h - 1),
+                      np.full((h, w), 40.0 + 3 * i)], -1).astype(np.uint8)
+        x0 = 4 + 6 * i
+        f[100:200, x0:x0 + 80] = (220, 40, 40)
+        out.append(f)
+    return out
+
+
+def _mjpeg_case(tmp):
+    frames = mjpeg_frames()
+    path = os.path.join(tmp, "clip.avi")
+    t0 = time.perf_counter()
+    with kio.VideoWriter(path, fps=30.0, size_hw=(H, W), codec="mjpg") as wr:
+        for f in frames:
+            wr.write(f)
+    out = {"write_ms_per_frame": _ms_since(t0) / len(frames),
+           "bytes": os.path.getsize(path)}
+    for name, reader in (("MjpegReader", kio.MjpegReader(path)),
+                         ("VideoReader (cv2)", kio.VideoReader(path))):
+        if reader.n_frames != len(frames) or abs(reader.fps - 30.0) > 0.1:
+            raise AssertionError(f"{name}: {reader.n_frames} frames at "
+                                 f"{reader.fps} fps")
+        t0 = time.perf_counter()
+        got = list(reader)
+        ms = _ms_since(t0) / len(frames)
+        reader.release()
+        errs = [float(np.abs(g.astype(np.int32) - f).mean())
+                for g, f in zip(got, frames)]
+        if len(got) != len(frames) or max(errs) >= MJPEG_MEAN_ERR:
+            raise AssertionError(f"{name}: {len(got)} frames, mean error "
+                                 f"up to {max(errs)}")
+        out[name] = {"read_ms_per_frame": ms, "max_mean_abs_err": max(errs)}
+    if kio.MjpegReader(path).size != (H, W):
+        raise AssertionError("MjpegReader: size")
+    return out, path
+
+
+def _capture_case(tmp, frames):
+    import ctypes
+    from kornia_tpu_torch.native import load_native_library
+
+    lib = load_native_library()
+    fn = lib.kornia_image_write_pnm
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+    root = os.path.join(tmp, "cam")
+    os.makedirs(root)
+    for i, f in enumerate(frames):
+        c = np.ascontiguousarray(f)
+        if fn(os.path.join(root, f"f{i:03d}.ppm").encode(),
+              c.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), H, W, 3):
+            raise AssertionError("kornia_image_write_pnm failed")
+    with kio.NativeCapture("dir:" + root) as cap:
+        t0 = time.perf_counter()
+        got = [cap.grab_frame() for _ in range(len(frames) + 2)]
+        ms = _ms_since(t0) / len(got)
+    if any(not np.array_equal(g, frames[i % len(frames)])
+           for i, g in enumerate(got)):
+        raise AssertionError("NativeCapture: frames differ")
+    return {"grab_ms_per_frame": ms, "frames": len(got)}
+
+
+def phase_io(card_line, tmp):
+    """The thirteenth slice's io (docstring 19), in ``tmp``. Returns the
+    1080p JPEG's and the AVI's paths for the vlm phase."""
+    t_phase = time.perf_counter()
+    frames, gt, _ = slam_sequence()
+    summary = {"datasets": _datasets_case(tmp, frames, gt)}
+    summary["codecs"], jpeg = _codec_case(tmp, imgproc_frame())
+    summary["mjpeg"], avi = _mjpeg_case(tmp)
+    summary["capture"] = _capture_case(tmp, mjpeg_frames(5))
+    for ext, row in summary["codecs"].items():
+        log(f"io {ext}: " + ", ".join(f"{k} {v:.4g}" for k, v in row.items())
+            + " (1080p)")
+    for name in ("MjpegReader", "VideoReader (cv2)"):
+        log(f"io mjpeg {name}: write {summary['mjpeg']['write_ms_per_frame']:.3f}"
+            f" ms a frame, read {summary['mjpeg'][name]['read_ms_per_frame']:.3f}"
+            f" ms a frame, mean |error| ≤ "
+            f"{summary['mjpeg'][name]['max_mean_abs_err']:.3f} (480×752, "
+            f"{MJPEG_FRAMES} frames)")
+    log(f"io: {json.dumps(summary)}")
+    log(f"io phase: {time.perf_counter() - t_phase:.1f} s [{card_line}]")
+    return jpeg, avi
+
+
+VLM_LOGIT_TOL = 1e-3          # card against the CPU route, |logit| ≈ 1-5
+VLM_MARGIN = 10 * VLM_LOGIT_TOL
+VLM_PROMPT_IDS = 10
+VLM_NEW_TOKENS = 32
+VLM_OTHER_TOKENS = 16
+VLM_EOS = 2
+
+
+def _text_flops(t, cache_len, c, prefix=False):
+    """FLOPs of T tokens of the decoder from ``cache_len`` (2 a
+    multiply-add): the projections and MLP, attention over the keys each
+    query sees, and the tied-embedding logits of every token."""
+    hd = c.head_dim
+    per_tok = (c.hidden_size * (c.num_heads + 2 * c.num_kv_heads) * hd
+               + c.num_heads * hd * c.hidden_size
+               + 3 * c.hidden_size * c.intermediate_size)
+    keys = (t * (cache_len + t) if prefix
+            else t * cache_len + t * (t + 1) // 2)
+    attn = 4 * c.num_heads * hd * keys
+    return (2 * per_tok * t + attn) * c.num_layers \
+        + 2 * t * c.hidden_size * c.vocab_size
+
+
+def _vision_flops(v, n_img, out_width):
+    n = (v.image_size // v.patch_size) ** 2
+    per_tok = (3 * v.hidden_size * v.hidden_size + v.hidden_size ** 2
+               + 2 * v.hidden_size * v.intermediate_size)
+    layers = v.num_layers * (2 * per_tok * n + 4 * n * n * v.hidden_size)
+    patch = 2 * n * v.patch_size ** 2 * 3 * v.hidden_size
+    return n_img * (layers + patch + 2 * n * v.hidden_size * out_width)
+
+
+def _text_weight_bytes(c, elem=4):
+    """The decoder's weights a decode step reads (layers, final norm and
+    the tied embedding as the logits' matrix)."""
+    hd = c.head_dim
+    per_layer = (c.hidden_size * (c.num_heads + 2 * c.num_kv_heads) * hd
+                 + c.num_heads * hd * c.hidden_size
+                 + 3 * c.hidden_size * c.intermediate_size
+                 + 2 * c.hidden_size)
+    return elem * (c.num_layers * per_layer + c.hidden_size
+                   + c.vocab_size * c.hidden_size)
+
+
+def _timed_event() -> torch.cuda.Event:
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _margin_check(label, cpu_logits, card_tokens, eos=VLM_EOS):
+    """Hold the card's greedy tokens to the CPU's logits at each step
+    (teacher-forced on the card's tokens): equal wherever the CPU's top-2
+    margin exceeds VLM_MARGIN; steps under it are printed, not held.
+    Stops at the first eos (later tokens are forced)."""
+    top2 = torch.topk(cpu_logits.float(), 2, dim=-1)
+    allowed = []
+    for i, t in enumerate(card_tokens.tolist()):
+        best = int(top2.indices[i, 0])
+        margin = float(top2.values[i, 0] - top2.values[i, 1])
+        if t != best:
+            if margin > VLM_MARGIN:
+                raise AssertionError(f"{label}: step {i}: card token {t}, "
+                                     f"CPU {best} by a margin of {margin}")
+            allowed.append((i, t, best, margin))
+            log(f"vlm {label}: step {i}: card token {t}, CPU {best}, top-2 "
+                f"margin {margin:.3g} < {VLM_MARGIN} (not held)")
+        if t == eos:
+            break
+    return allowed
+
+
+def _cpu_copy(model, cfg, build):
+    """The model's weights in a CPU build of the same configuration."""
+    cpu = build(cfg, device="meta")
+    cpu.to_empty(device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    return cpu
+
+
+def _cpu_prefill(model, cpu, cfg, tokens, images, label):
+    """Prefill logits of the card against the CPU copy, held to
+    VLM_LOGIT_TOL; returns (error, max |logit|, the CPU's logits and
+    cache)."""
+    tok_c, img_c = tokens.cpu(), images.cpu()
+    b = tok_c.shape[0]
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        lc, cache = cpu(tok_c, img_c,
+                        models.KVCache.zeros(cfg.text, b, device="cpu"))
+        cpu_s = time.perf_counter() - t0
+        lg, _ = model(tokens, images,
+                      models.KVCache.zeros(cfg.text, b, device=DEV))
+    err = float((lg.cpu() - lc).abs().max())
+    scale = float(lc.abs().max())
+    log(f"vlm {label}: prefill logits card − CPU max |Δ| {err:.3g} "
+        f"(max |logit| {scale:.3g}; tolerance {VLM_LOGIT_TOL}); CPU prefill "
+        f"{cpu_s:.2f} s")
+    if not err <= VLM_LOGIT_TOL:
+        raise AssertionError(f"{label}: prefill logits differ by {err}")
+    return err, scale, lc, cache
+
+
+def _cpu_route(model, cpu, cfg, tokens, images, card_tokens, label):
+    """The same weights on the CPU (``cpu``): prefill logits against the
+    card's, and the card's greedy tokens against the CPU's teacher-forced
+    logits."""
+    err, scale, lc, cache = _cpu_prefill(model, cpu, cfg, tokens, images,
+                                         label)
+    with torch.inference_mode():
+        forced = card_tokens[:, :-1].cpu().long()
+        lf, _ = cpu.text(cpu.text.embed_tokens(forced), cache)
+    steps = torch.cat([lc[0, -1:], lf[0]], 0)
+    allowed = _margin_check(label, steps, card_tokens[0].cpu())
+    return {"prefill_max_abs_err": err, "max_abs_logit": scale,
+            "steps_below_margin": allowed}
+
+
+def _serve(label, model, cfg, img, n_new, card_line, cpu_check=None):
+    """One model: preprocess, encode, prefill, a greedy request with the
+    stream callback, request times, per-step decode times and a traced
+    request; gates on finiteness, n_generated and the stream.
+    ``cpu_check(tokens, pixels, card_tokens)``, if given, holds the request
+    to the CPU route. Returns the model's row.
+
+    The decode figures come from ``models.generate`` itself: a forward
+    hook on ``model.text`` (entered by the prefill, then once a decode
+    step) holds every decoder call's logits finite and, in a timed run,
+    records a CUDA event as each is entered, so the n − 2 spans between
+    the decode steps' events are whole loop bodies (sampling, the eos
+    bookkeeping, embedding, decoder). Launches and device time per step
+    are the traced request's less those of a traced 2-token request,
+    over n − 2."""
+    c = cfg.text
+    size = cfg.vision.image_size
+    row = {}
+    pix = models.preprocess_image(img, size, device=DEV)
+    row["preprocess_ms"] = cuda_ms(lambda: models.preprocess_image(
+        img, size, device=DEV), reps=5)
+    rng = np.random.default_rng(SEED + 40)
+    prompt = models.build_prompt_tokens(
+        rng.integers(3, 49000, VLM_PROMPT_IDS).tolist(),
+        cfg.tokens_per_image, cfg.image_token_id)
+    tokens = torch.as_tensor(prompt[None]).long().to(DEV)
+    with torch.inference_mode():
+        row["vision_encode_ms"] = cuda_ms(lambda: model.encode_images(pix),
+                                          reps=5)
+
+        def prefill():
+            return model(tokens, pix, models.KVCache.zeros(c, 1, device=DEV))
+
+        row["prefill_ms"] = cuda_ms(prefill, reps=5)
+    seen, finite = [], []
+    hook = model.text.register_forward_hook(
+        lambda _m, _a, out: finite.append(torch.isfinite(out[0]).all()))
+    try:
+        res = models.generate(model, prompt, pix, max_new_tokens=n_new,
+                              eos_token_id=VLM_EOS,
+                              stream_callback=seen.append, device=DEV)
+    finally:
+        hook.remove()
+    if len(finite) != n_new or not bool(torch.stack(finite).all()):
+        raise AssertionError(f"{label}: {len(finite)} decoder calls, logits "
+                             f"finite {torch.stack(finite).tolist()}")
+    toks = res.tokens.cpu().numpy()
+    n_gen = res.n_generated.cpu().numpy()
+    for r in range(toks.shape[0]):
+        first = np.flatnonzero(toks[r] == VLM_EOS)
+        want = first[0] if len(first) else n_new
+        if n_gen[r] != want or not (toks[r, want:] == VLM_EOS).all():
+            raise AssertionError(f"{label}: n_generated {n_gen[r]}, "
+                                 f"tokens {toks[r].tolist()}")
+    if seen != toks[0][: int(n_gen[0]) + 1].tolist():
+        raise AssertionError(f"{label}: stream {seen} against "
+                             f"{toks[0].tolist()}")
+
+    def request(n=n_new):
+        return models.generate(model, prompt, pix, max_new_tokens=n,
+                               eos_token_id=VLM_EOS, device=DEV).tokens.cpu()
+
+    reqs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        request()
+        reqs.append(_ms_since(t0))
+    row["request_ms"] = statistics.median(reqs)
+    events = []
+    hook = model.text.register_forward_pre_hook(
+        lambda *_: events.append(_timed_event()))
+    try:
+        request()
+    finally:
+        hook.remove()
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(1, n_new - 1)]
+    row["decode_ms_p50"] = _pct(step_ms, 50)
+    row["decode_ms_p95"] = _pct(step_ms, 95)
+    row["tokens_per_s"] = 1e3 / float(np.mean(step_ms))
+    _, tr = _frame_trace(request)
+    _, tr2 = _frame_trace(lambda: request(2))
+    row["launches_per_decode_step"] = \
+        (tr["launches"] - tr2["launches"]) / (n_new - 2)
+    row["copies_per_decode_step"] = \
+        (tr["copies"] - tr2["copies"]) / (n_new - 2)
+    row["decode_device_ms"] = (tr["busy_ms"] - tr2["busy_ms"]) / (n_new - 2)
+    row.update(traced_request_ms=tr["wall_ms"], launches=tr["launches"],
+               host_syncs=tr["syncs"], sync_sites=tr["sync_sites"],
+               busy_share=tr["busy_ms"] / tr["wall_ms"])
+    n_prompt = tokens.shape[1]
+    width = c.hidden_size
+    vis = _vision_flops(cfg.vision, 1, width)
+    pre = vis + _text_flops(n_prompt, 0, c,
+                            prefix=isinstance(model, models.PaliGemma))
+    dec = _text_flops(1, n_prompt + n_new // 2, c)
+    wbytes = _text_weight_bytes(c)
+    peak = 2 * RATES["f32"]
+    row.update(
+        prefill_flops=pre, decode_flops_per_token=dec,
+        vision_flops=vis,
+        vision_share_of_f32_peak=vis / (row["vision_encode_ms"] / 1e3) / peak,
+        prefill_share_of_f32_peak=pre / ((row["vision_encode_ms"]
+                                          + row["prefill_ms"]) / 1e3) / peak,
+        decode_share_of_f32_peak=dec / (row["decode_ms_p50"] / 1e3) / peak,
+        decode_weight_bytes=wbytes,
+        decode_byte_bound_ms=wbytes / HBM_BYTES_PER_S * 1e3,
+        tokens=toks[0].tolist(), n_generated=n_gen.tolist())
+    log(f"vlm {label}: preprocess {row['preprocess_ms']:.3f} ms, vision "
+        f"encode {row['vision_encode_ms']:.3f} ms ({vis / 1e12:.4f} TFLOP, "
+        f"{row['vision_share_of_f32_peak']:.3f} of the f32 peak), prefill "
+        f"{row['prefill_ms']:.3f} ms ({n_prompt} tokens; with the encode "
+        f"{pre / 1e12:.4f} TFLOP, {row['prefill_share_of_f32_peak']:.3f}), "
+        f"request {row['request_ms']:.1f} ms ({n_new} tokens); decode "
+        f"{row['decode_ms_p50']:.3f} / {row['decode_ms_p95']:.3f} ms a token "
+        f"p50 / p95 ({row['tokens_per_s']:.1f} tokens/s; device "
+        f"{row['decode_device_ms']:.3f} ms, "
+        f"{row['launches_per_decode_step']:g} launches and "
+        f"{row['copies_per_decode_step']:g} copies a step; byte bound "
+        f"{row['decode_byte_bound_ms']:.4f} ms "
+        f"for {wbytes / 1e9:.3f} GB; {dec / 1e9:.3f} GFLOP, "
+        f"{row['decode_share_of_f32_peak']:.4f} of the f32 peak); traced "
+        f"request: {tr['launches']} launches, {tr['syncs']} host syncs "
+        f"{tr['sync_sites']}, busy {row['busy_share']:.4f} [{card_line}]")
+    if cpu_check is not None:
+        row["cpu_route"] = cpu_check(tokens, pix, res.tokens)
+    return row
+
+
+def _other_model(label, build, cfg, img, card_line):
+    """One greedy request of VLM_OTHER_TOKENS at full width, then the card
+    against the CPU at 2 layers of depth, full width; freed after."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, seed=SEED, device=DEV)
+    torch.cuda.synchronize()
+    build_ms = _ms_since(t0)
+    row = _serve(label, model, cfg, img, VLM_OTHER_TOKENS, card_line)
+    row.update(build_ms=build_ms,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    del model
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, num_layers=2),
+        text=dataclasses.replace(cfg.text, num_layers=2))
+    small = build(cut, seed=SEED, device=DEV)
+    pix = models.preprocess_image(img, cut.vision.image_size, device=DEV)
+    prompt = models.build_prompt_tokens(
+        np.random.default_rng(SEED + 41).integers(3, 49000, VLM_PROMPT_IDS)
+        .tolist(), cut.tokens_per_image, cut.image_token_id)
+    res = models.generate(small, prompt, pix, max_new_tokens=VLM_OTHER_TOKENS,
+                          eos_token_id=VLM_EOS, device=DEV)
+    tokens = torch.as_tensor(prompt[None]).long().to(DEV)
+    cpu = _cpu_copy(small, cut, build)
+    row["cpu_route_2_layers"] = _cpu_route(small, cpu, cut, tokens, pix,
+                                           res.tokens, f"{label} 2 layers")
+    del small, cpu
+    torch.cuda.empty_cache()
+    log(f"vlm {label}: build {build_ms:.1f} ms, max_memory_allocated "
+        f"{row['max_memory_allocated'] / 1e9:.3f} GB [{card_line}]")
+    return row
+
+
+def phase_vlm(card_line, jpeg, avi):
+    """The thirteenth slice (docstring 20)."""
+    t_phase = time.perf_counter()
+    ck.reset_launch_counts()
+    out = {}
+    cfg = models.smolvlm_256m()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = models.build_vlm(cfg, seed=SEED, device=DEV)
+    torch.cuda.synchronize()
+    build_ms = _ms_since(t0)
+    t0 = time.perf_counter()
+    img = kio.read_image_any_rgb8(jpeg)
+    read_ms = _ms_since(t0)
+
+    cpu = _cpu_copy(model, cfg, models.build_vlm)
+
+    def cpu_check(tokens, pix, card_tokens):
+        return _cpu_route(model, cpu, cfg, tokens, pix, card_tokens,
+                          "smolvlm_256m")
+
+    row = _serve("smolvlm_256m image", model, cfg, img, VLM_NEW_TOKENS,
+                 card_line, cpu_check=cpu_check)
+    row.update(build_ms=build_ms, jpeg_read_ms=read_ms)
+    out["smolvlm_256m"] = row
+    # request 2: temperature 0.7, a seeded generator, twice
+    pix = models.preprocess_image(img, 512, device=DEV)
+    prompt = models.build_prompt_tokens(
+        np.random.default_rng(SEED + 40).integers(3, 49000, VLM_PROMPT_IDS)
+        .tolist(), cfg.tokens_per_image, cfg.image_token_id)
+    sampled = [models.generate(
+        model, prompt, pix, max_new_tokens=VLM_NEW_TOKENS,
+        eos_token_id=VLM_EOS, temperature=0.7, seed=SEED,
+        device=DEV).tokens.cpu() for _ in range(2)]
+    if not torch.equal(sampled[0], sampled[1]):
+        raise AssertionError("temperature 0.7: one seed, two answers")
+    out["sampled"] = {"tokens": sampled[0][0].tolist(), "differs_from_greedy":
+                      int((sampled[0][0] != torch.tensor(row["tokens"])).sum())}
+    # request 3: the io phase's AVI, 4 sampled frames as 4 rows
+    t0 = time.perf_counter()
+    with kio.VideoReader(avi) as reader:
+        sample = models.sample_video(reader, 4)
+    sample_ms = _ms_since(t0)
+    vpix = models.preprocess_video(sample, 512, device=DEV)
+    vid_pre_ms = cuda_ms(lambda: models.preprocess_video(sample, 512,
+                                                         device=DEV), reps=5)
+    rows = np.repeat(prompt[None], 4, 0)
+    with torch.inference_mode():
+        venc_ms = cuda_ms(lambda: model.encode_images(vpix), reps=3)
+    # each row's prefill against the CPU copy: a row that took another
+    # row's image features would differ there
+    verr = _cpu_prefill(model, cpu, cfg, torch.as_tensor(rows).long().to(DEV),
+                        vpix, "smolvlm_256m video (4 rows)")[0]
+    del cpu
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        vres = models.generate(model, rows, vpix,
+                               max_new_tokens=VLM_NEW_TOKENS,
+                               eos_token_id=VLM_EOS, device=DEV)
+        vt = vres.tokens.cpu().numpy()
+        times.append(_ms_since(t0))
+    vn = vres.n_generated.cpu().numpy()
+    for r in range(4):
+        first = np.flatnonzero(vt[r] == VLM_EOS)
+        if vn[r] != (first[0] if len(first) else VLM_NEW_TOKENS):
+            raise AssertionError(f"video row {r}: n_generated {vn[r]}")
+    out["video"] = {
+        "sample_ms": sample_ms, "frames": len(sample),
+        "timestamps": sample.metadata.timestamps,
+        "preprocess_ms": vid_pre_ms, "vision_encode_ms": venc_ms,
+        "prefill_max_abs_err_cpu": verr,
+        "vision_share_of_f32_peak": _vision_flops(cfg.vision, 4, 576)
+        / (venc_ms / 1e3) / (2 * RATES["f32"]),
+        "request_ms": statistics.median(times), "n_generated": vn.tolist(),
+        "rows_differ": int(len({tuple(r) for r in vt.tolist()}))}
+    row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"vlm smolvlm_256m: build {build_ms:.1f} ms, JPEG read {read_ms:.2f}"
+        f" ms; temperature 0.7 twice equal, {out['sampled']['differs_from_greedy']}"
+        f" of {VLM_NEW_TOKENS} tokens from greedy; video (4 rows): sample "
+        f"{sample_ms:.1f} ms, preprocess {vid_pre_ms:.3f} ms, encode "
+        f"{venc_ms:.3f} ms, request {out['video']['request_ms']:.1f} ms; "
+        f"max_memory_allocated {row['max_memory_allocated'] / 1e9:.3f} GB "
+        f"[{card_line}]")
+    del model
+    torch.cuda.empty_cache()
+    for label, build, other in (
+            ("paligemma", models.build_paligemma, models.PaliGemmaConfig()),
+            ("smolvlm_500m", models.build_vlm, models.smolvlm_500m()),
+            ("smolvlm_2_2b", models.build_vlm, models.smolvlm_2_2b())):
+        out[label] = _other_model(label, build, other, img, card_line)
+    if any(ck.LAUNCHES.values()):
+        raise AssertionError(f"vlm: hand kernels launched: {ck.LAUNCHES}")
+    log(f"vlm: {json.dumps(out)}")
+    log(f"vlm phase: {time.perf_counter() - t_phase:.1f} s [{card_line}]")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="DIR",
@@ -4654,6 +5298,10 @@ def main():
     k7["launches"] = sum(k7["paths"].values())
     # 18. the twelfth slice: AprilTag, the dense CCL, the host formats
     phase_apriltag(card_line)
+    # 19-20. the thirteenth slice: io, then VLM serving from its files
+    with tempfile.TemporaryDirectory() as tmp:
+        jpeg, avi = phase_io(card_line, tmp)
+        phase_vlm(card_line, jpeg, avi)
 
     # 13. the tracking step (the seventh slice)
     track_launches, track_errs = phase_track(card_line)

@@ -70,7 +70,7 @@ def entry(fn):
 
 
 # The subpackages, in kornia_tpu/__init__.py's order, restricted to what is
-# ported (parallel and models are not yet). They import ``entry`` and
+# ported (only parallel is not yet). They import ``entry`` and
 # ``resolve_device`` from here, so they come after them. Nothing here
 # builds a kernel or the native library: that happens at first use.
 from kornia_tpu_torch import image  # noqa: E402
@@ -84,6 +84,7 @@ from kornia_tpu_torch import augmentations  # noqa: E402
 from kornia_tpu_torch import apriltag  # noqa: E402
 from kornia_tpu_torch import bow  # noqa: E402
 from kornia_tpu_torch import slam  # noqa: E402
+from kornia_tpu_torch import models  # noqa: E402
 
 __all__ = [
     "image",
@@ -97,5 +98,6 @@ __all__ = [
     "apriltag",
     "bow",
     "slam",
+    "models",
     "__version__",
 ]

@@ -1,7 +1,7 @@
 """Carry state from the JAX package into the port.
 
-There are no learned weights on the ported paths. The state is the
-configurations (ORB, two-view, LK, preprocessor, SLAM, BA, PGO, ICP, the
+The learned weights are the models' (:func:`model_params`). The rest of
+the state is the configurations (ORB, two-view, LK, preprocessor, SLAM, BA, PGO, ICP, the
 augmentations), the stereo calibration, BA problems, bag-of-words
 vocabularies, SLAM maps, images and, for stage-by-stage comparison, the
 reference's intermediate arrays. The augmentations hold no weights: their
@@ -243,6 +243,42 @@ def augmentation_pipeline(values: Mapping[str, Any], device="cuda"
     return _aug.AugmentationPipeline(
         [augmentation(v) for v in values["augs"]],
         seed=int(values.get("seed", 0)), device=device)
+
+
+# DenseGeneral kernels whose input is their first two axes (axis=(-2, -1))
+_HEADS_IN = ("o", "proj")
+
+
+def model_params(flat: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The reference's model params, flattened to numpy with ``'/'``-joined
+    flax names (``flax.traverse_util.flatten_dict(params, sep="/")``; a
+    leading ``params/`` optional) → the port's parameter names and
+    layouts, as ``model.load_state_dict`` takes them (as numpy;
+    ``models.load_params`` takes the flax names themselves and converts
+    them here). DenseGeneral kernels (in…, out…) become Linear weights
+    (out, in), the HWIO patch convolution OIHW, the embedding table the
+    one ``tok_embed.weight`` that the lookup and the logits share,
+    LayerNorm ``scale`` its ``weight``, and biases flat."""
+    out = {}
+    for key, arr in flat.items():
+        a = np.asarray(arr)
+        parts = key.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        leaf = parts[-1]
+        mod = parts[-2] if len(parts) > 1 else ""
+        if leaf == "kernel" and mod == "patch_embed":      # HWIO → OIHW
+            a, leaf = a.transpose(3, 2, 0, 1), "weight"
+        elif leaf == "kernel":
+            n_in = a.ndim - 1 if mod in _HEADS_IN else 1
+            a = a.reshape(int(np.prod(a.shape[:n_in])), -1).T
+            leaf = "weight"
+        elif leaf == "bias":
+            a = a.reshape(-1)
+        elif leaf in ("embedding", "scale"):
+            leaf = "weight"
+        out[".".join(parts[:-1] + [leaf])] = np.array(a)
+    return out
 
 
 def tensor(array, device="cuda", dtype: torch.dtype | None = None

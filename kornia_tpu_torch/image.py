@@ -11,8 +11,9 @@ counterpart of that registration here.
 ``to_torch``/``from_torch`` are the identity (the data is a torch tensor
 already); they keep the reference's names so that user code ports
 unchanged. DLPack goes both ways, zero-copy, on the producer's device.
-The reference's Arrow export (``to_arrow``/``from_arrow``, over pyarrow)
-is not ported.
+Arrow goes both ways in the reference's wire schema (``to_arrow`` /
+``from_arrow``; pyarrow is imported inside them), so an image exported by
+either package imports into the other.
 """
 
 from __future__ import annotations
@@ -240,6 +241,51 @@ class Image:
         """Wrap ``tensor`` as it is (the identity: kept for the reference's
         name)."""
         return cls(data=tensor, color_space=color_space or ColorSpace.UNKNOWN)
+
+    # -- Arrow (reference kornia-image/src/arrow.rs IntoArrow/TryFromArrow:
+    # a StructArray {width, height, channels: u32[1], data: binary[1]}) --
+    def to_arrow(self):
+        """Export as an Arrow StructArray (arrow.rs:40 ``into_arrow``).
+        (H, W, C) u8 in HWC only, as in the reference; the pixels are
+        copied to the host once and wrapped without a second copy."""
+        import pyarrow as pa
+
+        if self.layout is not ImageLayout.HWC:
+            raise ValueError("to_arrow requires HWC layout")
+        host = np.ascontiguousarray(self.numpy())
+        if host.dtype != np.uint8 or host.ndim != 3:
+            raise ValueError(
+                "to_arrow supports (H, W, C) u8 images (reference "
+                "arrow.rs implements Image<u8, C> only)")
+        h, w, c = host.shape
+        offsets = np.asarray([0, host.size], np.int32)
+        data_arr = pa.Array.from_buffers(
+            pa.binary(), 1,
+            [None, pa.py_buffer(offsets), pa.py_buffer(host)])
+        return pa.StructArray.from_arrays(
+            [pa.array([w], pa.uint32()), pa.array([h], pa.uint32()),
+             pa.array([c], pa.uint32()), data_arr],
+            names=["width", "height", "channels", "data"])
+
+    @classmethod
+    def from_arrow(cls, array, color_space=None, device="cuda") -> "Image":
+        """Import the reference's Arrow image encoding (arrow.rs:67
+        ``try_from_arrow``) onto ``device``."""
+        import pyarrow as pa
+
+        if isinstance(array, pa.ChunkedArray):
+            array = array.combine_chunks()
+        if not pa.types.is_struct(array.type):
+            raise ValueError("expected a StructArray image encoding")
+        w = array.field("width")[0].as_py()
+        h = array.field("height")[0].as_py()
+        c = array.field("channels")[0].as_py()
+        buf = np.frombuffer(array.field("data")[0].as_py(), np.uint8)
+        if buf.size != h * w * c:
+            raise ValueError(f"data length {buf.size} != {h}x{w}x{c}")
+        return cls.from_numpy(buf.reshape(h, w, c).copy(),
+                              color_space=color_space or ColorSpace.UNKNOWN,
+                              device=device)
 
 
 def as_array(img) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """g++ build at first use and the ctypes loader for the host C++ sources.
 
 The sources beside this file are byte-for-byte copies of the JAX
-package's (``ccl.cpp``, ``apriltag_mid.cpp``, ``rvl.cpp``). They compile
+package's (``ccl.cpp``, ``apriltag_mid.cpp``, ``rvl.cpp``, ``image_io.cpp``
+and ``capture.cpp``, which calls ``image_io.cpp``'s PNM reader). They compile
 into one shared library under ``kornia_tpu_torch/_build/``, named by the
 hash of the sources and the flags, as ``ops/cuda_kernels.py`` names its
 ``nvcc`` outputs. The build writes a temporary file and renames it into
@@ -22,7 +23,8 @@ import subprocess
 import threading
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("ccl.cpp", "apriltag_mid.cpp", "rvl.cpp")
+SOURCES = ("ccl.cpp", "apriltag_mid.cpp", "rvl.cpp", "image_io.cpp",
+           "capture.cpp")
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 CXX = "g++"
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")

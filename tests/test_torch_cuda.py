@@ -1258,3 +1258,123 @@ def test_cuda_decode_equals_cpu_route(cuda_dev, route, monkeypatch):
         for a, b in zip(got, want):
             assert np.array_equal(a.corners, b.corners)
             assert np.array_equal(a.homography, b.homography)
+
+
+# --------------------------------------------------------------------------
+# the VLM serving path (no hand kernel): the card against the CPU route
+# --------------------------------------------------------------------------
+
+# |Δ logit| between the card and the CPU route on the same weights (the
+# logits are O(1); float32 sums in two orders)
+VLM_CARD_TOL = 1e-4
+
+
+def _tiny_vlm_models():
+    from kornia_tpu_torch import models
+
+    smol = models.VLMConfig(
+        vision=models.ViTConfig(image_size=64, patch_size=16, hidden_size=64,
+                                intermediate_size=128, num_layers=2,
+                                num_heads=4),
+        text=models.LLMConfig(vocab_size=512, hidden_size=64,
+                              intermediate_size=128, num_layers=3,
+                              num_heads=4, num_kv_heads=2, max_seq_len=128),
+        pixel_shuffle_factor=2, image_token_id=500)
+    pali = models.PaliGemmaConfig(
+        vision=models.ViTConfig(image_size=28, patch_size=14, hidden_size=32,
+                                intermediate_size=64, num_layers=2,
+                                num_heads=2),
+        text=models.GemmaConfig(vocab_size=256, hidden_size=64,
+                                intermediate_size=128, num_layers=2,
+                                num_heads=4, num_kv_heads=1, head_dim=32,
+                                max_seq_len=64),
+        image_token_id=250)
+    return ((models.build_vlm, smol), (models.build_paligemma, pali))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1], ids=["smolvlm", "paligemma"])
+def test_cuda_vlm_generate_equals_cpu_route(cuda_dev, which):
+    """A tiny SmolVLM and a tiny PaliGemma built on the card and copied to
+    the CPU: prefill logits within VLM_CARD_TOL, greedy tokens and
+    n_generated equal; no hand kernel launches."""
+    from kornia_tpu_torch import models
+
+    build, cfg = _tiny_vlm_models()[which]
+    card = build(cfg, seed=3, device=cuda_dev)
+    cpu = build(cfg, device="meta")
+    cpu.to_empty(device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    rng = np.random.default_rng(4)
+    s = cfg.vision.image_size
+    imgs = rng.standard_normal((2, s, s, 3)).astype(np.float32)
+    toks = np.asarray([[1] + [cfg.image_token_id] * cfg.tokens_per_image
+                       + rng.integers(3, 200, 4).tolist() for _ in range(2)])
+    ck.reset_launch_counts()
+    with torch.inference_mode():
+        lg, _ = card(torch.as_tensor(toks, device=cuda_dev),
+                     torch.as_tensor(imgs, device=cuda_dev),
+                     models.KVCache.zeros(cfg.text, 2, device=cuda_dev))
+        lc, _ = cpu(torch.as_tensor(toks), torch.as_tensor(imgs),
+                    models.KVCache.zeros(cfg.text, 2, device="cpu"))
+    assert float((lg.cpu() - lc).abs().max()) <= VLM_CARD_TOL
+    rg = models.generate(card, toks, imgs, max_new_tokens=12, device=cuda_dev)
+    rc = models.generate(cpu, toks, imgs, max_new_tokens=12, device="cpu")
+    assert torch.equal(rg.tokens.cpu(), rc.tokens)
+    assert torch.equal(rg.n_generated.cpu(), rc.n_generated)
+    assert not any(ck.LAUNCHES.values())
+
+
+# the warning of sync debug mode "warn" at a host sync (its first use
+# also warns that the mode is a prototype: that is not a sync)
+_SYNC = "called a synchronizing"
+
+
+@pytest.mark.cuda
+def test_cuda_generate_syncs_once_with_the_stream(cuda_dev):
+    """A greedy request on the card with numpy inputs: no host sync in
+    ``generate`` but the stream callback's one read."""
+    import warnings
+
+    from kornia_tpu_torch import models
+
+    build, cfg = _tiny_vlm_models()[0]
+    model = build(cfg, seed=3, device=cuda_dev)
+    s = cfg.vision.image_size
+    imgs = np.zeros((1, s, s, 3), np.float32)
+    toks = np.asarray([[1] + [cfg.image_token_id] * cfg.tokens_per_image
+                       + [5, 6]])
+    models.generate(model, toks, imgs, max_new_tokens=4, device=cuda_dev)
+    torch.cuda.synchronize()
+    seen = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            models.generate(model, toks, imgs, max_new_tokens=8,
+                            device=cuda_dev)
+            n_plain = sum(_SYNC in str(w.message) for w in caught)
+            models.generate(model, toks, imgs, max_new_tokens=8,
+                            stream_callback=seen.append, device=cuda_dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = [f"{w.filename}:{w.lineno}" for w in caught
+             if _SYNC in str(w.message)]
+    assert n_plain == 0 and len(sites) == 1, sites
+    assert 1 <= len(seen) <= 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,size", [((1080, 1920, 3), 512),
+                                        ((480, 752, 3), 384),
+                                        ((61, 47, 3), 224)])
+def test_cuda_preprocess_image_within_one_lsb(cuda_dev, shape, size):
+    """``preprocess_image`` on the card within one u8 LSB of the resize of
+    the CPU route (1/127.5 after the SigLIP normalisation)."""
+    from kornia_tpu_torch import models
+
+    img = _img(size, shape)
+    got = models.preprocess_image(img, size, device=cuda_dev)
+    want = models.preprocess_image(img, size, device="cpu")
+    assert got.shape == want.shape == (1, size, size, 3)
+    assert float((got.cpu() - want).abs().max()) <= 1.0 / 127.5 + 1e-6

@@ -168,35 +168,32 @@ def test_bare_import_exposes_every_ported_name():
     every subpackage of the reference's top-level ``__all__`` that the
     port has, every module of ``ops``' and ``geometry``'s (``cuda_kernels``
     for ``pallas_kernels``), every name of ``optim``'s, ``slam``'s,
-    ``bow``'s, ``utils``' and ``apriltag``'s ``__all__`` and the ported
-    names of ``io``'s is an attribute, and the subpackages ported so far
-    are among them; neither jax nor kornia_tpu, PIL or cv2 is imported."""
+    ``bow``'s, ``utils``', ``apriltag``'s, ``io``'s and ``models``'
+    ``__all__`` is an attribute, and the subpackages ported so far are
+    among them; none of jax, flax, kornia_tpu, PIL, cv2, pyarrow or
+    transformers is imported."""
     rename = {"pallas_kernels": "cuda_kernels"}
     want = [n for n in _reference_all("__init__.py")
             if n == "__version__" or _ported((), n)]
     assert {"ops", "features", "geometry", "optim", "slam", "bow", "utils",
-            "image", "augmentations", "io", "apriltag"} <= set(want)
+            "image", "augmentations", "io", "apriltag", "models"} <= set(want)
     attrs = list(want)
     for sub in ("ops", "geometry"):
         names = [rename.get(n, n) for n in _reference_all(f"{sub}/__init__.py")]
         assert [n for n in names if not _ported((sub,), n)] == []
         attrs += [f"{sub}.{n}" for n in names]
-    for sub in ("optim", "slam", "bow", "utils", "apriltag"):
+    for sub in ("optim", "slam", "bow", "utils", "apriltag", "io", "models"):
         attrs += [f"{sub}.{n}" for n in _reference_all(f"{sub}/__init__.py")]
-    # io: the formats that need no image codec (item 17b has the rest)
-    io_names = _reference_all("io/__init__.py")
-    io_ported = ["rvl_compress", "rvl_decompress", "read_ply", "write_ply",
-                 "read_pcd", "write_pcd", "ColmapCamera", "ColmapImage",
-                 "ColmapPoint3d", "read_cameras_txt", "read_images_txt",
-                 "read_points3d_txt", "read_colmap_model", "FpsCounter"]
-    assert set(io_ported) <= set(io_names)
-    attrs += [f"io.{n}" for n in io_ported]
     attrs += ["ops.color.rgb_to_gray", "features.fast.fast_detect",
               "features.orb.orb_detect_and_describe",
               "geometry.essential5pt.essential_5pt", "image.Image",
               "apriltag.AprilTagDecoder",
               "ops.connected_components.connected_components",
-              "ops.contours.find_contours", "io.rvl_compress"]
+              "ops.contours.find_contours", "io.rvl_compress",
+              "models.generate", "models.build_vlm", "models.build_paligemma",
+              "models.smolvlm_256m", "models.preprocess_image",
+              "io.read_image_any_rgb8", "io.VideoReader", "io.MjpegReader",
+              "io.TumRgbdDataset"]
     code = (
         "import sys, functools\n"
         "import kornia_tpu_torch\n"
@@ -208,9 +205,9 @@ def test_bare_import_exposes_every_ported_name():
         "    except AttributeError:\n"
         "        missing.append(a)\n"
         "assert not missing, missing\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'kornia_tpu', 'PIL',\n"
-        "       'cv2') or m.startswith(('jax.', 'kornia_tpu.', 'PIL.',\n"
-        "       'cv2.'))]\n"
+        "absent = ('jax', 'flax', 'kornia_tpu', 'PIL', 'cv2', 'pyarrow',\n"
+        "          'transformers')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in absent]\n"
         "assert not bad, bad\n"
         "print('ok', len(attrs))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
