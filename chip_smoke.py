@@ -259,6 +259,31 @@ Phases (any failure raises, so the script exits non-zero):
    share of the float32 peak (2 × the f32 issue rate), and the decode's
    byte bound (the weights a token at 3.35 TB/s).
 
+21. parallel (the fourteenth slice, run after slam): the distributed
+   layer (kornia_tpu_torch.parallel) on ranks spawned by
+   parallel.mesh.spawn: (a) 1 rank over NCCL, (b) 4 ranks that share the
+   card over gloo (NCCL refuses two ranks of one communicator on one
+   card). Each: the sharded front end on the first 4 slam frames
+   (OrbConfig(); K1/K2/K3 1/2/1 a frame on every rank, each call recorded
+   and held to its plain version, the features bit-equal to the single
+   process's); the exchange of the Dense configuration's keyframe layout
+   in a2a and rounds mode and, on 4 ranks, a hot pair of 1,500
+   observations (every shard's rows equal to host_receive_order;
+   payload bytes printed); the summed Schur BA on the Dense (170 × 3000,
+   chol) and, on 4 ranks, the PCG (600 × 8000, cg_dense) configuration in
+   both layouts, 12 iterations, Huber 2, against the single-process solve
+   at PAR_BA_TOL (the reference's distributed-vs-single bounds), 2
+   collectives a LM iteration; PGO on the ring, 2 iterations against the
+   single process at PAR_PGO_TOL, and on 4 ranks 15 under the backend
+   gates; on 4 ranks MonocularSlam(mesh=) over the 40 slam frames, rank 0
+   leading each PGO and global BA through parallel.controller.lead and
+   the other ranks in parallel.follow, under the slam gates and the slam
+   phase's loop count. Every rank's poses bit-equal. Printed: call ms and
+   (one solve of each shape traced on rank 0) device ms and launches a LM
+   iteration, collectives and bytes a LM iteration, host syncs a solve
+   over NCCL, each run's seconds. A rank that raises, dies or hangs past
+   PAR_TIMEOUT fails the phase.
+
 The line before the last is the card's name and power limit, the one
 before it a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -300,6 +325,9 @@ from kornia_tpu_torch.ops import metrics, morphology, normalize, pyramid
 from kornia_tpu_torch.ops import resize, threshold, warp, warp_exact, yuv
 from kornia_tpu_torch.ops.filters import gaussian_blur
 from kornia_tpu_torch.optim import ba, pgo
+from kornia_tpu_torch import parallel
+from kornia_tpu_torch.parallel import ba_dist, exchange, frontend_dist
+from kornia_tpu_torch.parallel import pgo_dist
 from kornia_tpu_torch.slam import evaluate as slam_eval
 from kornia_tpu_torch.slam import system as slam
 
@@ -2655,17 +2683,17 @@ def slam_ate(system, centres, device) -> float:
 
 
 def run_slam(frames, vocab, device, per_frame=None, stages=None,
-             seed: int = SEED):
+             seed: int = SEED, mesh=None):
     """``MonocularSlam`` with SlamConfig() widths, the loop thresholds and
     draws seeded with ``seed`` over ``frames`` (host u8 arrays, as a
     camera hands them over). Returns (system, call ms per frame).
     ``per_frame(i, fn)`` runs each frame's call (default: just the call);
     ``stages``: a dict that collects the host ms of each call of the
     loop's stages (each ends in a read-back, so its host time covers its
-    device work)."""
+    device work). ``mesh``: MonocularSlam's (this process is rank 0)."""
     system = slam.MonocularSlam(
         K_EUROC, slam.SlamConfig(**SLAM_LOOP_CFG, seed=seed),
-        vocabulary=vocab, device=device)
+        vocabulary=vocab, device=device, mesh=mesh)
     if stages is not None:
         for name in ("_extract", "_initialize", "_track", "_triangulate_new",
                      "_local_ba", "_try_loop_closure", "_run_pgo",
@@ -2734,11 +2762,12 @@ def slam_gates(s: dict, ate_bound: float = SLAM_ATE_BOUND) -> list:
     return failed
 
 
-def _frame_trace(call):
+def _frame_trace(call, count_syncs: bool = True):
     """One frame under torch.profiler (CUPTI records only) and sync debug
     mode "warn": (result, {host wall ms, kernel launches and copies
     enqueued, device records, device busy ms, host synchronisations and
-    the Python line of each}).
+    the Python line of each}). ``count_syncs`` False: no sync debug mode
+    (syncs None).
     The trace is read from its raw records (building a FunctionEvent for
     each of a frame's ~10^4-10^5 records takes seconds); the tracer loses
     a session's first few device records, so busy time is a slight
@@ -2751,7 +2780,7 @@ def _frame_trace(call):
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda.set_sync_debug_mode("warn")
+            torch.cuda.set_sync_debug_mode("warn" if count_syncs else 0)
             t0 = time.perf_counter()
             try:
                 out = call()
@@ -2762,7 +2791,8 @@ def _frame_trace(call):
     sites = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
              if "called a synchronizing" in str(w.message)]
     tr = {"wall_ms": wall, "launches": 0, "copies": 0, "device_records": 0,
-          "busy_ms": 0.0, "syncs": len(sites), "sync_sites": sites}
+          "busy_ms": 0.0, "syncs": len(sites) if count_syncs else None,
+          "sync_sites": sites}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
             tr["device_records"] += 1
@@ -2895,7 +2925,453 @@ def phase_slam(card_line):
         f"traced run {t_traced:.1f} s)")
     if failed:
         raise AssertionError(f"slam: ground-truth gates failed: {failed}")
-    return launches, errs
+    return launches, errs, summ
+
+
+# --------------------------------------------------------------------------
+# the fourteenth slice: the distributed layer on ranks that share the card
+# --------------------------------------------------------------------------
+
+PAR_RANKS = 4
+PAR_BA_ITERS = slam.SlamConfig().global_ba_iterations     # 12
+# the reference's own bounds for a distributed against a single-host
+# solve (tests/test_ba_dist.py:33-43)
+PAR_BA_TOL = {"cost": 1e-3, "poses": 5e-4, "points": 5e-3}
+PAR_PGO_TOL = 1e-3          # poses after 2 iterations: the backend gate
+PAR_TIMEOUT = 420.0         # seconds for one spawn of the ranks
+PAR_HOT = 1500              # tests/test_parallel2.py's hot pair
+PAR_DEVICE = "cuda:0"       # every rank's device: the one card
+
+
+def skewed_traffic(seed: int = SEED):
+    """tests/test_parallel2.py:162-225's skewed co-visibility on PAR_RANKS
+    shards: PAR_HOT observations from shard 1 of points of shard 3, 6
+    between every other pair, 10 points a shard."""
+    d, hot, cold, per = PAR_RANKS, PAR_HOT, 6, 10
+    rng = np.random.default_rng(seed)
+    src, cam = [1] * hot, list(rng.integers(0, 4, hot))
+    pt = list(rng.integers(3 * per, 4 * per, hot))
+    for s in range(d):
+        for t in range(d):
+            if (s, t) != (1, 3):
+                src += [s] * cold
+                cam += list(rng.integers(0, 4, cold))
+                pt += list(rng.integers(t * per, (t + 1) * per, cold))
+    uv = rng.random((len(src), 2)).astype(np.float32)
+    return (np.asarray(src), np.asarray(cam, np.int32), np.asarray(pt), uv,
+            d, per), {}
+
+
+def parallel_inputs(d, frames, centres=None):
+    """The phase's host inputs for a ``d``-rank mesh: the front end's
+    frames, the exchange plans, the BA configurations in both layouts
+    (the PCG one on more than one rank), the PGO ring, and with
+    ``centres`` the SLAM sequence. Returns (inputs, the BA problems, the
+    ring on the CPU, its true poses)."""
+    problems = {
+        "dense 170x3000": synth_ba_problem(170, 3000, 1, 0.2, "cpu"),
+        "pcg 600x8000": synth_ba_problem(600, 8000, 1, 0.0375, "cpu")}
+    if d == 1:
+        problems.pop("pcg 600x8000")
+    params = ba.BAParams(max_iterations=PAR_BA_ITERS, loss="huber",
+                         loss_scale=2.0)
+    bas = {}
+    for name, (prob, m) in problems.items():
+        bas[name] = {"observations": m,
+                     "colo": ba_dist.shard_problem(prob, d),
+                     "kf": ba_dist.shard_problem_by_keyframe(prob, d)}
+    plans = {mode: ba_dist.keyframe_exchange_plan(
+        problems["dense 170x3000"][0], d, mode=mode)
+        for mode in ("a2a", "rounds")}
+    if d == PAR_RANKS:
+        plans["skewed"] = exchange.build_exchange_plan(*skewed_traffic()[0])
+    ring, gt = pgo_ring("cpu")
+    ring_np = {k: v.numpy() for k, v in ring.items()}
+    pgo_sharded = pgo_dist.shard_pgo(
+        ring_np["poses"], ring_np["edge_i"], ring_np["edge_j"],
+        ring_np["edge_meas"], ring_np["edge_weight"], fixed=ring_np["fixed"],
+        n_devices=d)
+    return {"frames": np.stack(frames[:PAR_RANKS]), "plans": plans,
+            "ba": bas, "ba_params": params, "pgo": pgo_sharded,
+            "pgo_iters": (2, 15) if d > 1 else (2,),
+            "slam": None if centres is None else (frames, centres)
+            }, problems, ring, gt
+
+
+def _rank_traced(fn, mesh, trace: bool = True):
+    """``fn`` on every rank (the collectives need every rank), timed by
+    the host clock; with ``trace`` first once more, traced on rank 0
+    (``_frame_trace``: launches, copies, device busy ms; host syncs only
+    over NCCL — a gloo collective on CUDA tensors waits for the device in
+    gloo's own thread, which sync debug mode reports on stderr, once a
+    collective), which also warms up. A trace of 10^4 launches takes
+    seconds to read, so one item of each shape is traced. Returns
+    (result, host wall ms, rank 0's trace or NaNs)."""
+    tr = {"busy_ms": float("nan"), "launches": float("nan"), "syncs": None}
+    if trace and mesh.rank == 0:
+        _, tr = _frame_trace(fn, torch.distributed.get_backend() == "nccl")
+        tr.pop("sync_sites")
+    elif trace:
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, tr
+
+
+def _collectives(mesh, fn):
+    """(fn's result, collectives and bytes it made on this rank)."""
+    c0, b0 = mesh.counts["collectives"], mesh.counts["bytes"]
+    out = fn()
+    return out, (mesh.counts["collectives"] - c0,
+                 mesh.counts["bytes"] - b0)
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def parallel_rank(mesh, inputs):
+    """What each rank of the phase runs, on ``mesh.device``; returns its
+    numbers and results as host values."""
+    out = {"rank": mesh.rank, "backend": torch.distributed.get_backend(),
+           "device": str(mesh.device), "stage_s": {}}
+    t0 = time.perf_counter()
+    # the sharded front end: B frames, B / D a rank, K1-K3 held to their
+    # plain versions on the calls the path made
+    frames, cfg = inputs["frames"], orb.OrbConfig()
+    per = len(frames) // mesh.size
+    orb.orb_detect_and_describe(frames[0], cfg, device=mesh.device)
+    recs = [Record(name) for name in ("fast_harris_levels", "windows_paired",
+                                      "brief_rotated")]
+    with recs[0], recs[1], recs[2]:
+        (feats, coll), launches = counted(lambda: _collectives(
+            mesh, lambda: frontend_dist.detect_and_describe_batch(
+                frames, cfg, mesh)))
+    only(launches, {"fast_harris": per, "windows_paired": 2 * per,
+                    "brief_rotated": per})
+    out["front"] = {"launches": launches, "collectives": coll,
+                    "features": [_np(f) for f in feats],
+                    "kernel_errs": check_track_kernels(
+                        *recs, label=f"parallel rank {mesh.rank} "
+                                     f"frontend_dist")}
+    out["front"]["call_ms"] = cuda_ms(
+        lambda: frontend_dist.detect_and_describe_batch(frames, cfg, mesh),
+        reps=5, warmup=1)
+
+    out["stage_s"]["front"] = time.perf_counter() - t0
+    # the exchange: every shard's received rows equal the host plan's
+    out["exchange"] = {}
+    for name, plan in inputs["plans"].items():
+        (fields, coll), wall, _ = _rank_traced(lambda: _collectives(
+            mesh, lambda: exchange.exchange_observations(plan, mesh)), mesh,
+            trace=False)
+        for dd in range(mesh.size):
+            want = torch.as_tensor(exchange.host_receive_order(
+                plan, dd, mesh.size))
+            if not (torch.equal(fields[0][dd].cpu(), want[:, 0].int())
+                    and torch.equal(fields[1][dd].cpu(), want[:, 1].int())
+                    and torch.equal(fields[2][dd].cpu(), want[:, 2:4])
+                    and torch.equal(fields[3][dd].cpu(), want[:, 4])):
+                raise AssertionError(f"exchange {name}: shard {dd}'s rows "
+                                     "differ from host_receive_order")
+        out["exchange"][name] = {
+            "mode": plan.mode, "payload_bytes": plan.payload_bytes,
+            "collectives": coll[0], "bytes": coll[1], "call_ms": wall}
+
+    out["stage_s"]["exchange"] = time.perf_counter() - t0
+    # the summed Schur BA, both configurations, both layouts
+    params = inputs["ba_params"]
+    out["ba"] = {}
+    for name, item in inputs["ba"].items():
+        for layout in ("colo", "kf"):
+            sharded = item[layout]
+            fn = (ba_dist.bundle_adjust_schur_dist if layout == "colo"
+                  else ba_dist.bundle_adjust_schur_dist_kf)
+            (res, coll), wall, tr = _rank_traced(lambda: _collectives(
+                mesh, lambda: fn(sharded, mesh, params)), mesh,
+                trace=layout == "colo")
+            n_ex = 0
+            if layout == "kf":
+                n_ex = 1 if sharded.mode == "a2a" else sum(
+                    r % mesh.size != 0 for r in sharded.rounds)
+            it = params.max_iterations
+            out["ba"][f"{name} {layout}"] = {
+                "mode": ba_dist._solver_mode(params, sharded.poses.shape[0],
+                                             sharded.points.shape[1]),
+                "initial_cost": float(res.initial_cost),
+                "final_cost": float(res.final_cost),
+                "poses": _np(res.poses), "points": _np(res.points),
+                "call_ms": wall, "call_ms_per_iter": wall / it,
+                "device_ms_per_iter": tr["busy_ms"] / it,
+                "launches_per_iter": tr["launches"] / it,
+                "syncs": tr["syncs"], "collectives": coll[0],
+                "collectives_per_iter": (coll[0] - 2 - n_ex) / it,
+                "bytes_per_iter": coll[1] / it, "exchange": n_ex}
+
+    out["stage_s"]["ba"] = time.perf_counter() - t0
+    # PGO over edge shards: 2 iterations (held to the single process) and
+    # 15 (the solve the loop runs)
+    out["pgo"] = {}
+    for it in inputs["pgo_iters"]:
+        pp = pgo.PGOParams(max_iterations=it)
+        (res, coll), wall, tr = _rank_traced(lambda: _collectives(
+            mesh, lambda: pgo_dist.pose_graph_optimize_dist(
+                inputs["pgo"], mesh, pp)), mesh, trace=it == 2)
+        out["pgo"][it] = {"poses": _np(res.poses),
+                          "initial_cost": float(res.initial_cost),
+                          "final_cost": float(res.final_cost),
+                          "call_ms": wall, "call_ms_per_iter": wall / it,
+                          "device_ms_per_iter": tr["busy_ms"] / it,
+                          "launches_per_iter": tr["launches"] / it,
+                          "syncs": tr["syncs"], "collectives": coll[0],
+                          "bytes_per_iter": coll[1] / it}
+
+    out["stage_s"]["pgo"] = time.perf_counter() - t0
+    # MonocularSlam(mesh=): rank 0 runs the loop and leads each
+    # distributed solve; the others follow
+    if inputs["slam"] is not None:
+        frames, centres = inputs["slam"]
+        if mesh.rank == 0:
+            vocab = slam_vocabulary(frames, mesh.device)
+            c0 = mesh.counts["collectives"]
+            leads = []
+            lead = parallel.controller.lead
+            parallel.controller.lead = lambda *a: leads.append(a[1]) or \
+                lead(*a)
+            try:
+                (system, ms), launches = counted(lambda: run_slam(
+                    frames, vocab, mesh.device, mesh=mesh))
+            finally:
+                parallel.controller.lead = lead
+            parallel.controller.stop(mesh)
+            out["slam"] = {"launches": launches, "leads": leads,
+                           "collectives": mesh.counts["collectives"] - c0,
+                           "summary": slam_summary(system, ms, centres,
+                                                   mesh.device)}
+        else:
+            out["slam"] = {"jobs": parallel.follow(mesh)}
+        out["stage_s"]["slam"] = time.perf_counter() - t0
+    return out
+
+
+def _device(row, per: str) -> str:
+    """Rank 0's traced figures of a solve, or why there are none."""
+    if row["device_ms_per_iter"] != row["device_ms_per_iter"]:
+        return ("device, launches and host syncs: not traced (one solve "
+                "of each shape is)")
+    syncs = ("not counted (a gloo collective waits for the device in "
+             "gloo's own thread)" if row["syncs"] is None
+             else str(row["syncs"]))
+    return (f"device {row['device_ms_per_iter']:.3f} ms and "
+            f"{row['launches_per_iter']:.0f} launches {per} (rank 0), host "
+            f"syncs a solve {syncs}")
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _check_ranks(label, ranks, key):
+    """Every rank's poses (and points) of ``key`` bit-equal to rank 0's."""
+    ref = ranks[0]
+    for r in ranks[1:]:
+        a, b = key(r), key(ref)
+        for x, y in zip(a, b):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{label}: rank {r['rank']} differs "
+                                     "from rank 0")
+
+
+def phase_parallel(card_line, slam_summ):
+    """The distributed layer (``kornia_tpu_torch.parallel``) on the card:
+    (a) one rank over NCCL, the one-card deployment, and (b) 4 ranks that
+    share the card over gloo, spawned by ``parallel.mesh.spawn``. Each
+    runs the sharded front end (4 SLAM frames, ``OrbConfig()``), the
+    exchange (the Dense configuration's keyframe layout in a2a and rounds
+    mode; on 4 ranks also the hot pair), the summed Schur BA on the Dense
+    (chol) and — on 4 ranks — the PCG (cg_dense) configuration in both
+    layouts (12 iterations, Huber 2), PGO on the 256-keyframe ring (2 and
+    15 iterations), and on 4 ranks ``MonocularSlam(mesh=)`` over the 40
+    SLAM frames. Gates: front-end features bit-equal to the single
+    process's, K1/K2/K3 1/2/1 a frame on every rank and bit-equal to their
+    plain versions; received rows equal to the plan's; BA within
+    PAR_BA_TOL of the single-process solve; PGO after 2 iterations within
+    PAR_PGO_TOL of the single process's, after 15 the backend's cost and
+    ATE gates; the SLAM run the slam phase's gates and loop count; every
+    rank's results bit-equal. Returns what the kernels line reads."""
+    t_phase = time.perf_counter()
+    frames, _, centres = slam_sequence()
+    t_render = time.perf_counter() - t_phase
+    cfg = orb.OrbConfig()
+    single_feats = [orb.orb_detect_and_describe(f, cfg, device=DEV)
+                    for f in frames[:PAR_RANKS]]
+    kern = {"front": {}, "errs": {}, "slam": None}
+    runs = (("nccl, 1 rank", 1, [PAR_DEVICE]),
+            (f"gloo, {PAR_RANKS} ranks on one card", PAR_RANKS,
+             [PAR_DEVICE] * PAR_RANKS))
+    single, failed = {}, []
+    for label, d, devices in runs:
+        t0 = time.perf_counter()
+        inputs, problems, ring, gt_ring = parallel_inputs(
+            d, frames, centres if d > 1 else None)
+        params = inputs["ba_params"]
+        for name, (prob, m) in problems.items():
+            if name not in single:
+                res = ba.bundle_adjust_schur(_problem_to(prob, DEV), params)
+                single[name] = {k: _np(getattr(res, k)) for k in
+                                ("poses", "points", "initial_cost",
+                                 "final_cost")}
+        ring_d = {k: v.to(DEV) for k, v in ring.items()}
+        for it in (2, 15):
+            if ("pgo", it) not in single:
+                single[("pgo", it)] = _np(pgo.pose_graph_optimize(
+                    **ring_d, params=pgo.PGOParams(max_iterations=it)).poses)
+        t_inputs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = parallel.mesh.spawn(parallel_rank, d, inputs,
+                                    devices=devices, timeout=PAR_TIMEOUT)
+        t_ranks = time.perf_counter() - t0
+        tag = f"parallel ({label})"
+        # initialize_distributed's rule: NCCL when each rank owns a card
+        want_backend = "nccl" if d <= torch.cuda.device_count() else "gloo"
+        if {(r["backend"], r["device"]) for r in ranks} != {
+                (want_backend, PAR_DEVICE)}:
+            raise AssertionError(f"{tag}: ranks on "
+                                 f"{[(r['backend'], r['device']) for r in ranks]}")
+
+        # front end
+        for r in ranks:
+            for i, name in enumerate(orb.OrbFeatures._fields):
+                want = np.stack([_np(getattr(f, name))
+                                 for f in single_feats])
+                if not np.array_equal(r["front"]["features"][i], want):
+                    raise AssertionError(f"{tag}: rank {r['rank']}'s "
+                                         f"{name} differ from the single "
+                                         "process's ORB")
+            for k, v in r["front"]["kernel_errs"].items():
+                kern["errs"][k] = max(kern["errs"].get(k, 0.0), v)
+        fr = ranks[0]["front"]
+        if d > 1:
+            kern["front"] = {k: v for k, v in fr["launches"].items() if v}
+        log(f"{tag} front end: {len(frames[:PAR_RANKS])} frames 480x752, "
+            f"{len(frames[:PAR_RANKS]) // d} a rank; launches a rank "
+            f"{ {k: v for k, v in fr['launches'].items() if v} }, "
+            f"collectives {fr['collectives'][0]} ({fr['collectives'][1]} "
+            f"B); features of every rank bit-equal to the single process's; "
+            f"call {fr['call_ms']:.2f} ms [{card_line}]")
+
+        # exchange
+        for name, ex in ranks[0]["exchange"].items():
+            log(f"{tag} exchange {name}: mode {ex['mode']}, payload "
+                f"{ex['payload_bytes']} B (all shards), collectives "
+                f"{ex['collectives']} (with the gathering all-gather), "
+                f"{ex['bytes']} B from rank 0, call {ex['call_ms']:.2f} ms; "
+                f"every shard's rows equal the plan's [{card_line}]")
+
+        # BA
+        for key, b in ranks[0]["ba"].items():
+            name = key.rsplit(" ", 1)[0]
+            s = single[name]
+            d_cost = (_rel(b["initial_cost"], float(s["initial_cost"])),
+                      _rel(b["final_cost"], float(s["final_cost"])))
+            d_pose = float(np.abs(b["poses"] - s["poses"]).max())
+            d_pts = float(np.abs(b["points"] - s["points"]).max())
+            _check_ranks(f"{tag} BA {key}", ranks,
+                         lambda r: (r["ba"][key]["poses"],
+                                    r["ba"][key]["points"]))
+            log(f"{tag} BA {key}: {inputs['ba'][name]['observations']} "
+                f"observations, mode {b['mode']}, cost "
+                f"{b['initial_cost']:.4f} -> {b['final_cost']:.4f}; against "
+                f"the single process: cost rel {d_cost[0]:.3e} / "
+                f"{d_cost[1]:.3e}, poses {d_pose:.3e}, points {d_pts:.3e} "
+                f"(bound {PAR_BA_TOL}); call {b['call_ms']:.1f} ms = "
+                f"{b['call_ms_per_iter']:.2f} a LM iteration, "
+                f"{_device(b, 'a LM iteration')}, "
+                f"{b['collectives_per_iter']:.2f} collectives and "
+                f"{b['bytes_per_iter']:.0f} B a LM iteration (+ the initial "
+                f"cost, the closing all-gather and {b['exchange']} for the "
+                f"exchange); ranks bit-equal [{card_line}]")
+            want_mode = "chol" if name.startswith("dense") else "cg_dense"
+            if b["mode"] != want_mode or b["collectives_per_iter"] != 2:
+                failed.append(f"{tag} BA {key}: mode {b['mode']}, "
+                              f"{b['collectives_per_iter']} collectives a "
+                              "LM iteration")
+            if not (d_cost[0] <= PAR_BA_TOL["cost"]
+                    and d_cost[1] <= PAR_BA_TOL["cost"]
+                    and d_pose <= PAR_BA_TOL["poses"]
+                    and d_pts <= PAR_BA_TOL["points"]
+                    and b["final_cost"] < 0.1 * b["initial_cost"]):
+                failed.append(f"{tag} BA {key}: outside the bounds")
+
+        # PGO
+        n = len(gt_ring)
+
+        def ate(ps):
+            return float(np.sqrt(np.mean(np.sum(
+                (ps[:n, 4:].astype(np.float64) - gt_ring[:, 4:]) ** 2, 1))))
+
+        for it, g in ranks[0]["pgo"].items():
+            _check_ranks(f"{tag} PGO {it}", ranks,
+                         lambda r: (r["pgo"][it]["poses"],))
+            d_pose = float(np.abs(g["poses"] - single[("pgo", it)]).max())
+            ate0, ate1 = ate(_np(ring["poses"])), ate(g["poses"])
+            log(f"{tag} PGO {it} iterations: cost {g['initial_cost']:.4f} "
+                f"-> {g['final_cost']:.6f}, ATE {ate0:.4f} -> {ate1:.4f}, "
+                f"poses against the single process {d_pose:.3e}"
+                + (f" (bound {PAR_PGO_TOL})" if it == 2 else
+                   " (not held: float32 resolution of the optimum)")
+                + f"; call {g['call_ms']:.1f} ms = "
+                f"{g['call_ms_per_iter']:.2f} a LM iteration, "
+                f"{_device(g, 'a LM iteration')}, "
+                f"collectives {g['collectives']}, {g['bytes_per_iter']:.0f} "
+                f"B a LM iteration [{card_line}]")
+            if it == 2 and d_pose > PAR_PGO_TOL:
+                failed.append(f"{tag} PGO: poses after 2 iterations "
+                              f"{d_pose} from the single process's")
+            if it == 15 and not (g["final_cost"] < 0.5 * g["initial_cost"]
+                                 and ate1 < 0.75 * ate0):
+                failed.append(f"{tag} PGO: cost or ATE not reduced")
+            if g["collectives"] != 1 + 2 * it:
+                failed.append(f"{tag} PGO: {g['collectives']} collectives")
+
+        # MonocularSlam(mesh=)
+        if d > 1:
+            sl = ranks[0]["slam"]
+            summ = sl["summary"]
+            jobs = [r["slam"]["jobs"] for r in ranks[1:]]
+            only(sl["launches"], {"fast_harris": summ["frames"],
+                                  "windows_paired": 2 * summ["frames"],
+                                  "brief_rotated": summ["frames"]})
+            kern["slam"] = {k: v for k, v in sl["launches"].items() if v}
+            failed += [f"{tag} MonocularSlam(mesh=): {f}"
+                       for f in slam_gates(summ)]
+            if len(summ["loops"]) != len(slam_summ["loops"]):
+                failed.append(f"{tag} MonocularSlam(mesh=): "
+                              f"{len(summ['loops'])} loops, the slam phase "
+                              f"{len(slam_summ['loops'])}")
+            leads = sl["leads"]
+            if (jobs != [len(leads)] * (d - 1)
+                    or leads.count("pgo_dist") != len(summ["loops"])
+                    or "ba_dist_kf" not in leads):
+                failed.append(f"{tag} MonocularSlam(mesh=): rank 0 led "
+                              f"{leads}, the followers joined {jobs}")
+            log(f"{tag} MonocularSlam(mesh=): {json.dumps(summ)}; rank 0 "
+                f"led {leads.count('pgo_dist')} PGO and "
+                f"{leads.count('ba_dist_kf')} global BA solves, "
+                f"{sl['collectives']} collectives; every follower joined "
+                f"{jobs[0]} [{card_line}]")
+        log(f"{tag}: inputs and single-process references "
+            f"{t_inputs:.1f} s, ranks {t_ranks:.1f} s (spawn, imports and "
+            f"every item; rank 0 done with each item at "
+            f"{ {k: round(v, 1) for k, v in ranks[0]['stage_s'].items()} } "
+            f"s after its start)")
+    log(f"parallel phase: {time.perf_counter() - t_phase:.1f} s (render "
+        f"{t_render:.1f} s)")
+    if failed:
+        raise AssertionError(f"parallel: gates failed: {failed}")
+    return kern
 
 
 def phase_host(card_line, parent=None):
@@ -5313,11 +5789,18 @@ def main():
     # 14. the SLAM back end (the eighth slice)
     phase_backend(card_line)
     # 15. the SLAM frame loop (the ninth slice)
-    slam_launches, slam_errs = phase_slam(card_line)
+    slam_launches, slam_errs, slam_summ = phase_slam(card_line)
+    # 21. the fourteenth slice: the distributed layer
+    par = phase_parallel(card_line, slam_summ)
     for row in rows_out[:3]:
         key = {"brief_sample": "brief_rotated"}.get(row["name"], row["name"])
         row["launches_by_path"]["slam loop"] = slam_launches[key]
-        row["max_abs_err"] = max(row["max_abs_err"], slam_errs[key])
+        row["launches_by_path"]["frontend_dist (per rank)"] = \
+            par["front"][key]
+        row["launches_by_path"][
+            f"slam loop, mesh of {PAR_RANKS} (rank 0)"] = par["slam"][key]
+        row["max_abs_err"] = max(row["max_abs_err"], slam_errs[key],
+                                 par["errs"][key])
     # K1's score-only entry (fast_score) on the fast_detector path
     k1 = rows_out[0]
     k1["launches_by_path"]["fast_detect (score-only entry)"] = \

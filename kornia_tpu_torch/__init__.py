@@ -48,6 +48,20 @@ def to_device(x, device: _torch.device, dtype=None) -> _torch.Tensor:
     return _torch.tensor(x, dtype=dtype, device=device)
 
 
+def upload(x, device: _torch.device, dtype=None) -> _torch.Tensor:
+    """``x`` (numpy, a sequence or a tensor) as a tensor on ``device``.
+    Host data bound for the card goes through pinned memory and a copy
+    that does not block, so that the upload does not wait for the device
+    (no host sync)."""
+    t = x if isinstance(x, _torch.Tensor) else _torch.from_numpy(
+        _np.array(x))
+    if dtype is not None and t.device.type == "cpu":
+        t = t.to(dtype)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
 def _moved(x, device: _torch.device):
     if isinstance(x, (_torch.Tensor, _np.ndarray)):
         return to_device(x, device)
@@ -69,8 +83,8 @@ def entry(fn):
     return on_device
 
 
-# The subpackages, in kornia_tpu/__init__.py's order, restricted to what is
-# ported (only parallel is not yet). They import ``entry`` and
+# The subpackages, in kornia_tpu/__init__.py's order (all of them are
+# ported). They import ``entry`` and
 # ``resolve_device`` from here, so they come after them. Nothing here
 # builds a kernel or the native library: that happens at first use.
 from kornia_tpu_torch import image  # noqa: E402
@@ -83,6 +97,7 @@ from kornia_tpu_torch import utils  # noqa: E402
 from kornia_tpu_torch import augmentations  # noqa: E402
 from kornia_tpu_torch import apriltag  # noqa: E402
 from kornia_tpu_torch import bow  # noqa: E402
+from kornia_tpu_torch import parallel  # noqa: E402
 from kornia_tpu_torch import slam  # noqa: E402
 from kornia_tpu_torch import models  # noqa: E402
 
@@ -97,6 +112,7 @@ __all__ = [
     "augmentations",
     "apriltag",
     "bow",
+    "parallel",
     "slam",
     "models",
     "__version__",

@@ -2,7 +2,8 @@
 
 The learned weights are the models' (:func:`model_params`). The rest of
 the state is the configurations (ORB, two-view, LK, preprocessor, SLAM, BA, PGO, ICP, the
-augmentations), the stereo calibration, BA problems, bag-of-words
+augmentations), the stereo calibration, BA problems and the
+distributed layer's sharded BA and PGO problems, bag-of-words
 vocabularies, SLAM maps, images and, for stage-by-stage comparison, the
 reference's intermediate arrays. The augmentations hold no weights: their
 state across the packages is their settings, and the draws each call
@@ -95,6 +96,35 @@ def ba_problem(fields: Mapping[str, Any], device="cuda") -> BAProblem:
                          f"unknown {sorted(unknown)}")
     return BAProblem(**{k: None if v is None else tensor(v, device)
                         for k, v in fields.items()})
+
+
+def sharded_problem(fields: Mapping[str, Any]):
+    """``_asdict()`` of one of the reference's distributed problems
+    (``parallel.ba_dist.ShardedBAProblem`` / ``KeyframeShardedBA``,
+    ``parallel.pgo_dist.ShardedPGOProblem``), its arrays as numpy (None
+    for an absent optional field; the rounds payload a tuple) → the
+    port's NamedTuple of the same fields, host numpy like the port's
+    planners give. The type is the one whose fields these are."""
+    from kornia_tpu_torch.parallel import ba_dist, pgo_dist
+
+    for cls in (ba_dist.ShardedBAProblem, ba_dist.KeyframeShardedBA,
+                pgo_dist.ShardedPGOProblem):
+        if set(fields) == set(cls._fields):
+            break
+    else:
+        raise ValueError(f"not a distributed problem's fields: "
+                         f"{sorted(fields)}")
+
+    def host(v):
+        if v is None or isinstance(v, (bool, int, str)):
+            return v
+        if isinstance(v, tuple) and all(isinstance(x, int) for x in v):
+            return v                                  # rounds
+        if isinstance(v, (tuple, list)):
+            return tuple(np.asarray(x) for x in v)    # rounds payload
+        return np.asarray(v)
+
+    return cls(**{k: host(v) for k, v in fields.items()})
 
 
 _VOCABULARY_FIELDS = ("k", "depth", "children", "node_desc", "word_id",

@@ -14,9 +14,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from kornia_tpu_torch import resolve_device
+from kornia_tpu_torch import resolve_device, upload
 from kornia_tpu_torch.ops import resize as resize_mod
-from kornia_tpu_torch.models.vlm import upload
 from kornia_tpu_torch.ops.filters import const_on, div_scalar
 
 

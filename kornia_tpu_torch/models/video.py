@@ -18,9 +18,9 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from kornia_tpu_torch import resolve_device
+from kornia_tpu_torch import resolve_device, upload
 from kornia_tpu_torch.models.processor import normalize_batch
-from kornia_tpu_torch.models.vlm import sample_video_frames, upload
+from kornia_tpu_torch.models.vlm import sample_video_frames
 
 
 @dataclass

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from kornia_tpu_torch import resolve_device
+from kornia_tpu_torch import resolve_device, upload
 from kornia_tpu_torch.convert import model_params
 from kornia_tpu_torch.models.gemma import GemmaRMSNorm
 from kornia_tpu_torch.models.llm import (CausalLM, Dense, KVCache, LLMConfig,
@@ -316,20 +316,6 @@ def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
     u = torch.rand(shape, generator=generator, device=device)
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
-
-
-def upload(x, device: torch.device, dtype: Optional[torch.dtype] = None
-           ) -> torch.Tensor:
-    """``x`` (numpy, a sequence or a tensor) as a tensor on ``device``.
-    Host data bound for the card goes through pinned memory and a copy
-    that does not block, so that the upload does not wait for the device
-    (no host sync)."""
-    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
-    if dtype is not None and t.device.type == "cpu":
-        t = t.to(dtype)
-    if device.type == "cuda" and t.device.type == "cpu":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device=device, dtype=dtype or t.dtype)
 
 
 @torch.inference_mode()

@@ -10,6 +10,7 @@ library; ``CMakeLists.txt`` builds and installs it as the CMake package
 ``kornia_tpu_torch`` (target ``kornia_tpu_torch::native``), and
 ``tests/test_native.cpp`` is the C++ consumer the tests compile."""
 
-from kornia_tpu_torch.native.build import load_native_library
+from kornia_tpu_torch.native.build import (load_native_library,
+                                           native_available)
 
-__all__ = ["load_native_library"]
+__all__ = ["load_native_library", "native_available"]

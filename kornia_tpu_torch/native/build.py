@@ -78,3 +78,14 @@ def load_native_library() -> ctypes.CDLL:
                     fcntl.flock(lock, fcntl.LOCK_UN)
         _lib = ctypes.CDLL(out)
         return _lib
+
+
+def native_available() -> bool:
+    """Whether the library builds and loads here. A caller that needs it
+    calls :func:`load_native_library`, which raises with the compiler's
+    output instead."""
+    try:
+        load_native_library()
+    except (RuntimeError, OSError):
+        return False
+    return True

@@ -335,14 +335,48 @@ def schur_normal_equations(problem: BAProblem, poses, points,
     return U, g_p, V, g_x, b_blocks
 
 
-def _damped_point_inverses(problem: BAProblem, V, lam):
-    """Per-point inverse of the damped V block; 0 for fixed points and
-    points with no observation."""
+def _point_inverses(V, lam, active):
+    """Per-point inverse of the damped V block; 0 where not ``active``."""
     eye3 = torch.eye(3, dtype=V.dtype, device=V.device)
-    active = (~problem.fixed_points) & problem.obs_by_point_mask.any(dim=1)
     v_inv = inv3x3(_damp(V, lam) + (~active)[:, None, None] * eye3)
     return torch.where(active[:, None, None], v_inv,
                        torch.zeros_like(v_inv))
+
+
+def _damped_point_inverses(problem: BAProblem, V, lam):
+    """Per-point inverse of the damped V block; 0 for fixed points and
+    points with no observation."""
+    active = (~problem.fixed_points) & problem.obs_by_point_mask.any(dim=1)
+    return _point_inverses(V, lam, active)
+
+
+def _camera_coupling(b_blocks, v_inv, obs_pt, obs_cam, p: int):
+    """Σ_pt Yc[pt, a]·Bc[pt, b]ᵀ as one (6P, 6P) matrix, with
+    Bc[pt, cam] = Σ_{i: pt_i = pt, cam_i = cam} B_i and Yc = Bc·V⁻¹[pt]:
+    one (6P, 3N)·(3N, 6P) product."""
+    n = v_inv.shape[0]
+    m = b_blocks.shape[0]
+    pair_key = obs_pt.to(torch.int64) * p + obs_cam
+    bc = _seg_sum(b_blocks.reshape(m, 18), pair_key, n * p).reshape(
+        n, p, 6, 3)
+    yc = torch.einsum("npis,nst->npit", bc, v_inv)
+    # [(a, i), (b, j)] = Σ_{pt, s} yc[pt, a, i, s] · bc[pt, b, j, s]
+    return (yc.permute(1, 2, 0, 3).reshape(6 * p, 3 * n)
+            @ bc.permute(0, 3, 1, 2).reshape(3 * n, 6 * p))
+
+
+def _gauge_fixed_system(s, u_damped, rhs_p, fixed_poses):
+    """S = ``s`` (the negated coupling, (6P, 6P), changed in place) plus
+    the damped U blocks on its diagonal, then gauge-fixed: fixed poses get
+    identity rows and columns and a zero rhs. Returns (S, rhs (6P,))."""
+    p = u_damped.shape[0]
+    blocks = torch.diagonal(s.view(p, 6, p, 6), dim1=0, dim2=2)  # (6, 6, P)
+    blocks.add_(u_damped.permute(1, 2, 0))
+    free = (~fixed_poses).to(s.dtype)
+    free6 = free[:, None].expand(p, 6).reshape(-1)
+    s = s * free6[:, None] * free6[None, :]
+    s.diagonal().add_(1.0 - free6)
+    return s, (rhs_p * free[:, None]).reshape(-1)
 
 
 def reduce_camera_system(problem: BAProblem, U, g_p, V, g_x, b_blocks, lam):
@@ -351,45 +385,39 @@ def reduce_camera_system(problem: BAProblem, U, g_p, V, g_x, b_blocks, lam):
     Bc[pt, cam] = Σ_{i: pt_i = pt, cam_i = cam} B_i and Yc = Bc·V⁻¹[pt],
     one (6P, 3N)·(3N, 6P) product. Returns (S, rhs, V⁻¹, Y)."""
     p = U.shape[0]
-    n = V.shape[0]
-    m = b_blocks.shape[0]
     v_inv = _damped_point_inverses(problem, V, lam)
-
-    # per-observation Y_i = B_i · V⁻¹[pt_i]
-    y_blocks = torch.einsum("mij,mjk->mik", b_blocks,
-                            v_inv.index_select(0, problem.obs_pt))  # (M,6,3)
+    y_blocks, rhs_terms = _schur_rhs_terms(b_blocks, v_inv, g_x,
+                                           problem.obs_pt)
     # rhs_p = g_p − Σ_i Y_i g_x[pt_i]
-    rhs_terms = _mv(y_blocks, g_x.index_select(0, problem.obs_pt))
     rhs_p = g_p - _seg_sum(rhs_terms, problem.obs_cam, p)
+    s, rhs = _gauge_fixed_system(
+        -_camera_coupling(b_blocks, v_inv, problem.obs_pt, problem.obs_cam,
+                          p),
+        _damp(U, lam), rhs_p, problem.fixed_poses)
+    return s, rhs, v_inv, y_blocks
 
-    pair_key = problem.obs_pt.to(torch.int64) * p + problem.obs_cam
-    bc = _seg_sum(b_blocks.reshape(m, 18), pair_key, n * p).reshape(
-        n, p, 6, 3)
-    yc = torch.einsum("npis,nst->npit", bc, v_inv)
-    # S[(a, i), (b, j)] = −Σ_{pt, s} yc[pt, a, i, s] · bc[pt, b, j, s]
-    s = -(yc.permute(1, 2, 0, 3).reshape(6 * p, 3 * n)
-          @ bc.permute(0, 3, 1, 2).reshape(3 * n, 6 * p))
-    blocks = torch.diagonal(s.view(p, 6, p, 6), dim1=0, dim2=2)  # (6, 6, P)
-    blocks.add_(_damp(U, lam).permute(1, 2, 0))
 
-    # gauge fixing: fixed poses → identity rows/cols, zero rhs
-    free = (~problem.fixed_poses).to(s.dtype)
-    free6 = free[:, None].expand(p, 6).reshape(-1)
-    s = s * free6[:, None] * free6[None, :]
-    s.diagonal().add_(1.0 - free6)
-    rhs_p = rhs_p * free[:, None]
-    return s, rhs_p.reshape(-1), v_inv, y_blocks
+def _schur_rhs_terms(b_blocks, v_inv, g_x, obs_pt):
+    """Per observation Y_i = B_i · V⁻¹[pt_i] (M, 6, 3) and its term
+    Y_i · g_x[pt_i] (M, 6) of the reduced rhs."""
+    y_blocks = torch.einsum("mij,mjk->mik", b_blocks,
+                            v_inv.index_select(0, obs_pt))
+    return y_blocks, _mv(y_blocks, g_x.index_select(0, obs_pt))
 
 
 def back_substitute_points(problem: BAProblem, v_inv, b_blocks, g_x,
                            delta_pose):
     """δx_j = V⁻¹_j (g_x_j − Σ_{i ∈ obs(j)} Bᵢᵀ δp[camᵢ])."""
-    n = v_inv.shape[0]
-    dp_obs = delta_pose.index_select(0, problem.obs_cam)
-    bt_dp = _mtv(b_blocks, dp_obs)                              # (M, 3)
-    acc = _seg_sum(bt_dp, problem.obs_pt, n)
-    dx = _mv(v_inv, g_x - acc)
+    dx = _back_substitute(v_inv, b_blocks, g_x, delta_pose, problem.obs_cam,
+                          problem.obs_pt)
     return dx * (~problem.fixed_points)[:, None]
+
+
+def _back_substitute(v_inv, b_blocks, g_x, delta_pose, obs_cam, obs_pt):
+    """V⁻¹_j (g_x_j − Σ_{i ∈ obs(j)} Bᵢᵀ δp[camᵢ]) for every point j."""
+    bt_dp = _mtv(b_blocks, delta_pose.index_select(0, obs_cam))  # (M, 3)
+    acc = _seg_sum(bt_dp, obs_pt, v_inv.shape[0])
+    return _mv(v_inv, g_x - acc)
 
 
 def _pcg_reduced_solve(problem: BAProblem, U, g_p, V, g_x, b_blocks, lam,
@@ -400,7 +428,6 @@ def _pcg_reduced_solve(problem: BAProblem, U, g_p, V, g_x, b_blocks, lam,
     the per-pose inverse of the damped U block. A fixed number of steps;
     a step after convergence is a select of no change."""
     p = U.shape[0]
-    n = V.shape[0]
     free = (~problem.fixed_poses).to(U.dtype)[:, None]
     v_inv = _damped_point_inverses(problem, V, lam)
     u_damped = _damp(U, lam)
@@ -411,18 +438,35 @@ def _pcg_reduced_solve(problem: BAProblem, U, g_p, V, g_x, b_blocks, lam,
 
     def matvec(v):
         vf = v * free
-        t1 = _mtv(b_blocks, vf.index_select(0, problem.obs_cam))
-        t3 = _mv(v_inv, _seg_sum(t1, problem.obs_pt, n))
-        t4 = _mv(b_blocks, t3.index_select(0, problem.obs_pt))
-        uv = _mv(u_damped, vf)
-        sv = uv - _seg_sum(t4, problem.obs_cam, p)
+        sv = _mv(u_damped, vf) - _coupling_matvec(
+            b_blocks, v_inv, vf, problem.obs_cam, problem.obs_pt, p)
         return sv * free + v * (1.0 - free)
 
-    # block-Jacobi preconditioner (identity on fixed poses)
-    eye6 = torch.eye(6, dtype=U.dtype, device=U.device).expand(p, 6, 6)
-    minv = solve_unrolled(torch.where(free[:, :, None] > 0, u_damped, eye6),
+    return _pcg(matvec, rhs, _block_jacobi(u_damped, free), cg_iters), v_inv
+
+
+def _coupling_matvec(b_blocks, v_inv, v, obs_cam, obs_pt, p: int):
+    """Σ_i B_i V⁻¹[pt_i] Σ_{j: pt_j = pt_i} B_jᵀ v[cam_j], (P, 6): the
+    coupling's product with ``v`` in O(M) work, never built."""
+    t1 = _mtv(b_blocks, v.index_select(0, obs_cam))
+    t3 = _mv(v_inv, _seg_sum(t1, obs_pt, v_inv.shape[0]))
+    t4 = _mv(b_blocks, t3.index_select(0, obs_pt))
+    return _seg_sum(t4, obs_cam, p)
+
+
+def _block_jacobi(u_damped, free):
+    """The preconditioner: each damped U block's inverse, the identity on
+    fixed poses (``free`` (P, 1), 0 there)."""
+    p = u_damped.shape[0]
+    eye6 = torch.eye(6, dtype=u_damped.dtype,
+                     device=u_damped.device).expand(p, 6, 6)
+    return solve_unrolled(torch.where(free[:, :, None] > 0, u_damped, eye6),
                           eye6)
 
+
+def _pcg(matvec, rhs, minv, cg_iters: int):
+    """``cg_iters`` preconditioned CG steps on (P, 6) vectors from 0; a
+    step after convergence is a select of no change."""
     x = torch.zeros_like(rhs)
     r = rhs
     z = _mv(minv, r)
@@ -440,7 +484,7 @@ def _pcg_reduced_solve(problem: BAProblem, U, g_p, V, g_x, b_blocks, lam,
         beta = torch.where(alive, rz_new / torch.clamp(rz, min=1e-20), 0.0)
         pk = z + beta * pk
         rz = rz_new
-    return x, v_inv
+    return x
 
 
 def _uses_pcg(params: BAParams, p: int) -> bool:

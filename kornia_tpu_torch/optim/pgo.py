@@ -87,6 +87,30 @@ def pgo_normal_equations(poses, edge_i, edge_j, edge_meas, edge_weight,
     return h, g, 0.5 * torch.sum(w * sq)
 
 
+def edge_cost(poses, edge_i, edge_j, edge_meas, edge_weight,
+              params: PGOParams) -> torch.Tensor:
+    """0.5 Σ w·ρ(‖r‖²) over the edges."""
+    r = edge_residual(poses.index_select(0, edge_i),
+                      poses.index_select(0, edge_j), edge_meas)
+    sq = torch.sum(r * r, dim=-1)
+    w = edge_weight * LOSSES[params.loss](sq, params.loss_scale)
+    return 0.5 * torch.sum(w * sq)
+
+
+def damped_step(h: torch.Tensor, g: torch.Tensor, free: torch.Tensor,
+                lam) -> torch.Tensor:
+    """The LM step δ (P, 6) of the gauge-fixed, damped system: fixed
+    poses (``free`` 0) get identity rows and columns and a zero step."""
+    p = h.shape[0]
+    free6 = free[:, None].expand(p, 6).reshape(-1)
+    hd = h.transpose(1, 2).reshape(p * 6, p * 6)
+    hd = hd * free6[:, None] * free6[None, :]
+    hd.diagonal().add_(1.0 - free6)
+    g = g * free[:, None]
+    hd.diagonal().add_(lam * torch.clamp(hd.diagonal(), min=1e-9))
+    return solve_cholesky(hd, g.reshape(-1)).reshape(p, 6) * free[:, None]
+
+
 def pose_graph_optimize(poses: torch.Tensor, edge_i, edge_j, edge_meas,
                         edge_weight=None, fixed: Optional[torch.Tensor] = None,
                         params: PGOParams = PGOParams()) -> PGOResult:
@@ -106,30 +130,15 @@ def pose_graph_optimize(poses: torch.Tensor, edge_i, edge_j, edge_meas,
     fixed = (torch.arange(p, device=dev) == 0 if fixed is None
              else to_device(fixed, dev, torch.bool))
     free = (~fixed).to(torch.float32)
-    free6 = free[:, None].expand(p, 6).reshape(-1)
+    edges = (edge_i, edge_j, edge_meas, edge_weight)
 
-    def cost_fn(ps):
-        r = edge_residual(ps.index_select(0, edge_i),
-                          ps.index_select(0, edge_j), edge_meas)
-        sq = torch.sum(r * r, dim=-1)
-        w = edge_weight * LOSSES[params.loss](sq, params.loss_scale)
-        return 0.5 * torch.sum(w * sq)
-
-    c0 = cost_fn(poses)
+    c0 = edge_cost(poses, *edges, params)
     ps, cost = poses, c0
     lam = torch.full((), params.lambda_init, dtype=torch.float32, device=dev)
     for _ in range(params.max_iterations):
-        h, g, _ = pgo_normal_equations(ps, edge_i, edge_j, edge_meas,
-                                       edge_weight, params)
-        # gauge fixing, then the damped dense system
-        hd = h.transpose(1, 2).reshape(p * 6, p * 6)
-        hd = hd * free6[:, None] * free6[None, :]
-        hd.diagonal().add_(1.0 - free6)
-        g = g * free[:, None]
-        hd.diagonal().add_(lam * torch.clamp(hd.diagonal(), min=1e-9))
-        delta = solve_cholesky(hd, g.reshape(-1)).reshape(p, 6)
-        ps_new = lg.se3_retract(ps, delta * free[:, None])
-        new_cost = cost_fn(ps_new)
+        h, g, _ = pgo_normal_equations(ps, *edges, params)
+        ps_new = lg.se3_retract(ps, damped_step(h, g, free, lam))
+        new_cost = edge_cost(ps_new, *edges, params)
         accept = new_cost < cost
         ps = torch.where(accept, ps_new, ps)
         lam = torch.clamp(torch.where(accept, lam / params.lambda_factor,

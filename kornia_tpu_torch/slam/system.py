@@ -17,8 +17,13 @@ Frames can also be fed as keypoints and packed descriptors
 RANSAC draws come from a ``torch.Generator`` on the loop's device. Where
 the reference takes a ``jax.random`` key (``_next_key``), the loop calls
 ``draws`` instead when one is given, so a caller can hand in draws of its
-own (the parity tests hand in the reference's). Not ported: the
-distributed BA and PGO of a device mesh (``mesh=``).
+own (the parity tests hand in the reference's).
+
+With a ``mesh`` (parallel.mesh) of more than one rank, global BA and PGO
+run distributed (parallel.ba_dist, parallel.pgo_dist). Rank 0 runs the
+loop and leads each solve (parallel.controller); every other rank runs
+``parallel.follow(mesh)`` meanwhile, and rank 0 releases them with
+``parallel.controller.stop(mesh)`` at the end.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from kornia_tpu_torch.geometry import twoview as tv
 from kornia_tpu_torch.geometry.pnp import PnPResult, solve_pnp_ransac
 from kornia_tpu_torch.optim import ba as ba_mod
 from kornia_tpu_torch.optim import pgo as pgo_mod
+from kornia_tpu_torch.parallel import ba_dist, controller, pgo_dist
 from kornia_tpu_torch.slam.map import Keyframe, SlamMap
 
 
@@ -200,15 +206,19 @@ class MonocularSlam:
     ``generator``: the RANSAC draws' torch.Generator (default: one on
     ``device`` seeded with ``config.seed``). ``draws``: called where the
     reference takes a ``jax.random`` key (see :data:`Draws`); its index
-    sets replace the generator's draw."""
+    sets replace the generator's draw. ``mesh``: a parallel.mesh Mesh;
+    when it spans more than one rank, global BA runs keyframe-sharded
+    (the exchange feeding the summed Schur BA) and PGO over edge shards,
+    led from this rank (rank 0; module docstring)."""
 
     def __init__(self, k: np.ndarray, config: SlamConfig = SlamConfig(),
                  vocabulary: Optional[Vocabulary] = None, device="cuda",
                  generator: Optional[torch.Generator] = None,
-                 draws: Optional[Draws] = None):
+                 draws: Optional[Draws] = None, mesh=None):
         self.device = resolve_device(device)
         self.k = np.asarray(k, np.float64)
         self.config = config
+        self.mesh = mesh
         self.map = SlamMap()
         self.state = TrackingState.INITIALIZING
         self.results: List[FrameResult] = []
@@ -455,24 +465,28 @@ class MonocularSlam:
     def _local_ba(self) -> None:
         cfg = self.config
         kf_ids = [kf.kf_id for kf in self.map.keyframes[-cfg.ba_window:]]
-        self._bundle_adjust(kf_ids, cfg.ba_iterations)
+        self._bundle_adjust(kf_ids, cfg.ba_iterations, distributed=False)
+
+    def _distributed(self) -> bool:
+        return self.mesh is not None and self.mesh.devices.size > 1
 
     def global_ba(self, iterations: Optional[int] = None,
                   distributed: Optional[bool] = None) -> bool:
         """Full-map BA over the whole keyframe graph (the solver picks the
-        PCG reduced solve above 400 poses). Returns True if an update was
-        applied. ``distributed=True`` (BA sharded over a device mesh) is
-        not ported (ROADMAP.md item 18) and raises."""
-        if distributed:
-            raise NotImplementedError(
-                "distributed global BA over a device mesh is not ported "
-                "(ROADMAP.md item 18)")
+        PCG reduced solve above 400 poses). With a mesh (and
+        ``distributed`` not False) it runs the keyframe-sharded exchange
+        → summed-Schur solve (parallel.ba_dist.bundle_adjust_schur_dist_kf)
+        on every rank. Returns True if an update was applied."""
         if iterations is None:
             iterations = self.config.global_ba_iterations
+        if distributed is None:
+            distributed = self._distributed()
         kf_ids = [kf.kf_id for kf in self.map.keyframes]
-        return self._bundle_adjust(kf_ids, iterations)
+        return self._bundle_adjust(kf_ids, iterations,
+                                   distributed=distributed)
 
-    def _bundle_adjust(self, kf_ids, iterations: int) -> bool:
+    def _bundle_adjust(self, kf_ids, iterations: int,
+                       distributed: bool) -> bool:
         cams, pts_local, uvs, used = self.map.observations_for_ba(kf_ids)
         if len(used) < 8 or len(uvs) < 16:
             return False
@@ -501,14 +515,22 @@ class MonocularSlam:
         counts = np.bincount(pts_local, minlength=np_b)
         k_b = _bucket(max(int(counts.max()), 1), 4)
 
+        distributed = distributed and self.mesh is not None
+        # a distributed solve plans on the host: build its problem there
         problem = ba_mod.build_problem(
             poses.astype(np.float32), pts_arr, self.k.astype(np.float32),
             cams_b, pts_local_b, uvs_b, obs_w=obs_w, fixed_poses=fixed,
             fixed_points=fixed_pts, max_obs_per_point=k_b,
-            device=self.device)
+            device="cpu" if distributed else self.device)
         params = ba_mod.BAParams(max_iterations=iterations, loss="huber",
                                  loss_scale=2.0)
-        result = ba_mod.bundle_adjust_schur(problem, params)
+        if distributed:
+            sharded = ba_dist.shard_problem_by_keyframe(
+                problem, self.mesh.devices.size)
+            result = controller.lead(self.mesh, "ba_dist_kf", sharded,
+                                     params)
+        else:
+            result = ba_mod.bundle_adjust_schur(problem, params)
         new_poses = _host(result.poses).astype(np.float64)
         new_points = _host(result.points).astype(np.float64)[:n_used]
         if not (np.isfinite(new_poses).all()
@@ -608,11 +630,19 @@ class MonocularSlam:
         meas[: len(edges)] = np.stack([e[2] for e in edges])
         w = np.zeros(e_b, np.float32)
         w[: len(edges)] = [e[3] for e in edges]
-        result = pgo_mod.pose_graph_optimize(
-            torch.as_tensor(poses_pad, dtype=torch.float32, device=dev),
-            ei, ej, torch.as_tensor(meas, dtype=torch.float32, device=dev),
-            w, fixed=fixed, params=pgo_mod.PGOParams(max_iterations=15))
-        new_f32 = result.poses[: len(kfs)]
+        params = pgo_mod.PGOParams(max_iterations=15)
+        if self._distributed():
+            sharded = pgo_dist.shard_pgo(
+                poses_pad.astype(np.float32), ei, ej, meas, w, fixed=fixed,
+                n_devices=self.mesh.devices.size)
+            result = controller.lead(self.mesh, "pgo_dist", sharded, params)
+        else:
+            result = pgo_mod.pose_graph_optimize(
+                torch.as_tensor(poses_pad, dtype=torch.float32, device=dev),
+                ei, ej, torch.as_tensor(meas, dtype=torch.float32,
+                                        device=dev),
+                w, fixed=fixed, params=params)
+        new_f32 = result.poses[: len(kfs)].to(dev)
         new_poses = _host(new_f32).astype(np.float64)
         if not np.isfinite(new_poses).all():
             return

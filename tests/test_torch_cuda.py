@@ -1378,3 +1378,102 @@ def test_cuda_preprocess_image_within_one_lsb(cuda_dev, shape, size):
     want = models.preprocess_image(img, size, device="cpu")
     assert got.shape == want.shape == (1, size, size, 3)
     assert float((got.cpu() - want).abs().max()) <= 1.0 / 127.5 + 1e-6
+
+
+def _parallel_world_1(mesh):
+    """Every entry point of the distributed layer on one rank over NCCL:
+    the sharded front end and batched matching (bit-equal to the single
+    process), the exchange (rows equal to the plan's), both BA layouts
+    (the keyframe one led through ``controller.lead``) and PGO, each
+    within the reference's bounds for a distributed against a single-host
+    solve (tests/test_ba_dist.py: cost rtol 1e-3, poses atol 5e-4, points
+    atol 5e-3; tests/test_parallel2.py: PGO poses 5e-3). Raises on a
+    mismatch."""
+    import torch.distributed as dist
+
+    from kornia_tpu_torch.features import matching, orb
+    from kornia_tpu_torch.geometry import liegroup as lg
+    from kornia_tpu_torch.optim import ba, pgo
+    from kornia_tpu_torch.parallel import (ba_dist, controller, exchange,
+                                           frontend_dist, pgo_dist)
+
+    assert dist.get_backend() == "nccl" and mesh.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (2, 96, 128), np.uint8)
+    cfg = orb.OrbConfig(n_features=64, n_levels=2)
+    feats = frontend_dist.detect_and_describe_batch(frames, cfg, mesh)
+    m = frontend_dist.match_batch(feats.descriptors, feats.descriptors[[1, 0]],
+                                  feats.mask, feats.mask[[1, 0]], mesh)
+    for i, f in enumerate(frames):
+        one = orb.orb_detect_and_describe(f, cfg, device=mesh.device)
+        assert all(torch.equal(a[i], b) for a, b in zip(feats, one))
+        two = orb.orb_detect_and_describe(frames[1 - i], cfg,
+                                          device=mesh.device)
+        mm = matching.match_descriptors(
+            one.descriptors, two.descriptors, a_mask=one.mask,
+            b_mask=two.mask, max_distance=64, ratio=0.8, device=mesh.device)
+        assert all(torch.equal(a[i], b) for a, b in zip(m, mm))
+
+    cam = rng.integers(0, 5, 200).astype(np.int32)
+    plan = exchange.build_exchange_plan(
+        np.zeros(200, np.int64), cam, rng.integers(0, 40, 200),
+        rng.random((200, 2)).astype(np.float32), 1, 40)
+    rows = torch.as_tensor(exchange.host_receive_order(plan, 0, 1))
+    got = exchange.exchange_observations(plan, mesh)
+    assert torch.equal(got[0][0].cpu(), rows[:, 0].int())
+    assert torch.equal(got[2][0].cpu(), rows[:, 2:4])
+
+    # the dry run's scene: 6 cameras on a line, 48 points, 0.5 px noise
+    k = np.array([[100.0, 0, 32], [0, 100.0, 24], [0, 0, 1]], np.float32)
+    pts = rng.uniform([-1, -1, 3], [1, 1, 6], (48, 3)).astype(np.float32)
+    poses = np.zeros((6, 7), np.float32)
+    poses[:, 0] = 1.0
+    poses[:, 4] = 0.1 * np.arange(6)
+    uv = [lg.se3_apply(torch.as_tensor(p)[None], torch.as_tensor(pts))
+          .numpy() for p in poses]
+    uv = np.concatenate([u[:, :2] / u[:, 2:] * 100.0 + [32, 24]
+                         for u in uv]) + rng.normal(0, 0.5, (288, 2))
+    fixed = np.array([True, True, False, False, False, False])
+    problem = ba.build_problem(
+        poses, pts + rng.normal(0, 0.02, pts.shape).astype(np.float32), k,
+        np.repeat(np.arange(6), 48).astype(np.int32),
+        np.tile(np.arange(48), 6).astype(np.int32), uv.astype(np.float32),
+        fixed_poses=fixed, device="cpu")
+    params = ba.BAParams(max_iterations=10, loss="huber", loss_scale=2.0)
+    single = ba.bundle_adjust_schur(
+        ba.BAProblem(*(None if v is None else v.to(mesh.device)
+                       for v in problem)), params)
+    for res in (controller.lead(mesh, "ba_dist_kf",
+                                ba_dist.shard_problem_by_keyframe(problem, 1),
+                                params),
+                ba_dist.bundle_adjust_schur_dist(
+                    ba_dist.shard_problem(problem, 1), mesh, params)):
+        assert abs(float(res.final_cost) - float(single.final_cost)) <= \
+            1e-3 * float(single.final_cost)
+        assert float((res.poses - single.poses).abs().max()) <= 5e-4
+        assert float((res.points - single.points).abs().max()) <= 5e-3
+
+    noisy = poses.copy()
+    noisy[1:, 4:] += rng.normal(0, 0.05, (5, 3)).astype(np.float32)
+    pt = torch.as_tensor(poses)
+    ei = np.arange(5)
+    meas = lg.se3_compose(pt[ei + 1], lg.se3_inverse(pt[ei])).numpy()
+    pp = pgo.PGOParams(max_iterations=5)
+    res = pgo_dist.pose_graph_optimize_dist(
+        pgo_dist.shard_pgo(noisy, ei, ei + 1, meas, n_devices=1), mesh, pp)
+    want = pgo.pose_graph_optimize(torch.as_tensor(noisy, device=mesh.device),
+                                   ei, ei + 1, meas, params=pp)
+    assert float((res.poses - want.poses).abs().max()) <= 5e-3
+    return mesh.counts["collectives"]
+
+
+@pytest.mark.cuda
+def test_cuda_parallel_world_size_1_nccl(cuda_dev):
+    """The distributed layer at world size 1 over NCCL (the one-card
+    deployment), in a spawned rank: every entry point against the single
+    process (``_parallel_world_1``); its collectives went through NCCL."""
+    from kornia_tpu_torch.parallel import mesh as tmesh
+
+    (n,) = tmesh.spawn(_parallel_world_1, 1, devices=[str(cuda_dev) + ":0"],
+                       timeout=300)
+    assert n > 0

@@ -168,21 +168,22 @@ def test_bare_import_exposes_every_ported_name():
     every subpackage of the reference's top-level ``__all__`` that the
     port has, every module of ``ops``' and ``geometry``'s (``cuda_kernels``
     for ``pallas_kernels``), every name of ``optim``'s, ``slam``'s,
-    ``bow``'s, ``utils``', ``apriltag``'s, ``io``'s and ``models``'
-    ``__all__`` is an attribute, and the subpackages ported so far are
-    among them; none of jax, flax, kornia_tpu, PIL, cv2, pyarrow or
-    transformers is imported."""
+    ``bow``'s, ``utils``', ``apriltag``'s, ``io``'s, ``models``',
+    ``parallel``'s and ``native``'s ``__all__`` is an attribute, and every
+    subpackage of the reference's is among them; none of jax, flax,
+    kornia_tpu, PIL, cv2, pyarrow or transformers is imported, and no
+    process group is started."""
     rename = {"pallas_kernels": "cuda_kernels"}
     want = [n for n in _reference_all("__init__.py")
             if n == "__version__" or _ported((), n)]
-    assert {"ops", "features", "geometry", "optim", "slam", "bow", "utils",
-            "image", "augmentations", "io", "apriltag", "models"} <= set(want)
+    assert want == _reference_all("__init__.py")
     attrs = list(want)
     for sub in ("ops", "geometry"):
         names = [rename.get(n, n) for n in _reference_all(f"{sub}/__init__.py")]
         assert [n for n in names if not _ported((sub,), n)] == []
         attrs += [f"{sub}.{n}" for n in names]
-    for sub in ("optim", "slam", "bow", "utils", "apriltag", "io", "models"):
+    for sub in ("optim", "slam", "bow", "utils", "apriltag", "io", "models",
+                "parallel", "native"):
         attrs += [f"{sub}.{n}" for n in _reference_all(f"{sub}/__init__.py")]
     attrs += ["ops.color.rgb_to_gray", "features.fast.fast_detect",
               "features.orb.orb_detect_and_describe",
@@ -193,7 +194,12 @@ def test_bare_import_exposes_every_ported_name():
               "models.generate", "models.build_vlm", "models.build_paligemma",
               "models.smolvlm_256m", "models.preprocess_image",
               "io.read_image_any_rgb8", "io.VideoReader", "io.MjpegReader",
-              "io.TumRgbdDataset"]
+              "io.TumRgbdDataset", "parallel.mesh.make_mesh",
+              "parallel.ba_dist.bundle_adjust_schur_dist_kf",
+              "parallel.pgo_dist.pose_graph_optimize_dist",
+              "parallel.exchange.exchange_observations",
+              "parallel.frontend_dist.detect_and_describe_batch",
+              "parallel.resilience.run_with_recovery", "parallel.follow"]
     code = (
         "import sys, functools\n"
         "import kornia_tpu_torch\n"
@@ -209,6 +215,8 @@ def test_bare_import_exposes_every_ported_name():
         "          'transformers')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in absent]\n"
         "assert not bad, bad\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "print('ok', len(attrs))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)

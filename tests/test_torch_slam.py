@@ -40,6 +40,7 @@ import test_torch_track as ttrack
 from kornia_tpu_torch import convert
 from kornia_tpu_torch import slam as tslam
 from kornia_tpu_torch.bow import Vocabulary
+from kornia_tpu_torch.parallel.mesh import make_mesh
 from kornia_tpu_torch.slam import system as tsys
 
 # One intra-op thread: these tests run many small ops, and torch's pool
@@ -621,8 +622,11 @@ def test_global_ba_matches_reference(loop_setup, closed, monkeypatch,
     """``global_ba`` (every keyframe, keyframes 0 and 1 fixed, Huber 2,
     12 iterations, the loop's buckets) on the closed map: the final cost
     within 1e-4 relative of the reference's (measured 8.9e-7) and below
-    the initial;
-    ``distributed=True`` raises in the port (not ported)."""
+    the initial. ``distributed=True`` over a 1-rank mesh (no process
+    group) runs the keyframe-sharded solve (parallel.ba_dist) on the same
+    map: its keyframe poses and points within the reference's own bounds
+    for the distributed against the single-host global BA
+    (tests/test_slam.py: 5e-3 and 2e-2)."""
     costs = {"ref": [], "port": []}
     for mod, key in ((jsys, "ref"), (tsys, "port")):
         monkeypatch.setattr(mod.ba_mod, "bundle_adjust_schur",
@@ -637,8 +641,14 @@ def test_global_ba_matches_reference(loop_setup, closed, monkeypatch,
     assert p_cost < float(p_res.initial_cost)
     assert abs(float(p_res.initial_cost) - float(r_res.initial_cost)) <= \
         1e-5 * float(r_res.initial_cost)
-    with pytest.raises(NotImplementedError):
-        port.global_ba(distributed=True)
+    _, dist = _systems(loop_setup, closed["ref"].map)
+    dist.mesh = make_mesh(["cpu"])
+    assert dist.global_ba(distributed=True)
+    assert costs["port"] == [p_res]     # not the single-host solve
+    np.testing.assert_allclose(dist.trajectory(), port.trajectory(),
+                               atol=5e-3)
+    np.testing.assert_allclose(dist.map.point_xyz, port.map.point_xyz,
+                               atol=2e-2)
 
 
 def test_triangulate_new_matches_reference(loop_setup, record_property):
