@@ -5,9 +5,10 @@ configurations, after 2 and 12 LM iterations (Huber 2).
 
     python3 ba_dist_spread.py [--trials N]
 
-On the card every segmented sum adds with atomics in its own order, so two
-solves of one problem differ; the distributed solve runs on 4 gloo ranks
-that share the card, keyframe-sharded. Prints one JSON object: per
+On the card each segmented sum adds every segment in one order, so two
+single-process solves of one problem give the same bits; the distributed
+solve, on 4 gloo ranks that share the card, keyframe-sharded, adds in
+another order. Prints one JSON object: per
 configuration and iteration count the largest pose, point and relative
 cost difference of the single-process solves from the first one, and of
 the distributed solves from it.

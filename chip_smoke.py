@@ -284,6 +284,40 @@ Phases (any failure raises, so the script exits non-zero):
    over NCCL, each run's seconds. A rank that raises, dies or hangs past
    PAR_TIMEOUT fails the phase.
 
+22. examples (the fifteenth slice, after vlm, on the io phase's files): the
+   port's example CLIs (kornia_tpu_torch/examples/) in-process on the card,
+   each main(argv) with its stdout printed, the launch counts set to 0 just
+   before and read just after, every hand-kernel call of its path held to
+   its plain version, and its run traced (CUPTI records: device busy ms,
+   launches; not the two-view and SLAM runs, 10^5-10^6 launches each, whose
+   traces take 5-27 s each to read: the slam phase traces the same loop
+   frame by frame). Inputs: the io phase's 1080p JPEG (for dog.jpeg),
+   AVI and TUM directory; the two-view pair as PNGs; a small COLMAP text
+   model. Runs and gates: fast_detector (fast_score 11; the corners equal
+   the CPU route's), orb_detector (1/2/1 K1/K2/K3 an ORB frame, 12; median
+   reprojection error < 1.5 px), two_view 8pt and 5pt (22 ORB frames each;
+   > 60 inliers), pnp_demo (< 1°), undistort_image (remap 11),
+   preprocess_pipeline (preprocess 51; --video: 60), apriltag_pose
+   --synthetic 4 (id 42 each frame), icp_registration, bag_of_words (4 ORB
+   frames; each place retrieves itself), colmap_stats --export-ply,
+   camera_capture --frames 10 (fast_score 10), video_player on the AVI (30
+   frames), orb_tracking_live --frames 30 --viz (30 ORB frames; the median
+   flow of the 2-px pan), vlm_demo smolvlm and paligemma (the tokens
+   against the CPU route on the same weights under the greedy-margin
+   rule), frontend_step.forward_step (2 ORB frames), slam_demo synthetic
+   (ATE under the reference run's printed 0.0080), --tum over 20 of the 40
+   frames (the outbound half); then `python -m
+   kornia_tpu_torch.examples.fast_detector` in a process of its own (its
+   corners equal the CPU route's). An "examples:"
+   line per run with its call ms, device ms and hand-kernel launches; the
+   kernels line gains each example's launches under launches_by_path.
+   slam_demo --mesh 4 runs in the parallel phase's 4-rank spawn (21): its
+   rank function, what the example's main spawns, after the phase's own
+   items; its printed lines, keyframes and loops equal to this phase's
+   single process, poses within EXAMPLE_MESH_POSE_TOL (the reference's
+   bound for the distributed global BA of this loop), ATE under the
+   reference run's printed figure, no hand kernel launched.
+
 The line before the last is the card's name and power limit, the one
 before it a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1931,7 +1965,10 @@ def check_track_kernels(k1, k2, k3, label="track"):
             if not torch.equal(got, want):
                 raise AssertionError(f"{label}: {name} at {tuple(got.shape)} "
                                      "differs from its plain version")
-        shapes[name] = [tuple(got.shape) for got, _ in found]
+        seen = [tuple(got.shape) for got, _ in found]
+        # each shape once, with its count where it repeats
+        shapes[name] = [s if seen.count(s) == 1 else f"{s} x{seen.count(s)}"
+                        for s in dict.fromkeys(seen)]
     log(f"{label}: the frame's K1/K2/K3 outputs at the path's own shapes "
         f"bit-equal to their plain versions on the same inputs: {shapes}")
     return errs
@@ -2994,8 +3031,17 @@ def parallel_inputs(d, frames, centres=None):
     return {"frames": np.stack(frames[:PAR_RANKS]), "plans": plans,
             "ba": bas, "ba_params": params, "pgo": pgo_sharded,
             "pgo_iters": (2, 15) if d > 1 else (2,),
-            "slam": None if centres is None else (frames, centres)
+            "slam": None if centres is None else (frames, centres),
+            # the slam_demo example's synthetic run over the mesh
+            "slam_demo": None if d == 1 else slam_demo_args(d)
             }, problems, ring, gt
+
+
+def slam_demo_args(d: int):
+    """slam_demo's flags for ``--mesh d`` (its synthetic mode)."""
+    from kornia_tpu_torch.examples import slam_demo
+
+    return slam_demo.parse_args(["--mesh", str(d)])
 
 
 def _rank_traced(fn, mesh, trace: bool = True):
@@ -3153,7 +3199,65 @@ def parallel_rank(mesh, inputs):
         else:
             out["slam"] = {"jobs": parallel.follow(mesh)}
         out["stage_s"]["slam"] = time.perf_counter() - t0
+    # `slam_demo --mesh d`: the example's rank function, what its main
+    # spawns (rank 0 runs the synthetic loop and leads each distributed
+    # solve, the others follow)
+    if inputs["slam_demo"] is not None:
+        from kornia_tpu_torch.examples import slam_demo
+
+        t1 = time.perf_counter()
+        demo, launches = counted(lambda: slam_demo.mesh_rank(
+            mesh, inputs["slam_demo"]))
+        out["slam_demo"] = dict(demo, launches=launches,
+                                call_ms=(time.perf_counter() - t1) * 1e3)
+        out["stage_s"]["slam_demo"] = time.perf_counter() - t0
     return out
+
+
+def _slam_demo_mesh(ranks, single, d, card_line) -> list:
+    """``slam_demo --mesh d`` (rank 0's lines and result, the followers'
+    solves) against the single process's run: the same printed lines after
+    the mesh's own; returns the failed gates."""
+    demo = ranks[0]["slam_demo"]
+    res = demo["result"]
+    for line in demo["lines"]:
+        log(f"  | {line}")
+    d_pose = (float(np.abs(res["poses"] - single["poses"]).max())
+              if res["poses"].shape == single["poses"].shape
+              else float("inf"))
+    jobs = [r["slam_demo"]["jobs"] for r in ranks[1:]]
+    label = f"examples: slam_demo --mesh {d}"
+    log(f"{label} (in the parallel phase's spawn): call "
+        f"{demo['call_ms']:.1f} ms, device not traced, hand-kernel "
+        f"launches { {k: v for k, v in demo['launches'].items() if v} }; "
+        f"against the single process: poses max |Δ| {d_pose:.3g} (bound "
+        f"{EXAMPLE_MESH_POSE_TOL}), keyframes {res['keyframes']}, loops "
+        f"{res['loops']}, ATE {res['ate']:.6f}; each follower joined "
+        f"{jobs} solves [{card_line}]")
+    lines = demo["lines"][1:]
+    gates = {
+        "keyframes": res["kf_frames"] == single["kf_frames"],
+        "loops": res["loops"] == single["loops"],
+        "map points": res["map_points"] == single["map_points"],
+        "poses": d_pose <= EXAMPLE_MESH_POSE_TOL,
+        "ATE": res["ate"] < SLAM_DEMO_ATE_BOUND,
+        "jobs": jobs == [2 * len(single["loops"])] * (d - 1),
+        "mode line": demo["lines"][0].startswith(
+            f"distributed mode: {d}-rank"),
+        "lines": lines == single["lines"],
+        "launches": not any(demo["launches"].values())}
+    failed = [k for k, v in gates.items() if not v]
+    if not failed:
+        return []
+    differ = [[a, b] for a, b in zip(single["lines"], lines) if a != b]
+    return [f"{label}: {failed} differ from the single process's run "
+            f"(poses max |Δ| {d_pose}, ATE {res['ate']} against "
+            f"{single['ate']}, keyframes {res['kf_frames']}, loops "
+            f"{res['loops']} against {single['loops']}, map points "
+            f"{res['map_points']} against {single['map_points']}, jobs "
+            f"{jobs}, launches {demo['launches']}; lines [single, mesh] "
+            f"that differ: {differ}, {len(single['lines'])} against "
+            f"{len(lines)} lines)"]
 
 
 def _device(row, per: str) -> str:
@@ -3184,7 +3288,7 @@ def _check_ranks(label, ranks, key):
                                      "from rank 0")
 
 
-def phase_parallel(card_line, slam_summ):
+def phase_parallel(card_line, slam_summ, demo_single):
     """The distributed layer (``kornia_tpu_torch.parallel``) on the card:
     (a) one rank over NCCL, the one-card deployment, and (b) 4 ranks that
     share the card over gloo, spawned by ``parallel.mesh.spawn``. Each
@@ -3194,13 +3298,18 @@ def phase_parallel(card_line, slam_summ):
     (chol) and — on 4 ranks — the PCG (cg_dense) configuration in both
     layouts (12 iterations, Huber 2), PGO on the 256-keyframe ring (2 and
     15 iterations), and on 4 ranks ``MonocularSlam(mesh=)`` over the 40
-    SLAM frames. Gates: front-end features bit-equal to the single
+    SLAM frames, then ``slam_demo --mesh 4``'s rank function (the
+    example's synthetic run; ``demo_single`` is the examples phase's
+    single-process run). Gates: front-end features bit-equal to the single
     process's, K1/K2/K3 1/2/1 a frame on every rank and bit-equal to their
     plain versions; received rows equal to the plan's; BA within
     PAR_BA_TOL of the single-process solve; PGO after 2 iterations within
     PAR_PGO_TOL of the single process's, after 15 the backend's cost and
-    ATE gates; the SLAM run the slam phase's gates and loop count; every
-    rank's results bit-equal. Returns what the kernels line reads."""
+    ATE gates; the SLAM run the slam phase's gates and loop count;
+    slam_demo's keyframes, loops and printed lines those of the single
+    process, its poses within EXAMPLE_MESH_POSE_TOL, its ATE under
+    SLAM_DEMO_ATE_BOUND, no hand kernel launched; every rank's results
+    bit-equal. Returns what the kernels line reads."""
     t_phase = time.perf_counter()
     frames, _, centres = slam_sequence()
     t_render = time.perf_counter() - t_phase
@@ -3362,6 +3471,7 @@ def phase_parallel(card_line, slam_summ):
                 f"{leads.count('ba_dist_kf')} global BA solves, "
                 f"{sl['collectives']} collectives; every follower joined "
                 f"{jobs[0]} [{card_line}]")
+            failed += _slam_demo_mesh(ranks, demo_single, d, card_line)
         log(f"{tag}: inputs and single-process references "
             f"{t_inputs:.1f} s, ranks {t_ranks:.1f} s (spawn, imports and "
             f"every item; rank 0 done with each item at "
@@ -5310,6 +5420,367 @@ def phase_vlm(card_line, jpeg, avi):
     return out
 
 
+# --------------------------------------------------------------------------
+# the fifteenth slice: the port's examples (kornia_tpu_torch/examples/)
+# --------------------------------------------------------------------------
+
+# The reference's `python examples/slam_demo.py --cpu` prints "ATE RMSE
+# 0.0080" for its synthetic circle (seed 0; recorded once from a run of
+# the reference on the CPU, which tests/test_torch_examples_slam.py runs
+# in-process): the card's run is held under that printed figure, 0.0080
+# plus half a unit of its last digit.
+SLAM_DEMO_REF_ATE = 0.0080
+SLAM_DEMO_ATE_BOUND = SLAM_DEMO_REF_ATE + 0.00005
+# cut to keep the phase short, before any width
+EXAMPLE_TRACK_FRAMES = 30     # orb_tracking_live --frames (its default 120)
+EXAMPLE_TUM_FRAMES = SLAM_FRAMES // 2   # slam_demo --tum --max-frames
+# the two-view and SLAM runs enqueue 10^5-10^6 launches; reading such a
+# trace takes 5-27 s a run on the H100, so they run untraced (the slam
+# phase traces the same loop frame by frame)
+UNTRACED_EXAMPLES = ("two_view", "slam_demo")
+EXAMPLE_TIMEOUT = 300.0       # s: the CLI subprocess
+# the --mesh run against the single process: its 10 distributed solves
+# (5 closures) add in another order than the single process's, and the
+# frames tracked after each closure carry the difference on, so the
+# keyframe poses are held to the reference's bound for MonocularSlam's
+# distributed against its single-host global BA on this loop scenario
+# (tests/test_slam.py:262), not bit for bit. The card's segmented sums
+# give the same bits every run (optim/ba._seg_sum), so that difference is
+# the same in every run (slam_demo_spread.py prints it); with atomic sums
+# it spread from run to run, up to 1.8e-3. The printed lines (every
+# tracked count, keyframe and loop, the map points, the ATE to 4
+# decimals) are held equal and the ATE under SLAM_DEMO_ATE_BOUND.
+EXAMPLE_MESH_POSE_TOL = 5e-3
+# the hand kernels an example's path may launch, by the C entry counted,
+# and the wrappers that Record holds to their plain versions
+_EXAMPLE_RECORDS = ("fast_score", "fast_harris_levels", "windows_paired",
+                    "brief_rotated", "fused_preprocess", "remap")
+
+
+def _orb_launches(frames: int) -> dict:
+    return {"fast_harris": frames, "windows_paired": 2 * frames,
+            "brief_rotated": frames}
+
+
+def colmap_model(root):
+    """A COLMAP text model of two cameras, three images and two points in
+    ``root`` (written as text, as the COLMAP parity tests write theirs)."""
+    os.makedirs(root)
+    model = {
+        "cameras.txt": "# Camera list\n1 PINHOLE 752 480 458.654 457.296 "
+                       "367.215 248.375\n2 SIMPLE_RADIAL 640 480 500 320 240 "
+                       "0.01\n",
+        "images.txt": "# Image list\n1 1 0 0 0 0 0 0 1 a.png\n10 20 1 30 40 "
+                      "2\n2 0.9950042 0 0.0998334 0 0.5 0 0 1 b.png\n12 22 "
+                      "1 33 44 -1\n3 1 0 0 0 1 0.2 0 2 c.png\n5 5 -1\n",
+        "points3D.txt": "# 3D point list\n1 0.5 0.2 4.0 200 10 10 0.4 1 0 "
+                        "2 0\n2 -0.5 0.1 5.0 10 200 10 0.8 1 1 2 1 3 4\n"}
+    for name, text in model.items():
+        with open(os.path.join(root, name), "w") as fh:
+            fh.write(text)
+
+
+def _example_inputs(tmp, img1, img2):
+    """The two-view pair as PNGs and the COLMAP model; their paths."""
+    root = os.path.join(tmp, "examples")
+    paths = {"root": root, "a": os.path.join(root, "view1.png"),
+             "b": os.path.join(root, "view2.png"),
+             "colmap": os.path.join(root, "colmap")}
+    colmap_model(paths["colmap"])
+    kio.write_image_png(paths["a"], img1)
+    kio.write_image_png(paths["b"], img2)
+    return paths
+
+
+def _example_kernel_errs(recs, label):
+    """Each recorded hand-kernel call of an example's path against its
+    plain version on the same inputs: K1 (both entries), K2, K3 and K7
+    bit-equal, K6 bit-equal to its own arithmetic and within
+    PLAIN_TOL["preprocess"] of the dense plain version. Returns the
+    largest |error| by kernel row name."""
+    errs = {}
+    k123 = [recs[n] for n in ("fast_harris_levels", "windows_paired",
+                              "brief_rotated")]
+    if any(r.calls for r in k123):
+        e = check_track_kernels(*k123, label=label)
+        errs.update({"fast_harris": e["fast_harris"],
+                     "windows_paired": e["windows_paired"],
+                     "brief_sample": e["brief_rotated"]})
+    for (args, kwargs), got in zip(recs["fast_score"].calls,
+                                   recs["fast_score"].outs):
+        if not torch.equal(got, ck._fast_score_plain(*args, **kwargs)):
+            raise AssertionError(f"{label}: fast_score differs from its "
+                                 "plain version")
+        errs["fast_harris"] = errs.get("fast_harris", 0.0)
+    for (args, kwargs), got in zip(recs["remap"].calls, recs["remap"].outs):
+        if not torch.equal(got, ck._remap_plain(*args, **kwargs)):
+            raise AssertionError(f"{label}: remap differs from its plain "
+                                 "version")
+        errs["remap"] = 0.0
+    for (args, kwargs), got in zip(recs["fused_preprocess"].calls,
+                                   recs["fused_preprocess"].outs):
+        if not torch.equal(got, ck._fused_preprocess_taps(*args, **kwargs)):
+            raise AssertionError(f"{label}: preprocess differs from its own "
+                                 "arithmetic")
+        e = max_err(got, ck._fused_preprocess_plain(*args, **kwargs))
+        if e > PLAIN_TOL["preprocess"]:
+            raise AssertionError(f"{label}: preprocess {e} from its plain "
+                                 "version")
+        errs["preprocess"] = max(errs.get("preprocess", 0.0), e)
+    return errs
+
+
+def _run_example(name, argv, label, card_line, want_launches):
+    """``kornia_tpu_torch.examples.<name>.main(argv)`` on the card
+    (``label`` in the lines printed), stdout captured and printed, the
+    launch counts set to 0 just before and read
+    just after (they must equal ``want_launches(result)``), each hand
+    kernel it launched held to its plain version; unless it is one of
+    UNTRACED_EXAMPLES under the profiler (CUPTI records only): the
+    device's busy ms and every launch. Returns (result, stdout, counts,
+    kernel errors, row)."""
+    import importlib
+
+    mod = importlib.import_module(f"kornia_tpu_torch.examples.{name}")
+    trace = name not in UNTRACED_EXAMPLES
+    recs = {n: Record(n) for n in _EXAMPLE_RECORDS}
+    buf = stdio.StringIO()
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for r in recs.values():
+            stack.enter_context(r)
+        stack.enter_context(contextlib.redirect_stdout(buf))
+        if trace:
+            res, tr = _frame_trace(lambda: mod.main(argv), count_syncs=False)
+        else:
+            res = mod.main(argv)
+            torch.cuda.synchronize()
+            tr = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                  "busy_ms": float("nan"), "launches": float("nan")}
+    t_read = time.perf_counter() - t0 - tr["wall_ms"] / 1e3
+    counts = dict(ck.LAUNCHES)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    only(counts, want_launches(res))
+    t1 = time.perf_counter()
+    errs = _example_kernel_errs(recs, f"examples: {label}")
+    hand = {k: v for k, v in counts.items() if v}
+    row = {"example": label, "call_ms": tr["wall_ms"],
+           "device_ms": tr["busy_ms"], "launches": tr["launches"],
+           "kernel_launches": hand, "trace_read_s": t_read,
+           "check_s": time.perf_counter() - t1}
+    log(f"examples: {label}: call {tr['wall_ms']:.1f} ms, device "
+        + (f"{tr['busy_ms']:.2f} ms (busy, traced), {tr['launches']} "
+           "launches" if trace else "not traced")
+        + f", hand-kernel launches {hand}; reading the trace "
+        f"{t_read:.1f} s, the plain-version checks {row['check_s']:.1f} s "
+        f"[{card_line}]")
+    return res, out, counts, errs, row
+
+
+def phase_examples(card_line, tmp, jpeg, avi, img1, img2):
+    """The port's examples (docstring 22) in-process on the card, each
+    counted and held to its gates, in ``tmp`` (the io phase's directory:
+    ``jpeg``, ``avi``, ``tmp``/tum); ``img1`` and ``img2`` are the two-view
+    pair. Returns the hand-kernel launches by example and the largest
+    kernel errors, for the kernels line, and the single-process
+    slam_demo run, which the parallel phase's ``--mesh`` run is held
+    to."""
+    from kornia_tpu_torch.examples import fast_detector, vlm_demo
+    from kornia_tpu_torch.examples.frontend_step import forward_step
+
+    t_phase = time.perf_counter()
+    paths = _example_inputs(tmp, img1, img2)
+    root = paths["root"]
+    launches, errs, rows, failed = {}, {}, [], []
+    saved_tmp = tempfile.tempdir
+    tempfile.tempdir = root        # the examples' own temporary files
+
+    def ex(name, argv, want):
+        label = f"{name} {' '.join(argv)}".replace(tmp, "$TMP").strip()
+        res, out, counts, e, row = _run_example(name, argv, label,
+                                                card_line, want)
+        launches[f"examples: {row['example']}"] = {
+            k: v for k, v in counts.items() if v}
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        rows.append(row)
+        return res, out
+
+    def gate(ok, what):
+        if not ok:
+            failed.append(what)
+
+    try:
+        png = os.path.join(root, "fast.png")
+        res, out = ex("fast_detector", ["--image", jpeg, "--output", png],
+                      lambda r: {"fast_score": r["detect_calls"]})
+        img = kio.read_image_any_rgb8(jpeg)
+        want = fast_detector.detect(img, 20.0, 2048, "cpu")
+        xy_cpu = want.xy.numpy()[want.mask.numpy()]
+        gate("corners:" in out and np.array_equal(res["xy"], xy_cpu)
+             and os.path.exists(png),
+             f"fast_detector: {res['corners']} corners, the CPU route "
+             f"{len(xy_cpu)}")
+
+        res, out = ex("orb_detector", ["--image", jpeg],
+                      lambda r: _orb_launches(r["orb_frames"]))
+        gate(res["median_err"] < 1.5, f"orb_detector: median reprojection "
+             f"error {res['median_err']} px")
+
+        for solver in ("8pt", "5pt"):
+            res, out = ex("two_view", ["--frame-a", paths["a"], "--frame-b",
+                                       paths["b"], "--solver", solver],
+                          lambda r: _orb_launches(r["orb_frames"]))
+            gate(res["inliers"] > 60, f"two_view {solver}: {res['inliers']} "
+                 "inliers")
+
+        res, out = ex("pnp_demo", [], lambda r: {})
+        gate(res["rotation_error_deg"] < 1.0,
+             f"pnp_demo: rotation error {res['rotation_error_deg']}°")
+
+        res, out = ex("undistort_image", ["--image", jpeg],
+                      lambda r: {"remap": r["undistort_calls"]})
+        gate("undistort" in out, "undistort_image: no line")
+
+        res, out = ex("preprocess_pipeline", ["--image", jpeg],
+                      lambda r: {"preprocess": r["preprocess_calls"]})
+        gate("fused preprocess" in out
+             and res["tensor"].shape == (1, 3, 640, 640),
+             "preprocess_pipeline: output")
+        res, out = ex("preprocess_pipeline", ["--video", avi],
+                      lambda r: {"preprocess": r["preprocess_calls"]})
+        gate(res["frames"] == MJPEG_FRAMES, f"preprocess_pipeline --video: "
+             f"{res['frames']} frames")
+
+        res, out = ex("apriltag_pose", ["--synthetic", "4"], lambda r: {})
+        gate(out.count("id 42") == 4, "apriltag_pose: id 42 not in every "
+             "frame")
+
+        res, out = ex("icp_registration", [], lambda r: {})
+        gate("PGO: cost" in out and res["final_cost"] <= res["initial_cost"],
+             "icp_registration: PGO")
+
+        res, out = ex("bag_of_words", ["--image", jpeg],
+                      lambda r: _orb_launches(r["orb_frames"]))
+        gate(all(f"query place {i}: best {i}" in out for i in range(4)),
+             "bag_of_words: a place does not retrieve itself")
+
+        ply = os.path.join(root, "colmap.ply")
+        res, out = ex("colmap_stats", [paths["colmap"], "--export-ply", ply],
+                      lambda r: {})
+        gate((res["cameras"], res["images"], res["points"]) == (2, 3, 2)
+             and os.path.exists(ply), "colmap_stats: counts")
+
+        res, out = ex("camera_capture", ["--frames", "10"],
+                      lambda r: {"fast_score": r["detect_calls"]})
+        gate("done" in out and len(res["corners"]) == 10
+             and min(res["corners"]) > 0, "camera_capture: frames")
+
+        res, out = ex("video_player", ["--video", avi, "--frames", "30",
+                                       "--out", os.path.join(root, "p.avi")],
+                      lambda r: {})
+        n_vid = min(30, MJPEG_FRAMES)
+        gate(f"wrote {n_vid} frames" in out and res["frames"] == n_vid,
+             "video_player: frames written")
+
+        html = os.path.join(root, "tracks.html")
+        res, out = ex("orb_tracking_live", ["--frames",
+                                            str(EXAMPLE_TRACK_FRAMES),
+                                            "--viz", html],
+                      lambda r: _orb_launches(r["orb_frames"]))
+        flow = res["flow"][:, :2]
+        gate("tracked matches" in out and "fps" in out
+             and os.path.exists(html)
+             and len(flow) == EXAMPLE_TRACK_FRAMES - 1
+             and np.abs(flow - [-2.0, 0.0]).max() <= 0.5,
+             f"orb_tracking_live: median flow {flow.min(0)}..{flow.max(0)}")
+
+        for arch in ("smolvlm", "paligemma"):
+            res, out = ex("vlm_demo", ["--image", jpeg, "--arch", arch],
+                          lambda r: {})
+            cfg, model = vlm_demo.build(arch, DEV)
+            build = (models.build_paligemma if arch == "paligemma"
+                     else models.build_vlm)
+            pixels = models.preprocess_image(img, cfg.vision.image_size,
+                                             device=DEV)
+            tokens = torch.as_tensor(models.build_prompt_tokens(
+                [10, 11, 12], cfg.tokens_per_image,
+                cfg.image_token_id)[None], device=DEV)
+            _cpu_route(model, _cpu_copy(model, cfg, build), cfg, tokens,
+                       pixels, torch.as_tensor(res["generated"]),
+                       f"examples vlm_demo {arch}")
+            gate("generated" in out, f"vlm_demo {arch}: no line")
+
+        fn, example = forward_step(DEV)
+        with Record("fast_harris_levels") as k1, \
+                Record("windows_paired") as k2, \
+                Record("brief_rotated") as k3:
+            fwd, counts = counted(lambda: fn(*example))
+        only(counts, _orb_launches(2))
+        e = check_track_kernels(k1, k2, k3, label="examples: forward_step")
+        for k, key in (("fast_harris", "fast_harris"),
+                       ("windows_paired", "windows_paired"),
+                       ("brief_sample", "brief_rotated")):
+            errs[k] = max(errs.get(k, 0.0), e[key])
+        launches["examples: frontend_step.forward_step"] = {
+            k: v for k, v in counts.items() if v}
+        gate([tuple(t.shape) for t in fwd] == [(512, 2), (512, 2), (512,),
+                                               (512,)]
+             and all(bool(torch.isfinite(t).all()) for t in fwd[:2]),
+             "frontend_step.forward_step: outputs")
+        log(f"examples: frontend_step.forward_step: launches "
+            f"{launches['examples: frontend_step.forward_step']} (the "
+            f"distributed step's stages run in the parallel phase)")
+
+        single, out = ex("slam_demo", [], lambda r: {})
+        single["lines"] = out.splitlines()
+        gate(single["ate"] < SLAM_DEMO_ATE_BOUND and single["loops"],
+             f"slam_demo: ATE {single['ate']} (the reference's run "
+             f"{SLAM_DEMO_REF_ATE}), loops {single['loops']}")
+        log(f"examples: slam_demo synthetic: ATE {single['ate']:.6f} (the "
+            f"reference's run prints {SLAM_DEMO_REF_ATE}; bound "
+            f"{SLAM_DEMO_ATE_BOUND}), {single['keyframes']} keyframes, "
+            f"loops to keyframes {single['loops']}")
+        res, out = ex("slam_demo", ["--tum", os.path.join(tmp, "tum"),
+                                    "--max-frames", str(EXAMPLE_TUM_FRAMES)],
+                      lambda r: _orb_launches(r["frames"]))
+        gate("keyframes: " in out and res["frames"] == EXAMPLE_TUM_FRAMES,
+             "slam_demo --tum: did not run to the end")
+        log(f"examples: slam_demo --tum: {res['keyframes']} keyframes, ATE "
+            f"{res['ate']} (TUM's intrinsics on the EuRoC-size sequence: "
+            "not held)")
+
+        # the CLI on its own, in a process of its own
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "kornia_tpu_torch.examples.fast_detector",
+             "--image", jpeg], capture_output=True, text=True,
+            timeout=EXAMPLE_TIMEOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        sub_s = time.perf_counter() - t0
+        n_sub = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("corners:")]
+        gate(proc.returncode == 0
+             and n_sub == [f"corners: {len(xy_cpu)}"],
+             f"python -m kornia_tpu_torch.examples.fast_detector: rc "
+             f"{proc.returncode}, {n_sub}, {proc.stderr[-500:]}")
+        log(f"examples: python -m kornia_tpu_torch.examples.fast_detector "
+            f"--image <1080p jpeg>: rc {proc.returncode}, {n_sub}, "
+            f"{sub_s:.1f} s with the interpreter's start [{card_line}]")
+    finally:
+        tempfile.tempdir = saved_tmp
+    log(f"examples: {json.dumps(rows)}")
+    log(f"examples phase: {time.perf_counter() - t_phase:.1f} s "
+        f"[{card_line}]")
+    if failed:
+        raise AssertionError(f"examples: gates failed: {failed}")
+    return launches, errs, single
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="DIR",
@@ -5778,6 +6249,9 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         jpeg, avi = phase_io(card_line, tmp)
         phase_vlm(card_line, jpeg, avi)
+        # 22. the fifteenth slice: the examples, on the io phase's files
+        ex_launches, ex_errs, demo_single = phase_examples(
+            card_line, tmp, jpeg, avi, img1, img2)
 
     # 13. the tracking step (the seventh slice)
     track_launches, track_errs = phase_track(card_line)
@@ -5791,7 +6265,7 @@ def main():
     # 15. the SLAM frame loop (the ninth slice)
     slam_launches, slam_errs, slam_summ = phase_slam(card_line)
     # 21. the fourteenth slice: the distributed layer
-    par = phase_parallel(card_line, slam_summ)
+    par = phase_parallel(card_line, slam_summ, demo_single)
     for row in rows_out[:3]:
         key = {"brief_sample": "brief_rotated"}.get(row["name"], row["name"])
         row["launches_by_path"]["slam loop"] = slam_launches[key]
@@ -5807,6 +6281,26 @@ def main():
         k1_fast_detect
     k1["launches_by_path"]["fast_detect arc lengths 9-12"] = k1_arc_launches
     k1["cases"] = k1_cases + k1_arc_cases
+    # the examples' paths: K1 (both entries), K2, K3, K6, K7
+    k6["paths"] = {"preprocess phase": k6["launches"]}
+    for label, counts in ex_launches.items():
+        for row in rows_out[:3]:
+            key = {"brief_sample": "brief_rotated"}.get(row["name"],
+                                                        row["name"])
+            if counts.get(key):
+                row["launches_by_path"][label] = counts[key]
+        if counts.get("fast_score"):
+            k1["launches_by_path"][f"{label} (score-only entry)"] = \
+                counts["fast_score"]
+        for row, key in ((k6, "preprocess"), (k7, "remap")):
+            if counts.get(key):
+                row["paths"][label] = counts[key]
+    for row in rows_out[:3]:
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 ex_errs.get(row["name"], 0.0))
+    for row, key in ((k6, "preprocess"), (k7, "remap")):
+        row["launches"] = sum(row["paths"].values())
+        row["max_abs_err"] = max(row["max_abs_err"], ex_errs.get(key, 0.0))
     host = phase_host(card_line, parent)
     for c in k5["cases"]:
         c["host_us_turns"] = host["lane_gather" + (

@@ -2,7 +2,7 @@
 kornia_tpu/optim/ba.py).
 
 Observations are flat tensors (camera, point, uv, weight). The block
-normal equations are segmented sums over observations (``index_add_``),
+normal equations are segmented sums over observations (``_seg_sum``),
 the reduced camera system S = U − Σ_pt Yc·Bcᵀ is one (6P, 3N)·(3N, 6P)
 product over the per-(point, camera) coupling sums, and the LM loop is a
 Python loop of ``torch.where`` selects: no iteration reads anything back
@@ -185,10 +185,43 @@ def build_problem(
 # ---------------------------------------------------------------------------
 
 
-def _seg_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """out[j] = Σ_{i: idx[i] = j} vals[i]; (M, ...) → (n, ...)."""
+class SegPlan(NamedTuple):
+    """An index sorted once for many segmented sums over it: its rows in
+    segment order (a stable sort) and each segment's start."""
+    perm: torch.Tensor        # (M,)
+    offsets: torch.Tensor     # (n + 1,)
+
+
+def _seg_plan(idx: torch.Tensor, n: int) -> SegPlan:
+    perm = torch.argsort(idx, stable=True)
+    starts = torch.arange(n + 1, dtype=idx.dtype, device=idx.device)
+    return SegPlan(perm, torch.searchsorted(idx.index_select(0, perm),
+                                            starts))
+
+
+def _segments(obs_cam, obs_pt, p: int, n: int):
+    """What the segmented sums over cameras and over points take: on the
+    card a :class:`SegPlan` of each (sorted once for a step's sums and its
+    CG loop's), on the CPU the indices themselves."""
+    if obs_cam.is_cuda:
+        return _seg_plan(obs_cam, p), _seg_plan(obs_pt, n)
+    return obs_cam, obs_pt
+
+
+def _seg_sum(vals: torch.Tensor, idx, n: int) -> torch.Tensor:
+    """out[j] = Σ_{i: idx[i] = j} vals[i]; (M, ...) → (n, ...), with the
+    same bits every run. On the card ``index_add_`` would add with atomics
+    in another order each run; ``index_put_(accumulate=True)`` sorts the
+    index and adds each segment in one order, and with a :class:`SegPlan`
+    of ``idx`` (:func:`_segments`) the sort is done once for many sums. On
+    the CPU ``index_add_`` adds in index order."""
+    if isinstance(idx, SegPlan):
+        return torch.segment_reduce(vals.index_select(0, idx.perm), "sum",
+                                    offsets=idx.offsets, axis=0, unsafe=True)
     out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype,
                       device=vals.device)
+    if vals.is_cuda:
+        return out.index_put_((idx,), vals, accumulate=True)
     return out.index_add_(0, idx, vals)
 
 
@@ -303,9 +336,11 @@ def ba_cost(problem: BAProblem, poses=None, points=None,
 
 
 def schur_normal_equations(problem: BAProblem, poses, points,
-                           params: BAParams):
+                           params: BAParams, segments=None):
     """The block normal equations: (U (P,6,6), g_p (P,6), V (N,3,3),
-    g_x (N,3), B (M,6,3)), B the per-observation pose-point block."""
+    g_x (N,3), B (M,6,3)), B the per-observation pose-point block.
+    ``segments``: :func:`_segments` of the problem (default its
+    indices)."""
     p = poses.shape[0]
     n = points.shape[0]
     r, j_pose, j_pt = _project_with_jacobians(
@@ -322,10 +357,11 @@ def schur_normal_equations(problem: BAProblem, poses, points,
     gp_terms = -_mtv(wj_pose, r)                              # (M,6)
     gx_terms = -_mtv(wj_pt, r)                                # (M,3)
 
-    U = _seg_sum(u_blocks, problem.obs_cam, p)
-    g_p = _seg_sum(gp_terms, problem.obs_cam, p)
-    V = _seg_sum(v_blocks, problem.obs_pt, n)
-    g_x = _seg_sum(gx_terms, problem.obs_pt, n)
+    cams, pts = segments or (problem.obs_cam, problem.obs_pt)
+    U = _seg_sum(u_blocks, cams, p)
+    g_p = _seg_sum(gp_terms, cams, p)
+    V = _seg_sum(v_blocks, pts, n)
+    g_x = _seg_sum(gx_terms, pts, n)
     if problem.prior_center is not None:
         du, dg, _ = prior_terms(poses, problem.prior_center,
                                 problem.prior_invs, problem.fixed_poses,
@@ -379,7 +415,8 @@ def _gauge_fixed_system(s, u_damped, rhs_p, fixed_poses):
     return s, (rhs_p * free[:, None]).reshape(-1)
 
 
-def reduce_camera_system(problem: BAProblem, U, g_p, V, g_x, b_blocks, lam):
+def reduce_camera_system(problem: BAProblem, U, g_p, V, g_x, b_blocks, lam,
+                         segments=None):
     """The dense reduced camera system S (6P, 6P) and rhs (6P,):
     S = blockdiag(U damped) − Σ_pt Yc[pt, a]·Bc[pt, b]ᵀ with
     Bc[pt, cam] = Σ_{i: pt_i = pt, cam_i = cam} B_i and Yc = Bc·V⁻¹[pt],
@@ -389,7 +426,8 @@ def reduce_camera_system(problem: BAProblem, U, g_p, V, g_x, b_blocks, lam):
     y_blocks, rhs_terms = _schur_rhs_terms(b_blocks, v_inv, g_x,
                                            problem.obs_pt)
     # rhs_p = g_p − Σ_i Y_i g_x[pt_i]
-    rhs_p = g_p - _seg_sum(rhs_terms, problem.obs_cam, p)
+    cams = segments[0] if segments else problem.obs_cam
+    rhs_p = g_p - _seg_sum(rhs_terms, cams, p)
     s, rhs = _gauge_fixed_system(
         -_camera_coupling(b_blocks, v_inv, problem.obs_pt, problem.obs_cam,
                           p),
@@ -406,22 +444,24 @@ def _schur_rhs_terms(b_blocks, v_inv, g_x, obs_pt):
 
 
 def back_substitute_points(problem: BAProblem, v_inv, b_blocks, g_x,
-                           delta_pose):
+                           delta_pose, segments=None):
     """δx_j = V⁻¹_j (g_x_j − Σ_{i ∈ obs(j)} Bᵢᵀ δp[camᵢ])."""
     dx = _back_substitute(v_inv, b_blocks, g_x, delta_pose, problem.obs_cam,
-                          problem.obs_pt)
+                          problem.obs_pt, segments)
     return dx * (~problem.fixed_points)[:, None]
 
 
-def _back_substitute(v_inv, b_blocks, g_x, delta_pose, obs_cam, obs_pt):
+def _back_substitute(v_inv, b_blocks, g_x, delta_pose, obs_cam, obs_pt,
+                     segments=None):
     """V⁻¹_j (g_x_j − Σ_{i ∈ obs(j)} Bᵢᵀ δp[camᵢ]) for every point j."""
     bt_dp = _mtv(b_blocks, delta_pose.index_select(0, obs_cam))  # (M, 3)
-    acc = _seg_sum(bt_dp, obs_pt, v_inv.shape[0])
+    acc = _seg_sum(bt_dp, segments[1] if segments else obs_pt,
+                   v_inv.shape[0])
     return _mv(v_inv, g_x - acc)
 
 
 def _pcg_reduced_solve(problem: BAProblem, U, g_p, V, g_x, b_blocks, lam,
-                       cg_iters: int):
+                       cg_iters: int, segments=None):
     """Matrix-free PCG on the reduced camera system:
     S v = U_d v − Σ_i B_i V⁻¹[pt_i] (Σ_{j: pt_j = pt_i} B_jᵀ v[cam_j]),
     O(M) products and segmented sums per CG step; the preconditioner is
@@ -431,27 +471,32 @@ def _pcg_reduced_solve(problem: BAProblem, U, g_p, V, g_x, b_blocks, lam,
     free = (~problem.fixed_poses).to(U.dtype)[:, None]
     v_inv = _damped_point_inverses(problem, V, lam)
     u_damped = _damp(U, lam)
+    segments = segments or _segments(problem.obs_cam, problem.obs_pt, p,
+                                     v_inv.shape[0])
 
     # rhs = g_p − Σ_i B_i V⁻¹[pt_i] g_x[pt_i], gauge-masked
     yg = _mv(b_blocks, _mv(v_inv, g_x).index_select(0, problem.obs_pt))
-    rhs = (g_p - _seg_sum(yg, problem.obs_cam, p)) * free
+    rhs = (g_p - _seg_sum(yg, segments[0], p)) * free
 
     def matvec(v):
         vf = v * free
         sv = _mv(u_damped, vf) - _coupling_matvec(
-            b_blocks, v_inv, vf, problem.obs_cam, problem.obs_pt, p)
+            b_blocks, v_inv, vf, problem.obs_cam, problem.obs_pt, p,
+            segments)
         return sv * free + v * (1.0 - free)
 
     return _pcg(matvec, rhs, _block_jacobi(u_damped, free), cg_iters), v_inv
 
 
-def _coupling_matvec(b_blocks, v_inv, v, obs_cam, obs_pt, p: int):
+def _coupling_matvec(b_blocks, v_inv, v, obs_cam, obs_pt, p: int,
+                     segments=None):
     """Σ_i B_i V⁻¹[pt_i] Σ_{j: pt_j = pt_i} B_jᵀ v[cam_j], (P, 6): the
     coupling's product with ``v`` in O(M) work, never built."""
+    cams, pts = segments or (obs_cam, obs_pt)
     t1 = _mtv(b_blocks, v.index_select(0, obs_cam))
-    t3 = _mv(v_inv, _seg_sum(t1, obs_pt, v_inv.shape[0]))
+    t3 = _mv(v_inv, _seg_sum(t1, pts, v_inv.shape[0]))
     t4 = _mv(b_blocks, t3.index_select(0, obs_pt))
-    return _seg_sum(t4, obs_cam, p)
+    return _seg_sum(t4, cams, p)
 
 
 def _block_jacobi(u_damped, free):
@@ -492,20 +537,23 @@ def _uses_pcg(params: BAParams, p: int) -> bool:
 
 
 def _schur_step(problem: BAProblem, poses, points, lam, params: BAParams):
-    U, g_p, V, g_x, b_blocks = schur_normal_equations(problem, poses, points,
-                                                      params)
     p = poses.shape[0]
+    segments = _segments(problem.obs_cam, problem.obs_pt, p, points.shape[0])
+    U, g_p, V, g_x, b_blocks = schur_normal_equations(problem, poses, points,
+                                                      params, segments)
     if _uses_pcg(params, p):
         delta_pose, v_inv = _pcg_reduced_solve(
-            problem, U, g_p, V, g_x, b_blocks, lam, params.cg_iters)
+            problem, U, g_p, V, g_x, b_blocks, lam, params.cg_iters,
+            segments)
     else:
         s_dense, rhs, v_inv, _ = reduce_camera_system(
-            problem, U, g_p, V, g_x, b_blocks, lam)
+            problem, U, g_p, V, g_x, b_blocks, lam, segments)
         # a matrix that is not positive definite gives NaN (no wait for
         # the device), and the cost test then rejects the step
         delta_pose = solve_cholesky(s_dense, rhs).reshape(p, 6)
     delta_pose = delta_pose * (~problem.fixed_poses)[:, None]
-    dx = back_substitute_points(problem, v_inv, b_blocks, g_x, delta_pose)
+    dx = back_substitute_points(problem, v_inv, b_blocks, g_x, delta_pose,
+                                segments)
     return lg.se3_retract(poses, delta_pose), points + dx
 
 

@@ -4,8 +4,9 @@ Edge residual r = log(T_ab_meas⁻¹ · T_b · T_a⁻¹); Jacobians are exact
 forward-mode derivatives through the Lie-group ops
 (``torch.func.vmap(torch.func.jacfwd(...))`` per edge, where the reference
 calls ``jax.vmap(jax.jacfwd(...))``); the 6P×6P Gauss-Newton system is
-assembled with ``index_add_`` and solved by a damped dense Cholesky inside
-an LM loop of ``torch.where`` selects, with no wait for the device.
+assembled by segmented sums (``ba._seg_sum``) and solved by a damped
+dense Cholesky inside an LM loop of ``torch.where`` selects, with no wait
+for the device.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from kornia_tpu_torch import to_device
 from kornia_tpu_torch.geometry import liegroup as lg
 from kornia_tpu_torch.geometry.linalg import solve_cholesky
+from kornia_tpu_torch.optim.ba import _seg_sum
 from kornia_tpu_torch.optim.losses import LOSSES
 
 
@@ -80,10 +82,8 @@ def pgo_normal_equations(poses, edge_i, edge_j, edge_meas, edge_weight,
     flat = torch.cat([haa, hbb, hab, hab.transpose(-1, -2)]).reshape(-1, 36)
     idx = torch.cat([edge_i * p + edge_i, edge_j * p + edge_j,
                      edge_i * p + edge_j, edge_j * p + edge_i])
-    h = torch.zeros(p * p, 36, dtype=flat.dtype, device=flat.device)
-    h = h.index_add_(0, idx, flat).reshape(p, p, 6, 6)
-    g = torch.zeros(p, 6, dtype=ga.dtype, device=ga.device).index_add_(
-        0, torch.cat([edge_i, edge_j]), torch.cat([ga, gb]))
+    h = _seg_sum(flat, idx, p * p).reshape(p, p, 6, 6)
+    g = _seg_sum(torch.cat([ga, gb]), torch.cat([edge_i, edge_j]), p)
     return h, g, 0.5 * torch.sum(w * sq)
 
 

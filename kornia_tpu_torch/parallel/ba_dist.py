@@ -39,7 +39,7 @@ Left out: the reference's per-shard tiled one-hot segment engine
 stay None). It turns scatters into matmuls because the TPU scatters at
 scalar rate; a GPU scatters at memory rate, and the reference itself runs
 ``segment_sum`` on every other backend. The segmented sums here are
-``optim/ba._seg_sum`` (``index_add_``).
+``optim/ba._seg_sum`` (the same bits every run on the card).
 """
 
 from __future__ import annotations
@@ -355,6 +355,8 @@ def _lm_schur_loop(poses, points_l, k, obs_cam, obs_pt, obs_uv, obs_w,
 
     c0 = total_cost(poses, points_l)
     poses_c, points_c, cost = poses, points_l, c0
+    segments = ba_mod._segments(obs_cam, obs_pt, p, nl)
+    cams, pts = segments
     lam = torch.full((), params.lambda_init, dtype=torch.float32,
                      device=poses.device)
     for _ in range(params.max_iterations):
@@ -371,14 +373,14 @@ def _lm_schur_loop(poses, points_l, k, obs_cam, obs_pt, obs_uv, obs_w,
         gp_t = -ba_mod._mtv(wj_pose, r)
         gx_t = -ba_mod._mtv(wj_pt, r)
 
-        u_partial = ba_mod._seg_sum(u_b, obs_cam, p)
-        gp_partial = ba_mod._seg_sum(gp_t, obs_cam, p)
+        u_partial = ba_mod._seg_sum(u_b, cams, p)
+        gp_partial = ba_mod._seg_sum(gp_t, cams, p)
         # point blocks are fully local (observations sit with their points)
-        V = ba_mod._seg_sum(v_b, obs_pt, nl)
-        g_x = ba_mod._seg_sum(gx_t, obs_pt, nl)
+        V = ba_mod._seg_sum(v_b, pts, nl)
+        g_x = ba_mod._seg_sum(gx_t, pts, nl)
         v_inv = ba_mod._point_inverses(V, lam, active)
         _, rhs_terms = ba_mod._schur_rhs_terms(b_b, v_inv, g_x, obs_pt)
-        rhs_partial = ba_mod._seg_sum(rhs_terms, obs_cam, p)
+        rhs_partial = ba_mod._seg_sum(rhs_terms, cams, p)
 
         # ---- the ONE packed collective of the iteration -------------
         if mode in ("chol", "cg_dense"):
@@ -416,7 +418,7 @@ def _lm_schur_loop(poses, points_l, k, obs_cam, obs_pt, obs_uv, obs_w,
                 vf = v * free1
                 sv = ba_mod._mv(u_damped, vf) - mesh.all_reduce_(
                     ba_mod._coupling_matvec(b_b, v_inv, vf, obs_cam, obs_pt,
-                                            p))
+                                            p, segments))
                 return sv * free1 + v * (1.0 - free1)
 
             dp = ba_mod._pcg(matvec, rhs_p * free1,
@@ -426,7 +428,7 @@ def _lm_schur_loop(poses, points_l, k, obs_cam, obs_pt, obs_uv, obs_w,
 
         # local point back-substitution
         dx = ba_mod._back_substitute(v_inv, b_b, g_x, dp, obs_cam,
-                                     obs_pt) * active[:, None]
+                                     obs_pt, segments) * active[:, None]
         new_poses = lg.se3_retract(poses_c, dp)
         new_points = points_c + dx
         new_cost = total_cost(new_poses, new_points)

@@ -166,11 +166,20 @@ def initialize_distributed(
     variables are read. Idempotent: a no-op when a group exists (e.g.
     started by a launcher). Multi-host NCCL jobs start the group
     themselves with ``torch.distributed.init_process_group``."""
+    _start_group(coordinator_address, num_processes, process_id)
+
+
+def _start_group(coordinator_address, num_processes, process_id,
+                 devices=None) -> None:
+    """:func:`initialize_distributed`; ranks whose ``devices`` are all
+    CPU devices talk over gloo, whatever cards the host has."""
     if _group_active():
         return
     n = 1 if num_processes is None else int(num_processes)
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    backend = "nccl" if 0 < n <= cards else "gloo"
+    cpu = devices is not None and all(
+        torch.device(d).type == "cpu" for d in devices)
+    backend = "nccl" if 0 < n <= cards and not cpu else "gloo"
     if coordinator_address is None:
         init_method = "env://"
     elif "://" in coordinator_address:
@@ -203,8 +212,8 @@ def _spawned_rank(rank, n_ranks, tmp, devices, results):
     try:
         with open(os.path.join(tmp, "job.pkl"), "rb") as f:
             fn, args = pickle.load(f)
-        initialize_distributed(f"file://{os.path.join(tmp, 'rendezvous')}",
-                               n_ranks, rank)
+        _start_group(f"file://{os.path.join(tmp, 'rendezvous')}",
+                     n_ranks, rank, devices)
         try:
             out = fn(make_mesh(devices), *args)
         finally:

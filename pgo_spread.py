@@ -4,8 +4,8 @@
     python3 pgo_spread.py                    # card solves against the CPU route
     python3 pgo_spread.py --device cpu       # CPU solves with permuted edges
 
-On the card each solve sums with atomics in its own order; on the CPU the
-edges are permuted instead (this reorders ``index_add_`` and the cost's
+On the card every solve sums in one order (the same bits each trial),
+another than the CPU route's; on the CPU the edges are permuted (this reorders ``index_add_`` and the cost's
 sum). Prints one JSON object: for each iteration count the largest and
 smallest pose difference from the unpermuted CPU solve, how many trials
 are over 1e-3, and the largest relative final-cost difference.

@@ -8,8 +8,8 @@ ground-truth gates read.
 Every trial runs ``MonocularSlam`` over the same rendered 480×752
 out-and-back sequence (``chip_smoke.slam_sequence``) with the same
 vocabulary; trial i seeds the RANSAC draws with i (chip_smoke.py's run is
-seed 0), and on the card the atomics of ``index_add_`` sum in another
-order each run as well. Prints one JSON line per trial, then a summary:
+seed 0); the card's segmented sums give the same bits every run, so
+the trials differ by their draws alone. Prints one JSON line per trial, then a summary:
 the worst value of each gated quantity, and which trials fail the gates.
 """
 

@@ -893,9 +893,9 @@ def test_cuda_local_ba_equals_cpu_route(cuda_dev):
     """Local BA as the SLAM loop runs it (5 keyframes, its buckets, 10
     iterations, Huber 2) on the card and on the CPU: initial cost within
     1e-4, final cost within 0.05 relative, poses within 1e-3 (the
-    reference's own bound for two summation orders; the card's
-    index_add_ sums with atomics in any order); every pose within 0.5°
-    of the truth."""
+    reference's own bound for two summation orders; the card adds each
+    segment in its sorted order, the CPU in index order); every pose
+    within 0.5° of the truth."""
     import chip_smoke as cs
     from kornia_tpu_torch.optim import ba
     prob, gt = cs.local_ba_problem(cuda_dev, n_pts=400)
@@ -927,6 +927,34 @@ def test_cuda_bundle_adjust_waits_for_nothing(cuda_dev, solver):
     ba.bundle_adjust_schur(prob, params)
     res = cs._no_wait(lambda: ba.bundle_adjust_schur(prob, params))
     assert float(res.final_cost) < 0.5 * float(res.initial_cost)
+
+
+@pytest.mark.cuda
+def test_cuda_backend_solves_give_the_same_bits_every_run(cuda_dev):
+    """The segmented sums on the card (``ba._seg_sum``) add each segment
+    in one order: the same sums, a BA solve (dense and PCG) and a PGO
+    solve run twice give the same bits."""
+    import chip_smoke as cs
+    from kornia_tpu_torch.optim import ba, pgo
+    g = torch.Generator(device=cuda_dev).manual_seed(0)
+    vals = torch.randn(50_000, 6, 6, generator=g, device=cuda_dev)
+    idx = torch.randint(0, 40, (50_000,), generator=g, device=cuda_dev)
+    first = ba._seg_sum(vals, idx, 40)
+    assert torch.equal(ba._seg_sum(vals, idx, 40), first)
+    torch.testing.assert_close(
+        first.cpu(), ba._seg_sum(vals.cpu(), idx.cpu(), 40),
+        rtol=1e-4, atol=1e-3)
+    prob, _ = cs.synth_ba_problem(40, 600, 1, 0.2, cuda_dev)
+    for solver in ("dense", "pcg"):
+        params = ba.BAParams(max_iterations=6, solver=solver, cg_iters=20,
+                             **_HUBER)
+        a, b = (ba.bundle_adjust_schur(prob, params) for _ in range(2))
+        assert torch.equal(a.poses, b.poses) and torch.equal(a.points,
+                                                             b.points)
+    ring, _ = cs.pgo_ring(cuda_dev, n=60, radius=3.0)
+    a, b = (pgo.pose_graph_optimize(**ring, params=pgo.PGOParams(
+        max_iterations=15)) for _ in range(2))
+    assert torch.equal(a.poses, b.poses)
 
 
 @pytest.mark.cuda

@@ -397,6 +397,51 @@ def test_pcg_reduced_solve(problems, normal_eqs):
     assert _rel(x_g, dense) <= 1e-3
 
 
+@pytest.mark.parametrize("shape", [(), (6,), (6, 3)])
+def test_seg_sum_by_plan_equals_index_add(shape):
+    """The card's route for a CG loop's segmented sums (the index sorted
+    once, stable, then ``segment_reduce`` in segment order) adds each
+    segment in index order, as ``index_add_`` does on the CPU: bit-equal,
+    empty segments 0."""
+    rng = np.random.default_rng(3)
+    idx = torch.as_tensor(rng.integers(0, 50, 4000), dtype=torch.int32)
+    idx[idx == 7] = 8                       # segment 7 empty, 50-59 too
+    scale = 10.0 ** rng.uniform(-3, 3, (4000,) + (1,) * len(shape))
+    vals = torch.as_tensor(rng.normal(size=(4000,) + shape) * scale,
+                           dtype=torch.float32)
+    got = tba._seg_sum(vals, tba._seg_plan(idx, 60), 60)
+    assert torch.equal(got, tba._seg_sum(vals, idx, 60))
+    assert not got[7].any() and not got[50:].any()
+
+
+def test_schur_step_by_plans_equals_indices(problems, normal_eqs):
+    """The normal equations, the reduced system, the PCG product and the
+    back-substitution with the sums of ``ba._segments``' plans (the
+    card's route) equal those over the indices on the CPU, bit for bit."""
+    _, got_p = problems
+    _, got = normal_eqs
+    p, n = got_p.poses.shape[0], got_p.points.shape[0]
+    plans = (tba._seg_plan(got_p.obs_cam, p), tba._seg_plan(got_p.obs_pt, n))
+    params = tba.BAParams(**PARAMS)
+    eqs = tba.schur_normal_equations(got_p, got_p.poses, got_p.points,
+                                     params, plans)
+    for a, b in zip(eqs, got):
+        assert torch.equal(a, b)
+    lam = torch.tensor(1e-3)
+    for a, b in zip(tba.reduce_camera_system(got_p, *got, lam, plans),
+                    tba.reduce_camera_system(got_p, *got, lam)):
+        assert torch.equal(a, b)
+    v_inv = tba._damped_point_inverses(got_p, got[2], lam)
+    v = T(np.random.default_rng(4).normal(size=(p, 6)).astype(np.float32))
+    args = (got[4], v_inv, v, got_p.obs_cam, got_p.obs_pt, p)
+    assert torch.equal(tba._coupling_matvec(*args, plans),
+                       tba._coupling_matvec(*args))
+    dp = v * 1e-3
+    assert torch.equal(
+        tba.back_substitute_points(got_p, v_inv, got[4], got[3], dp, plans),
+        tba.back_substitute_points(got_p, v_inv, got[4], got[3], dp))
+
+
 def test_prior_terms_and_cost(scene):
     """prior_terms (dU, dg, cost) within 1e-5 relative and ba_cost with
     priors, RGB-D and Huber within 1e-5 relative (sums of ~700 float32

@@ -136,26 +136,31 @@ def _assert_maps_equal(a, b):
         np.testing.assert_array_equal(ea[2], eb[2])
 
 
+def jit_reference_stages(mp: pytest.MonkeyPatch) -> None:
+    """Through ``mp``, the reference's device stages called under jax.jit,
+    one program each, as the package means them to run: ORB,
+    estimate_relative_pose, solve_pnp_ransac (its ``_track_step_jit``
+    jits it too), bundle_adjust_schur and pose_graph_optimize. Eager on
+    the CPU they compile op by op, which makes a loop much slower."""
+    for mod, name, static in (
+            (jorb, "orb_detect_and_describe", dict(static_argnums=1)),
+            (jsys.tv, "estimate_relative_pose",
+             dict(static_argnames=("params",))),
+            (jsys.pnp_mod, "solve_pnp_ransac", dict(static_argnames=(
+                "threshold_px", "n_hypotheses", "sample_size",
+                "lo_iters", "method", "scoring", "refine_iters"))),
+            (jsys.ba_mod, "bundle_adjust_schur",
+             dict(static_argnames=("params",))),
+            (jsys.pgo_mod, "pose_graph_optimize",
+             dict(static_argnames=("params",)))):
+        mp.setattr(mod, name, jax.jit(getattr(mod, name), **static))
+
+
 @pytest.fixture(scope="module", autouse=True)
 def jitted_reference():
-    """The reference's device stages called under jax.jit, one program
-    each, as the package means them to run: ORB, estimate_relative_pose,
-    solve_pnp_ransac (its ``_track_step_jit`` jits it too),
-    bundle_adjust_schur and pose_graph_optimize. Eager on the CPU they
-    compile op by op, which makes this file much slower."""
+    """:func:`jit_reference_stages` for the whole file."""
     with pytest.MonkeyPatch.context() as mp:
-        for mod, name, static in (
-                (jorb, "orb_detect_and_describe", dict(static_argnums=1)),
-                (jsys.tv, "estimate_relative_pose",
-                 dict(static_argnames=("params",))),
-                (jsys.pnp_mod, "solve_pnp_ransac", dict(static_argnames=(
-                    "threshold_px", "n_hypotheses", "sample_size",
-                    "lo_iters", "method", "scoring", "refine_iters"))),
-                (jsys.ba_mod, "bundle_adjust_schur",
-                 dict(static_argnames=("params",))),
-                (jsys.pgo_mod, "pose_graph_optimize",
-                 dict(static_argnames=("params",)))):
-            mp.setattr(mod, name, jax.jit(getattr(mod, name), **static))
+        jit_reference_stages(mp)
         yield
 
 
