@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from kornia_tpu_torch import resolve_device, to_device
+from kornia_tpu_torch.utils import tracing
 
 _BIG = 1 << 16
 
@@ -63,27 +64,32 @@ def match_descriptors(a_bits, b_bits, a_mask=None, b_mask=None,
                       max_distance: float = 64.0,
                       ratio: Optional[float] = 0.75,
                       cross_check: bool = True, device="cuda") -> Matches:
-    """Lowe-ratio + cross-check matcher on ``device``."""
-    dev = resolve_device(device)
-    a_bits = to_device(a_bits, dev)
-    b_bits = to_device(b_bits, dev)
-    a_mask = None if a_mask is None else to_device(a_mask, dev, torch.bool)
-    b_mask = None if b_mask is None else to_device(b_mask, dev, torch.bool)
-    d = hamming_distance_matrix(a_bits, b_bits, a_mask, b_mask)   # (N, M)
-    n = d.shape[0]
-    rows = torch.arange(n, device=dev)
-    best_idx, best, second = _best_two(d)
-    ok = best <= max_distance
-    if ratio is not None:
-        ok = ok & (best.to(torch.float32) <= ratio * second.to(torch.float32))
-    if cross_check:
-        b_best = torch.argmin(d, dim=0)
-        ok = ok & (b_best[best_idx] == rows)
-    return Matches(
-        idx=torch.where(ok, best_idx, -1).to(torch.int32),
-        dist=best.to(torch.float32),
-        mask=ok,
-    )
+    """Lowe-ratio + cross-check matcher on ``device``; one
+    ``features.matching`` span (``utils.tracing``)."""
+    with tracing.span("features.matching"):
+        dev = resolve_device(device)
+        a_bits = to_device(a_bits, dev)
+        b_bits = to_device(b_bits, dev)
+        a_mask = None if a_mask is None else to_device(a_mask, dev,
+                                                       torch.bool)
+        b_mask = None if b_mask is None else to_device(b_mask, dev,
+                                                       torch.bool)
+        d = hamming_distance_matrix(a_bits, b_bits, a_mask, b_mask)
+        n = d.shape[0]
+        rows = torch.arange(n, device=dev)
+        best_idx, best, second = _best_two(d)
+        ok = best <= max_distance
+        if ratio is not None:
+            ok = ok & (best.to(torch.float32)
+                       <= ratio * second.to(torch.float32))
+        if cross_check:
+            b_best = torch.argmin(d, dim=0)
+            ok = ok & (b_best[best_idx] == rows)
+        return Matches(
+            idx=torch.where(ok, best_idx, -1).to(torch.int32),
+            dist=best.to(torch.float32),
+            mask=ok,
+        )
 
 
 def match_descriptors_f32(a, b, ratio: Optional[float] = 0.8,

@@ -46,6 +46,7 @@ from kornia_tpu_torch.features.quadtree import distribute_quadtree
 from kornia_tpu_torch.ops import cuda_kernels as ck
 from kornia_tpu_torch.ops.filters import gaussian_blur
 from kornia_tpu_torch.ops.resize import resize
+from kornia_tpu_torch.utils import tracing
 
 _PATCH = 31
 _HALF = _PATCH // 2  # 15
@@ -387,23 +388,10 @@ def _resolve_describe(describe: str, brief: str, n_keypoints: int) -> str:
     return describe
 
 
-def orb_detect_and_describe(gray_u8, cfg: OrbConfig = OrbConfig(),
-                            device="cuda", describe: str = "auto",
-                            brief: str = "sample") -> OrbFeatures:
-    """Multi-scale ORB on an (H, W) u8 frame (numpy or tensor), on
-    ``device``.
-
-    ``describe``: "auto" (paired for an even budget sum, else unpaired),
-    "paired", "unpaired" or "gather"; ``brief``: "sample" or, in the
-    unpaired form only, "lane_gather" (see the module docstring)."""
-    dev = resolve_device(device)
-    gray = to_device(gray_u8, dev, torch.uint8)
-    budgets = _level_budgets(cfg)
-    describe = _resolve_describe(describe, brief, sum(budgets))
-    levels = _pyramid(gray, cfg)
-    maps = ck.fast_harris_levels(levels, cfg.fast_threshold_low)
-    sels = [_select_level(img, budget, cfg, m)
-            for img, budget, m in zip(levels, budgets, maps)]
+def _describe(levels: List[torch.Tensor], sels, cfg: OrbConfig,
+              describe: str, brief: str):
+    """Orientation and descriptor bits of the selected keypoints of every
+    level in the resolved ``describe`` form: ((N,) angles, (N, 256) u8)."""
     grays_f = [img.to(torch.float32) for img in levels]
     blurs = [gaussian_blur(g, (7, 7), 2.0) for g in grays_f]
     xy_ints = [torch.round(xy).to(torch.int32) for xy, _, _ in sels]
@@ -426,14 +414,49 @@ def orb_detect_and_describe(gray_u8, cfg: OrbConfig = OrbConfig(),
             brief_describe(bl, xy, a, cfg.pattern_seed, cfg.pattern)
             for bl, (xy, _, _), a in zip(blurs, sels, angs)])
         ang = torch.cat(angs)
-    xy = torch.cat([s[0] * cfg.scale_factor ** i
-                    for i, s in enumerate(sels)])
-    score = torch.cat([s[1] for s in sels])
-    octv = torch.cat([torch.full((b,), i, dtype=torch.int32, device=dev)
-                      for i, b in enumerate(budgets)])
-    mask = torch.cat([s[2] for s in sels])
-    return OrbFeatures(xy=xy, score=score, angle=ang, octave=octv,
-                       descriptors=desc, mask=mask)
+    return ang, desc
+
+
+def orb_detect_and_describe(gray_u8, cfg: OrbConfig = OrbConfig(),
+                            device="cuda", describe: str = "auto",
+                            brief: str = "sample") -> OrbFeatures:
+    """Multi-scale ORB on an (H, W) u8 frame (numpy or tensor), on
+    ``device``.
+
+    ``describe``: "auto" (paired for an even budget sum, else unpaired),
+    "paired", "unpaired" or "gather"; ``brief``: "sample" or, in the
+    unpaired form only, "lane_gather" (see the module docstring).
+
+    Its stages are spans (``utils.tracing``): ``features.orb`` around the
+    call, inside it ``.upload``, ``.pyramid``, ``.fast_harris``, one
+    ``.select`` a level (attribute: the level), ``.describe`` and
+    ``.assemble``."""
+    with tracing.span("features.orb"):
+        dev = resolve_device(device)
+        with tracing.span("features.orb.upload"):
+            gray = to_device(gray_u8, dev, torch.uint8)
+        budgets = _level_budgets(cfg)
+        describe = _resolve_describe(describe, brief, sum(budgets))
+        with tracing.span("features.orb.pyramid"):
+            levels = _pyramid(gray, cfg)
+        with tracing.span("features.orb.fast_harris"):
+            maps = ck.fast_harris_levels(levels, cfg.fast_threshold_low)
+        sels = []
+        for i, (img, budget, m) in enumerate(zip(levels, budgets, maps)):
+            with tracing.span("features.orb.select", i):
+                sels.append(_select_level(img, budget, cfg, m))
+        with tracing.span("features.orb.describe"):
+            ang, desc = _describe(levels, sels, cfg, describe, brief)
+        with tracing.span("features.orb.assemble"):
+            xy = torch.cat([s[0] * cfg.scale_factor ** i
+                            for i, s in enumerate(sels)])
+            score = torch.cat([s[1] for s in sels])
+            octv = torch.cat([torch.full((b,), i, dtype=torch.int32,
+                                         device=dev)
+                              for i, b in enumerate(budgets)])
+            mask = torch.cat([s[2] for s in sels])
+            return OrbFeatures(xy=xy, score=score, angle=ang, octave=octv,
+                               descriptors=desc, mask=mask)
 
 
 def orb_detect_and_describe_quadtree(gray_u8, cfg: OrbConfig = OrbConfig(),
