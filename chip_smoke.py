@@ -21,13 +21,16 @@ Phases (any failure raises, so the script exits non-zero):
    brief_rotated (windows + cos/sin + pattern → bits, which the path runs)
    against its plain version, brief_sample (the index form) against its
    own, and brief_rotated's samples against brief_sample on
-   _brief_tap_coords' indices.
+   _brief_tap_coords' indices. K10 orb_select: all 8 levels of each view
+   in one call, xy, vals and valid bit-equal to the per-level composition
+   (ck._orb_select_plain, fast.select_cells a level) on the same K1 maps.
 3. The slice at full size on a seed-made scene with known pose: two
    480×752 views of two textured, non-coplanar planes; ORB (OrbConfig())
    on both, Hamming matching, the two-view bootstrap (TwoViewParams()).
    Launch counts for the pair must be fast_harris 2 (one a frame),
-   windows_paired 4, brief_rotated 2; both frames' ORB features must equal
-   those of the route with one K1 launch per level, and their descriptors
+   windows_paired 4, brief_rotated 2, orb_select 6 (3 a frame); both
+   frames' ORB features must equal those of the route with one K1 launch
+   per level, and their descriptors
    the index form's on the same windows and angles; rotation error ≤ 0.5°,
    translation direction ≤ 5°, ≥ 100 inliers. The same pair is then run on
    the CPU and the shares of pyramid pixels, selected keypoints and
@@ -41,7 +44,10 @@ Phases (any failure raises, so the script exits non-zero):
    wrapper and launch latency included); per wrapper the host
    microseconds per call (1000 calls without a synchronise). Each stage
    and the whole pair by call time. K1 all levels in one launch against
-   one launch per level (and the parent's kernel with --parent).
+   one launch per level (and the parent's kernel with --parent). K10 at
+   KITTI's pyramid (a 376×1241 crop of the scene's texture, OrbConfig())
+   against the per-level composition it replaced; its bound: K1's two f32
+   maps read once.
 5. rectify (the warping slice's path): a raw, distorted EuRoC-size stereo
    pair of the same scene (0.11 m baseline, < 1° relative rotation,
    K_EUROC and radtan distortion) → StereoRectifier.from_calib →
@@ -107,8 +113,10 @@ Phases (any failure raises, so the script exits non-zero):
    slam.track_step with SlamConfig() (ratio 0.8, distance ≤ 64, 3 px,
    256 × 6-point EPnP hypotheses, 2 LO refits, 10 LM steps), the draw
    from a CUDA generator seeded with SEED. The frame's ORB launches
-   fast_harris 1, windows_paired 2, brief_rotated 1; the step runs under
-   torch.cuda.set_sync_debug_mode("error") (it must not wait for the
+   fast_harris 1, windows_paired 2, brief_rotated 1, orb_select 3, each
+   K1-K3 and K10 call bit-equal to its plain version; the step runs
+   under torch.cuda.set_sync_debug_mode("error") (it must not
+   wait for the
    device), must recover the pose within 0.1° and 0.02 units of centre
    with inliers ≥ half the matches, and with the same draw must equal
    the CPU route's matches, pose (1e-4 rad, 1e-3) and n_inliers (±2).
@@ -151,7 +159,8 @@ Phases (any failure raises, so the script exits non-zero):
    loop thresholds of tests/test_slam.py's image loop test, a vocabulary
    (k 8, depth 3) built by the port from the ORB of every 6th frame.
    Counted from 0 after the vocabulary: fast_harris 1, windows_paired 2,
-   brief_rotated 1 a frame and no other kernel; the K1-K3 calls of the
+   brief_rotated 1, orb_select 3 a frame and no other kernel; the K1-K3
+   and K10 calls of the
    first and last frames bit-equal to their plain versions. Gates on the
    ground truth (slam_gates): tracking at the end, >= 70% of frames
    tracked, >= 5 keyframes, a loop closed to a keyframe < 8, keyframe
@@ -187,7 +196,8 @@ Phases (any failure raises, so the script exits non-zero):
    integer operations of the kernel's arc loop: 99 a pixel for n = 9, 131
    for n = 10-16). ORB (OrbConfig()) on the two-plane 480×752 pair, match,
    estimate_relative_pose(solver="5pt"): fast_harris 2, windows_paired 4,
-   brief_rotated 2 and no other kernel; rotation < 0.5°, direction < 3°
+   brief_rotated 2, orb_select 6 and no other kernel; rotation < 0.5°,
+   direction < 3°
    from the truth (the reference test's gates); call ms and launches of
    the 5-point two-view. ICP on a seed-made 16,384-point scan and the same
    scan moved by 1° and 5 cm (icp_scan), 30 iterations, under sync debug
@@ -264,9 +274,11 @@ Phases (any failure raises, so the script exits non-zero):
    parallel.mesh.spawn: (a) 1 rank over NCCL, (b) 4 ranks that share the
    card over gloo (NCCL refuses two ranks of one communicator on one
    card). Each: the sharded front end on the first 4 slam frames
-   (OrbConfig(); K1/K2/K3 1/2/1 a frame on every rank, each call recorded
-   and held to its plain version, the features bit-equal to the single
-   process's); the exchange of the Dense configuration's keyframe layout
+   (OrbConfig(); K1/K2/K3/K10 1/2/1/3 a frame on every rank, each K1-K3
+   and K10 call recorded and held to its plain version, the features
+   bit-equal to
+   the single process's); the exchange of the Dense configuration's
+   keyframe layout
    in a2a and rounds mode and, on 4 ranks, a hot pair of 1,500
    observations (every shard's rows equal to host_receive_order;
    payload bytes printed); the summed Schur BA on the Dense (170 × 3000,
@@ -278,7 +290,9 @@ Phases (any failure raises, so the script exits non-zero):
    gates; on 4 ranks MonocularSlam(mesh=) over the 40 slam frames, rank 0
    leading each PGO and global BA through parallel.controller.lead and
    the other ranks in parallel.follow, under the slam gates and the slam
-   phase's loop count. Every rank's poses bit-equal. Printed: call ms and
+   phase's loop count, the K1-K3 and K10 calls of its first and last
+   frames bit-equal to their plain versions. Every rank's poses
+   bit-equal. Printed: call ms and
    (one solve of each shape traced on rank 0) device ms and launches a LM
    iteration, collectives and bytes a LM iteration, host syncs a solve
    over NCCL, each run's seconds. A rank that raises, dies or hangs past
@@ -294,8 +308,9 @@ Phases (any failure raises, so the script exits non-zero):
    frame by frame). Inputs: the io phase's 1080p JPEG (for dog.jpeg),
    AVI and TUM directory; the two-view pair as PNGs; a small COLMAP text
    model. Runs and gates: fast_detector (fast_score 11; the corners equal
-   the CPU route's), orb_detector (1/2/1 K1/K2/K3 an ORB frame, 12; median
-   reprojection error < 1.5 px), two_view 8pt and 5pt (22 ORB frames each;
+   the CPU route's), orb_detector (1/2/1/3 K1/K2/K3/K10 an ORB frame, 12;
+   median reprojection error < 1.5 px), two_view 8pt and 5pt (22 ORB
+   frames each;
    > 60 inliers), pnp_demo (< 1°), undistort_image (remap 11),
    preprocess_pipeline (preprocess 51; --video: 60), apriltag_pose
    --synthetic 4 (id 42 each frame), icp_registration, bag_of_words (4 ORB
@@ -401,7 +416,15 @@ KERNELS = {
                 "kornia_tpu/ops/warp_shear.py:53"),
     "shear_y": ("kornia_tpu_torch/ops/csrc/shear_x.cu",
                 "kornia_tpu/ops/warp_shear.py:53"),
+    "orb_select": ("kornia_tpu_torch/ops/csrc/orb_select.cu",
+                   "none: kornia_tpu_torch/features/fast.py::select_cells, "
+                   "the per-level composition, on every level"),
 }
+# K10's launches an ORB frame with Harris ranking (OrbConfig's default):
+# cell ranges, cell top-k, level sort
+ORB_SELECT = 3
+# KITTI's frame (376 x 1241), where K10's row is timed
+HW_KITTI = (376, 1241)
 HW_1080P = (1080, 1920)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -928,6 +951,68 @@ def check_brief_calls(calls, label):
     return n
 
 
+def select_args(cfg):
+    """ck.orb_select's arguments after the budgets, from an OrbConfig."""
+    return cfg.cell_size, cfg.fast_threshold_high, cfg.harris_rescore
+
+
+def orb_select_equal(got, args, kwargs, label):
+    """One K10 call's outputs ``got`` against the per-level composition
+    (``ck._orb_select_plain``) on the call's own arguments: xy, vals and
+    valid bit-equal on every level. Returns the max |error| (0.0)."""
+    want = ck._orb_select_plain(*args, **kwargs)
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: orb_select gave {len(got)} levels, "
+                             f"the composition {len(want)}")
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        for a, b, what in zip(g, w, ("xy", "vals", "valid")):
+            if not (a.dtype == b.dtype and torch.equal(a, b)):
+                raise AssertionError(f"{label}: orb_select level {i} "
+                                     f"{tuple(args[0][i].shape)}: {what} "
+                                     "differs from the composition")
+            err = max(err, max_err(a, b))
+    return err
+
+
+def check_orb_select(levels, maps, budgets, cfg):
+    """K10 on one frame's levels against the per-level composition on the
+    same K1 maps: xy, vals and valid bit-equal on every level. Returns the
+    max |error|."""
+    args = (levels, maps, budgets, *select_args(cfg))
+    got = ck.orb_select(*args)
+    torch.cuda.synchronize()
+    return orb_select_equal(got, args, {}, "pair")
+
+
+def orb_select_row(n_launches, cfg, thr, card_line) -> dict:
+    """K10's kernels-line row at KITTI's pyramid (a 376 x 1241 crop of the
+    scene's texture, ``cfg``'s levels and budgets): device and call ms of
+    the kernel and of the per-level composition it replaced, and the bound:
+    K1's two f32 maps read once, 13 bytes written a keypoint."""
+    rng = np.random.default_rng(SEED + 40)
+    frame = np.ascontiguousarray(np.clip(
+        _texture(rng)[:HW_KITTI[0], :HW_KITTI[1]], 0, 255).astype(np.uint8))
+    levels = orb._pyramid(torch.as_tensor(frame, device=DEV), cfg)
+    args = (levels, ck.fast_harris_levels(levels, thr),
+            orb._level_budgets(cfg), *select_args(cfg))
+    check_orb_select(*args[:3], cfg)
+    HOST_CASES["orb_select"] = lambda mod: mod.orb_select(*args)
+    times = kernel_times(lambda: ck.orb_select(*args),
+                         lambda: ck._orb_select_plain(*args))
+    px = sum(lv.numel() for lv in levels)
+    nbytes = px * 8 + cfg.n_features * 13
+    bms, by = bound(nbytes)
+    src, rep = KERNELS["orb_select"]
+    log(f"time orb_select (K10, KITTI {HW_KITTI}, {len(levels)} levels, "
+        f"{px} pixels, {cfg.n_features} keypoints): "
+        f"{fmt_times(times, 'composition')}, bound {bms:.5f} ms ({by}: "
+        f"{nbytes} B) [{card_line}]")
+    return {"name": "orb_select", "route": "cuda", "source": src,
+            "replaces": rep, "launches": n_launches, "max_abs_err": 0.0,
+            "bound_ms": bms, "bound_by": by, **times}
+
+
 def counted(fn):
     """Run ``fn`` with every launch count set to 0 just before; returns
     (result, the counts just after)."""
@@ -1093,7 +1178,7 @@ def phase_rectify(card_line):
     (g1, g2, f1, f2, m), launches = counted(path)
     log(f"rectify path launches: {launches}")
     only(launches, {"remap": 2, "fast_harris": 2, "windows_paired": 4,
-                    "brief_rotated": 2})
+                    "brief_rotated": 2, "orb_select": 2 * ORB_SELECT})
     x1, x2, mk = matching.matched_points(f1.xy, f2.xy, m)
     dy = (x1[:, 1] - x2[:, 1]).abs()[mk].double()
     disp = (x1[:, 0] - x2[:, 0])[mk].double()
@@ -1645,24 +1730,27 @@ def phase_orb_variants(card_line, img1, parent=None):
     with Record("brief_from_windows", orb) as rec_desc:
         unp, n_unp = counted(lambda: run(describe="unpaired"))
     log(f"orb unpaired launches: {n_unp}")
-    only(n_unp, {"fast_harris": 1, "windows": 2, "brief_rotated": 1})
+    only(n_unp, {"fast_harris": 1, "windows": 2, "brief_rotated": 1,
+                 "orb_select": ORB_SELECT})
     for name in ("xy", "mask", "angle", "descriptors"):
         if not torch.equal(getattr(unp, name), getattr(paired, name)):
             raise AssertionError(f"unpaired ORB {name} differs from paired")
     lg, n_lg = counted(lambda: run(brief="lane_gather"))
     log(f"orb lane_gather launches: {n_lg}")
-    only(n_lg, {"fast_harris": 1, "windows": 2, "lane_gather": 4})
+    only(n_lg, {"fast_harris": 1, "windows": 2, "lane_gather": 4,
+                "orb_select": ORB_SELECT})
     if not torch.equal(lg.descriptors, paired.descriptors):
         raise AssertionError("lane_gather BRIEF differs from paired")
     log("orb variants: unpaired xy/mask/angle/descriptors and lane_gather "
         "descriptors bit-equal to the paired run "
         f"({int(paired.mask.sum())} keypoints)")
     odd, n_odd = counted(lambda: run(orb.OrbConfig(n_features=2001)))
-    only(n_odd, {"fast_harris": 1, "windows": 2, "brief_rotated": 1})
+    only(n_odd, {"fast_harris": 1, "windows": 2, "brief_rotated": 1,
+                 "orb_select": ORB_SELECT})
     if tuple(odd.descriptors.shape) != (2001, 256):
         raise AssertionError("odd budget sum: descriptor shape")
     gat, n_gat = counted(lambda: run(describe="gather"))
-    only(n_gat, {"fast_harris": 1})
+    only(n_gat, {"fast_harris": 1, "orb_select": ORB_SELECT})
     flips = int((gat.descriptors != paired.descriptors)[paired.mask].sum())
     log(f"orb n_features=2001: {int(odd.mask.sum())} keypoints, launches "
         f"{n_odd}; describe=gather: {flips} of "
@@ -1907,7 +1995,7 @@ def phase_orb_levels17(card_line, img1):
         feats, launches = counted(run)
     log(f"orb 17 levels launches: {launches}")
     only(launches, {"fast_harris": 2, "windows_paired": 2,
-                    "brief_rotated": 1})
+                    "brief_rotated": 1, "orb_select": ORB_SELECT})
     chunks = [len(a[0]) for a, _ in rec.calls]
     if chunks != [16, 1]:
         raise AssertionError(f"17 levels went to K1 in chunks {chunks}")
@@ -1938,13 +2026,40 @@ def phase_orb_levels17(card_line, img1):
         f"{cuda_ms(run):.3f} ms [{card_line}]")
 
 
-def check_track_kernels(k1, k2, k3, label="track"):
-    """The tracked frame's K1, K2 and K3 calls, recorded on the main path
-    (``Record`` of ``fast_harris_levels``, ``windows_paired`` and
-    ``brief_rotated``), held to their plain versions on the same inputs:
-    every output must be bit-equal. Returns each kernel's max |error|."""
-    errs = {"fast_harris": 0.0, "windows_paired": 0.0, "brief_rotated": 0.0}
+# the wrappers of ORB's frame that Record holds to their plain versions
+TRACK_RECORDS = ("fast_harris_levels", "windows_paired", "brief_rotated",
+                 "orb_select")
+
+
+def recorded_at_ends(recs, n):
+    """run_slam's ``per_frame``: the first and last of ``n`` frames run
+    inside the Records ``recs``, the others as they are."""
+    def per_frame(i, call):
+        if i in (0, n - 1):
+            with contextlib.ExitStack() as stack:
+                for r in recs:
+                    stack.enter_context(r)
+                return call()
+        return call()
+    return per_frame
+
+
+def check_track_kernels(k1, k2, k3, k10, label="track"):
+    """The tracked frame's K1, K2, K3 and K10 calls, recorded on the main
+    path (``Record`` of each of TRACK_RECORDS), held to their plain
+    versions on the same inputs: every output must be bit-equal. Returns
+    each kernel's max |error|."""
+    errs = {"fast_harris": 0.0, "windows_paired": 0.0, "brief_rotated": 0.0,
+            "orb_select": 0.0}
     pairs = {"fast_harris": [], "windows_paired": [], "brief_rotated": []}
+    if not k10.calls:
+        raise AssertionError(f"{label}: no orb_select call was recorded")
+    k10_shapes = []
+    for (args, kwargs), got in zip(k10.calls, k10.outs):
+        errs["orb_select"] = max(errs["orb_select"], orb_select_equal(
+            got, args, kwargs, label))
+        k10_shapes.append(f"{len(args[0])} levels, budgets "
+                          f"{list(args[2])}")
     for (args, kwargs), maps in zip(k1.calls, k1.outs):
         levels, thr = args
         for lv, got in zip(levels, maps):
@@ -1969,7 +2084,10 @@ def check_track_kernels(k1, k2, k3, label="track"):
         # each shape once, with its count where it repeats
         shapes[name] = [s if seen.count(s) == 1 else f"{s} x{seen.count(s)}"
                         for s in dict.fromkeys(seen)]
-    log(f"{label}: the frame's K1/K2/K3 outputs at the path's own shapes "
+    shapes["orb_select"] = [
+        s if k10_shapes.count(s) == 1 else f"{s} x{k10_shapes.count(s)}"
+        for s in dict.fromkeys(k10_shapes)]
+    log(f"{label}: the frame's K1/K2/K3/K10 outputs at the path's own shapes "
         f"bit-equal to their plain versions on the same inputs: {shapes}")
     return errs
 
@@ -1980,7 +2098,7 @@ def phase_track(card_line):
     n_levels=4), each valid keypoint lifted to its exact 3-D point, packed
     descriptors, a bucket of 2048 rows), the third view at a known pose
     (ORB, 1000 rows padded to 1024), then ``track_step`` with
-    SlamConfig(). Returns the frame's K1–K3 launches."""
+    SlamConfig(). Returns the frame's K1–K3 and K10 launches."""
     t_phase = time.perf_counter()
     scfg = slam.SlamConfig()
     ocfg = orb.OrbConfig(n_features=scfg.n_features, n_levels=scfg.n_levels)
@@ -2025,11 +2143,10 @@ def phase_track(card_line):
     # not wait for the device anywhere
     gen = torch.Generator(device=DEV).manual_seed(SEED)
 
-    recs = [Record(name) for name in ("fast_harris_levels", "windows_paired",
-                                      "brief_rotated")]
+    recs = [Record(name) for name in TRACK_RECORDS]
 
     def path():
-        with recs[0], recs[1], recs[2]:
+        with recs[0], recs[1], recs[2], recs[3]:
             fin = frame_inputs()
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -2042,7 +2159,7 @@ def phase_track(card_line):
     log(f"track: launches for the frame's ORB and the step {launches}; "
         f"the step ran under torch.cuda.set_sync_debug_mode('error')")
     only(launches, {"fast_harris": 1, "windows_paired": 2,
-                    "brief_rotated": 1})
+                    "brief_rotated": 1, "orb_select": ORB_SELECT})
     errs = check_track_kernels(*recs)
     r = res.pose.rotation.double().cpu().numpy()
     t = res.pose.translation.double().cpu().numpy()
@@ -2101,7 +2218,8 @@ def phase_track(card_line):
            "rot_err_deg": rerr, "centre_err": cerr,
            "cpu_route": {"rot_rad": d_rot, "t": d_t, "n_inliers": d_n},
            "orb_launches": {name: launches[name] for name in (
-               "fast_harris", "windows_paired", "brief_rotated")},
+               "fast_harris", "windows_paired", "brief_rotated",
+               "orb_select")},
            "kernel_errs": errs,
            "checks_s": time.perf_counter() - t_phase}
     # a profiler trace of the step holds ~35,000 records a call (reading
@@ -2850,8 +2968,8 @@ def phase_slam(card_line):
     over SLAM_FRAMES 480×752 frames of an out-and-back path (K_EUROC,
     SlamConfig() widths, the image loop test's loop thresholds, a
     vocabulary built by the port from the sequence). Counted from 0 after
-    the vocabulary: K1 1, K2 2, K3 1 a frame and no other kernel; the K1-K3
-    calls of the first and last frames held to their plain versions;
+    the vocabulary: K1 1, K2 2, K3 1, K10 3 a frame and no other kernel;
+    the K1-K3 calls of the first and last frames held to their plain versions;
     ground-truth gates (slam_gates). Then the same loop again, each frame
     under the profiler and sync debug mode "warn", for launches,
     synchronisations and device busy time per frame kind."""
@@ -2861,23 +2979,15 @@ def phase_slam(card_line):
     vocab = slam_vocabulary(frames, "cuda")
     # warm-up: bootstrap and a few tracked frames (cuBLAS, allocator)
     run_slam(frames[:4], vocab, "cuda")
-    recs = [Record(name) for name in ("fast_harris_levels", "windows_paired",
-                                      "brief_rotated")]
-    last = len(frames) - 1
-
-    def per_frame(i, call):
-        if i in (0, last):
-            with recs[0], recs[1], recs[2]:
-                return call()
-        return call()
-
+    recs = [Record(name) for name in TRACK_RECORDS]
+    per_frame = recorded_at_ends(recs, len(frames))
     stages = {}
     (system, ms), launches = counted(
         lambda: run_slam(frames, vocab, "cuda", per_frame, stages))
     n = len(frames)
     log(f"slam: launches over {n} frames {launches}")
     only(launches, {"fast_harris": n, "windows_paired": 2 * n,
-                    "brief_rotated": n})
+                    "brief_rotated": n, "orb_select": ORB_SELECT * n})
     errs = check_track_kernels(*recs, label="slam")
     summ = slam_summary(system, ms, centres, "cuda")
     kinds = frame_kinds(system.results)
@@ -3084,19 +3194,18 @@ def parallel_rank(mesh, inputs):
     out = {"rank": mesh.rank, "backend": torch.distributed.get_backend(),
            "device": str(mesh.device), "stage_s": {}}
     t0 = time.perf_counter()
-    # the sharded front end: B frames, B / D a rank, K1-K3 held to their
-    # plain versions on the calls the path made
+    # the sharded front end: B frames, B / D a rank, K1-K3 and K10 held to
+    # their plain versions on the calls the path made
     frames, cfg = inputs["frames"], orb.OrbConfig()
     per = len(frames) // mesh.size
     orb.orb_detect_and_describe(frames[0], cfg, device=mesh.device)
-    recs = [Record(name) for name in ("fast_harris_levels", "windows_paired",
-                                      "brief_rotated")]
-    with recs[0], recs[1], recs[2]:
+    recs = [Record(name) for name in TRACK_RECORDS]
+    with recs[0], recs[1], recs[2], recs[3]:
         (feats, coll), launches = counted(lambda: _collectives(
             mesh, lambda: frontend_dist.detect_and_describe_batch(
                 frames, cfg, mesh)))
     only(launches, {"fast_harris": per, "windows_paired": 2 * per,
-                    "brief_rotated": per})
+                    "brief_rotated": per, "orb_select": ORB_SELECT * per})
     out["front"] = {"launches": launches, "collectives": coll,
                     "features": [_np(f) for f in feats],
                     "kernel_errs": check_track_kernels(
@@ -3186,13 +3295,18 @@ def parallel_rank(mesh, inputs):
             lead = parallel.controller.lead
             parallel.controller.lead = lambda *a: leads.append(a[1]) or \
                 lead(*a)
+            recs = [Record(name) for name in TRACK_RECORDS]
             try:
                 (system, ms), launches = counted(lambda: run_slam(
-                    frames, vocab, mesh.device, mesh=mesh))
+                    frames, vocab, mesh.device,
+                    recorded_at_ends(recs, len(frames)), mesh=mesh))
             finally:
                 parallel.controller.lead = lead
             parallel.controller.stop(mesh)
             out["slam"] = {"launches": launches, "leads": leads,
+                           "kernel_errs": check_track_kernels(
+                               *recs, label="parallel rank 0 "
+                                            "MonocularSlam(mesh=)"),
                            "collectives": mesh.counts["collectives"] - c0,
                            "summary": slam_summary(system, ms, centres,
                                                    mesh.device)}
@@ -3301,8 +3415,9 @@ def phase_parallel(card_line, slam_summ, demo_single):
     SLAM frames, then ``slam_demo --mesh 4``'s rank function (the
     example's synthetic run; ``demo_single`` is the examples phase's
     single-process run). Gates: front-end features bit-equal to the single
-    process's, K1/K2/K3 1/2/1 a frame on every rank and bit-equal to their
-    plain versions; received rows equal to the plan's; BA within
+    process's, K1/K2/K3/K10 1/2/1/3 a frame on every rank, K1-K3
+    bit-equal to their plain versions; received rows equal to the plan's;
+    BA within
     PAR_BA_TOL of the single-process solve; PGO after 2 iterations within
     PAR_PGO_TOL of the single process's, after 15 the backend's cost and
     ATE gates; the SLAM run the slam phase's gates and loop count;
@@ -3450,10 +3565,10 @@ def phase_parallel(card_line, slam_summ, demo_single):
             sl = ranks[0]["slam"]
             summ = sl["summary"]
             jobs = [r["slam"]["jobs"] for r in ranks[1:]]
-            only(sl["launches"], {"fast_harris": summ["frames"],
-                                  "windows_paired": 2 * summ["frames"],
-                                  "brief_rotated": summ["frames"]})
+            only(sl["launches"], _orb_launches(summ["frames"]))
             kern["slam"] = {k: v for k, v in sl["launches"].items() if v}
+            for k, v in sl["kernel_errs"].items():
+                kern["errs"][k] = max(kern["errs"].get(k, 0.0), v)
             failed += [f"{tag} MonocularSlam(mesh=): {f}"
                        for f in slam_gates(summ)]
             if len(summ["loops"]) != len(slam_summ["loops"]):
@@ -3491,10 +3606,11 @@ def phase_host(card_line, parent=None):
     Returns {name: {"new": [..], "parent": [..]}}."""
     out = {}
     for name, call in HOST_CASES.items():
-        # the parent's K5 has no broadcast mode
+        # the parent's K5 has no broadcast mode, and it has no K10
         mods = ([("parent", parent), ("new", ck), ("new", ck),
                  ("parent", parent)]
-                if parent is not None and name != "lane_gather broadcast"
+                if parent is not None
+                and name not in ("lane_gather broadcast", "orb_select")
                 else [("new", ck), ("new", ck)])
         t = {}
         for which, mod in mods:
@@ -4169,7 +4285,7 @@ def _five_point_pair(card_line):
     pair()                                               # warm-up
     (x1, x2, mk, res), launches = counted(pair)
     only(launches, {"fast_harris": 2, "windows_paired": 4,
-                    "brief_rotated": 2})
+                    "brief_rotated": 2, "orb_select": 2 * ORB_SELECT})
     r_est = res.rotation.double().cpu().numpy()
     t_est = res.translation.double().cpu().numpy()
     if not (np.isfinite(r_est).all() and np.isfinite(t_est).all()):
@@ -5454,12 +5570,13 @@ EXAMPLE_MESH_POSE_TOL = 5e-3
 # the hand kernels an example's path may launch, by the C entry counted,
 # and the wrappers that Record holds to their plain versions
 _EXAMPLE_RECORDS = ("fast_score", "fast_harris_levels", "windows_paired",
-                    "brief_rotated", "fused_preprocess", "remap")
+                    "brief_rotated", "orb_select", "fused_preprocess",
+                    "remap")
 
 
 def _orb_launches(frames: int) -> dict:
     return {"fast_harris": frames, "windows_paired": 2 * frames,
-            "brief_rotated": frames}
+            "brief_rotated": frames, "orb_select": ORB_SELECT * frames}
 
 
 def colmap_model(root):
@@ -5494,18 +5611,18 @@ def _example_inputs(tmp, img1, img2):
 
 def _example_kernel_errs(recs, label):
     """Each recorded hand-kernel call of an example's path against its
-    plain version on the same inputs: K1 (both entries), K2, K3 and K7
-    bit-equal, K6 bit-equal to its own arithmetic and within
+    plain version on the same inputs: K1 (both entries), K2, K3, K7 and
+    K10 bit-equal, K6 bit-equal to its own arithmetic and within
     PLAIN_TOL["preprocess"] of the dense plain version. Returns the
     largest |error| by kernel row name."""
     errs = {}
-    k123 = [recs[n] for n in ("fast_harris_levels", "windows_paired",
-                              "brief_rotated")]
-    if any(r.calls for r in k123):
-        e = check_track_kernels(*k123, label=label)
+    orb_recs = [recs[n] for n in TRACK_RECORDS]
+    if any(r.calls for r in orb_recs):
+        e = check_track_kernels(*orb_recs, label=label)
         errs.update({"fast_harris": e["fast_harris"],
                      "windows_paired": e["windows_paired"],
-                     "brief_sample": e["brief_rotated"]})
+                     "brief_sample": e["brief_rotated"],
+                     "orb_select": e["orb_select"]})
     for (args, kwargs), got in zip(recs["fast_score"].calls,
                                    recs["fast_score"].outs):
         if not torch.equal(got, ck._fast_score_plain(*args, **kwargs)):
@@ -5718,13 +5835,15 @@ def phase_examples(card_line, tmp, jpeg, avi, img1, img2):
         fn, example = forward_step(DEV)
         with Record("fast_harris_levels") as k1, \
                 Record("windows_paired") as k2, \
-                Record("brief_rotated") as k3:
+                Record("brief_rotated") as k3, Record("orb_select") as k10:
             fwd, counts = counted(lambda: fn(*example))
         only(counts, _orb_launches(2))
-        e = check_track_kernels(k1, k2, k3, label="examples: forward_step")
+        e = check_track_kernels(k1, k2, k3, k10,
+                                label="examples: forward_step")
         for k, key in (("fast_harris", "fast_harris"),
                        ("windows_paired", "windows_paired"),
-                       ("brief_sample", "brief_rotated")):
+                       ("brief_sample", "brief_rotated"),
+                       ("orb_select", "orb_select")):
             errs[k] = max(errs.get(k, 0.0), e[key])
         launches["examples: frontend_step.forward_step"] = {
             k: v for k, v in counts.items() if v}
@@ -5916,6 +6035,11 @@ def main():
     log(f"K3 brief_rotated: bits {tuple(bits_k.shape)} and samples "
         f"{tuple(samp_k.shape)} bit-equal to the plain version, samples "
         f"bit-equal to brief_sample on _brief_tap_coords' indices")
+    errs["orb_select"] = max(
+        check_orb_select(view, ck.fast_harris_levels(view, thr), budgets, cfg)
+        for view in (levels, levels2))
+    log(f"K10 orb_select: xy, vals and valid of all {len(levels)} levels "
+        f"of both views bit-equal to the per-level composition")
 
     # 3. the slice at full size
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -5929,7 +6053,7 @@ def main():
     launches = dict(ck.LAUNCHES)
     log(f"launches for the pair: {launches}")
     only(launches, {"fast_harris": 2, "windows_paired": 4,
-                    "brief_rotated": 2})
+                    "brief_rotated": 2, "orb_select": 2 * ORB_SELECT})
     n_bits = check_brief_calls(rec_pair.calls, "pair")
     if len(rec_pair.calls) != 2 or n_bits != 2 * cfg.n_features * 256:
         raise AssertionError("recorded describe calls of the pair")
@@ -6147,6 +6271,9 @@ def main():
         "input is under 50 MB, so repeated calls find it in L2, as the real "
         "callers find the windows just written and the frame just uploaded)")
 
+    rows_out.append(orb_select_row(launches["orb_select"], cfg, thr,
+                                   card_line))
+
     def stage(name, fn, reps=REPS):
         ms = cuda_ms(fn, reps=reps)
         log(f"stage {name}: {ms:.3f} ms [{card_line}]")
@@ -6255,7 +6382,8 @@ def main():
 
     # 13. the tracking step (the seventh slice)
     track_launches, track_errs = phase_track(card_line)
-    for row in rows_out[:3]:
+    # K1, K2, K3 and K10: the kernels of ORB's frame
+    for row in rows_out[:4]:
         key = {"brief_sample": "brief_rotated"}.get(row["name"], row["name"])
         row["launches_by_path"] = {"pair": row["launches"],
                                    "track frame": track_launches[key]}
@@ -6266,7 +6394,7 @@ def main():
     slam_launches, slam_errs, slam_summ = phase_slam(card_line)
     # 21. the fourteenth slice: the distributed layer
     par = phase_parallel(card_line, slam_summ, demo_single)
-    for row in rows_out[:3]:
+    for row in rows_out[:4]:
         key = {"brief_sample": "brief_rotated"}.get(row["name"], row["name"])
         row["launches_by_path"]["slam loop"] = slam_launches[key]
         row["launches_by_path"]["frontend_dist (per rank)"] = \
@@ -6284,7 +6412,7 @@ def main():
     # the examples' paths: K1 (both entries), K2, K3, K6, K7
     k6["paths"] = {"preprocess phase": k6["launches"]}
     for label, counts in ex_launches.items():
-        for row in rows_out[:3]:
+        for row in rows_out[:4]:
             key = {"brief_sample": "brief_rotated"}.get(row["name"],
                                                         row["name"])
             if counts.get(key):
@@ -6295,7 +6423,7 @@ def main():
         for row, key in ((k6, "preprocess"), (k7, "remap")):
             if counts.get(key):
                 row["paths"][label] = counts[key]
-    for row in rows_out[:3]:
+    for row in rows_out[:4]:
         row["max_abs_err"] = max(row["max_abs_err"],
                                  ex_errs.get(row["name"], 0.0))
     for row, key in ((k6, "preprocess"), (k7, "remap")):

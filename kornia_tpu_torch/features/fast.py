@@ -148,6 +148,14 @@ def _cell_grid(h: int, w: int, cs: int):
     return -(-h // cs), -(-w // cs)
 
 
+def cell_budget(h: int, w: int, budget: int, cell_size: int):
+    """(cells, per_cell) of ORB's per-cell cap on an (h, w) level with
+    ``budget`` keypoints: per_cell = max(2, ⌈2·budget / cells⌉)
+    (orb.py:433-436)."""
+    gy, gx = _cell_grid(h, w, cell_size)
+    return gy * gx, max(2, -(-2 * budget // (gy * gx)))
+
+
 def _cell_max(x: torch.Tensor, cs: int) -> torch.Tensor:
     """(gy·cs, gx·cs) → (gy, gx) max over each cs×cs cell."""
     gy, gx = x.shape[0] // cs, x.shape[1] // cs
@@ -296,3 +304,41 @@ def fast_harris_cells(gray: torch.Tensor, harris_map: torch.Tensor,
     score = torch.where(qv > 0, div_scalar(qv - 1.0, 8190.0) * span + hmin,
                         torch.zeros_like(qv))
     return FastKeypoints(xy=xy, score=score, mask=qv > 0.0)
+
+
+def cell_candidates(gray: torch.Tensor, s_lo: torch.Tensor,
+                    harris_map: torch.Tensor, budget: int, cell_size: int,
+                    threshold_high: float, harris_rescore: bool = True):
+    """ORB's per-cell-capped candidates on one (H, W) level
+    (kornia_tpu/features/orb.py:428-485): the two-tier gate of the level's
+    NMS'd low-tier score ``s_lo``, then each cell's top per_cell
+    (:func:`cell_budget`), ranked by the quantised Harris value of
+    ``harris_map`` (:func:`fast_harris_cells`) or, without
+    ``harris_rescore``, by the gated score (the map goes unread). Returns
+    (xy (C, 2), score (C,) with −inf in the empty slots), cells-major."""
+    _, per_cell = cell_budget(*gray.shape, budget, cell_size)
+    sel = _two_tier_gate(s_lo, threshold_high, cell_size)
+    common = dict(cell_size=cell_size, threshold_high=threshold_high,
+                  per_cell=per_cell, sel=sel)
+    if harris_rescore:
+        kps = fast_harris_cells(gray, harris_map, **common)
+    else:
+        kps = fast_detect_cells(gray, **common)
+    ninf = torch.full_like(kps.score, float("-inf"))
+    return kps.xy, torch.where(kps.mask, kps.score, ninf)
+
+
+def select_cells(gray: torch.Tensor, s_lo: torch.Tensor,
+                 harris_map: torch.Tensor, budget: int, cell_size: int,
+                 threshold_high: float, harris_rescore: bool = True):
+    """ORB's detection and budgeted selection on one level: the stable
+    top ``budget`` of :func:`cell_candidates` (the lower index first on
+    ties, as ``lax.top_k``). Returns (xy (budget, 2), vals (budget,),
+    valid (budget,)): vals 0 where not valid."""
+    xy_all, scores = cell_candidates(gray, s_lo, harris_map, budget,
+                                     cell_size, threshold_high,
+                                     harris_rescore)
+    vals, idx = stable_topk(scores, budget)
+    xy = xy_all[idx]
+    valid = torch.isfinite(vals)
+    return xy, torch.where(valid, vals, torch.zeros_like(vals)), valid

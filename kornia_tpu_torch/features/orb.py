@@ -4,9 +4,11 @@ The FAST score, its 3×3 NMS and the dense Harris map of every pyramid
 level come from one CUDA kernel launch per 16 levels
 (``cuda_kernels.fast_harris_levels``); then per level the two-tier gate and
 the packed per-cell top-k pick candidates and a stable top-k takes the
-level budget. The describe stage has three forms, chosen by the
-``describe=`` argument of :func:`orb_detect_and_describe` (the reference
-picks them by environment variable and backend):
+level budget, all levels in one ``cuda_kernels.orb_select`` call (on the
+card one kernel, 3 launches a frame). The describe stage has three
+forms, chosen by the ``describe=`` argument of
+:func:`orb_detect_and_describe` (the reference picks them by environment
+variable and backend):
 
 * ``"paired"`` (the default for an even budget sum): all levels in one
   edge-replicated canvas, keypoints 2i and 2i+1 share one (40, 128) window
@@ -39,9 +41,8 @@ import numpy as np
 import torch
 
 from kornia_tpu_torch import resolve_device, to_device
-from kornia_tpu_torch.features.fast import (_two_tier_gate,
-                                            fast_detect_cells,
-                                            fast_harris_cells, stable_topk)
+from kornia_tpu_torch.features.fast import (cell_budget, fast_detect_cells,
+                                            select_cells)
 from kornia_tpu_torch.features.quadtree import distribute_quadtree
 from kornia_tpu_torch.ops import cuda_kernels as ck
 from kornia_tpu_torch.ops.filters import gaussian_blur
@@ -145,41 +146,16 @@ def _pyramid(gray_u8: torch.Tensor, cfg: OrbConfig) -> List[torch.Tensor]:
     return levels
 
 
-def _level_candidates(level_img: torch.Tensor, budget: int, cfg: OrbConfig,
-                      maps=None):
-    """Per-cell-capped candidates of one octave: (xy (C, 2), score (C,)
-    with −inf in the invalid slots). ``maps``: the level's (NMS'd score,
-    Harris map) from ``cuda_kernels.fast_harris_levels``; None computes
-    them for this level alone."""
-    lh, lw = level_img.shape
-    n_cells = (-(-lh // cfg.cell_size)) * (-(-lw // cfg.cell_size))
-    per_cell = max(2, -(-2 * budget // n_cells))
-    # the Harris map goes unused when harris_rescore is off
-    s_lo, hmap = (maps if maps is not None
-                  else ck.fast_harris(level_img, cfg.fast_threshold_low))
-    sel = _two_tier_gate(s_lo, cfg.fast_threshold_high, cfg.cell_size)
-    common = dict(cell_size=cfg.cell_size,
-                  threshold_high=cfg.fast_threshold_high,
-                  threshold_low=cfg.fast_threshold_low, per_cell=per_cell,
-                  sel=sel)
-    if cfg.harris_rescore:
-        kps = fast_harris_cells(level_img, hmap, **common)
-    else:
-        kps = fast_detect_cells(level_img, **common)
-    ninf = torch.full_like(kps.score, float("-inf"))
-    return kps.xy, torch.where(kps.mask, kps.score, ninf)
-
-
 def _select_level(level_img: torch.Tensor, budget: int, cfg: OrbConfig,
                   maps=None):
     """Detection + budgeted selection for one octave: (xy level coords,
-    vals, valid). The top-k is stable: the lower index first on ties, as
-    ``lax.top_k``. ``maps`` as for :func:`_level_candidates`."""
-    xy_all, scores = _level_candidates(level_img, budget, cfg, maps)
-    vals, idx = stable_topk(scores, budget)
-    xy = xy_all[idx]
-    valid = torch.isfinite(vals)
-    return xy, torch.where(valid, vals, torch.zeros_like(vals)), valid
+    vals, valid), by ``fast.select_cells``. ``maps``: the level's (NMS'd
+    score, Harris map) from ``cuda_kernels.fast_harris_levels``; None
+    computes them for this level alone."""
+    s_lo, hmap = (maps if maps is not None
+                  else ck.fast_harris(level_img, cfg.fast_threshold_low))
+    return select_cells(level_img, s_lo, hmap, budget, cfg.cell_size,
+                        cfg.fast_threshold_high, cfg.harris_rescore)
 
 
 def _gather_patches(gray_f: torch.Tensor, xy_int: torch.Tensor,
@@ -428,9 +404,9 @@ def orb_detect_and_describe(gray_u8, cfg: OrbConfig = OrbConfig(),
     unpaired form only, "lane_gather" (see the module docstring).
 
     Its stages are spans (``utils.tracing``): ``features.orb`` around the
-    call, inside it ``.upload``, ``.pyramid``, ``.fast_harris``, one
-    ``.select`` a level (attribute: the level), ``.describe`` and
-    ``.assemble``."""
+    call, inside it ``.upload``, ``.pyramid``, ``.fast_harris``,
+    ``.select`` (every level in one ``cuda_kernels.orb_select`` call,
+    attribute ``"all"``), ``.describe`` and ``.assemble``."""
     with tracing.span("features.orb"):
         dev = resolve_device(device)
         with tracing.span("features.orb.upload"):
@@ -441,10 +417,9 @@ def orb_detect_and_describe(gray_u8, cfg: OrbConfig = OrbConfig(),
             levels = _pyramid(gray, cfg)
         with tracing.span("features.orb.fast_harris"):
             maps = ck.fast_harris_levels(levels, cfg.fast_threshold_low)
-        sels = []
-        for i, (img, budget, m) in enumerate(zip(levels, budgets, maps)):
-            with tracing.span("features.orb.select", i):
-                sels.append(_select_level(img, budget, cfg, m))
+        with tracing.span("features.orb.select", "all"):
+            sels = ck.orb_select(levels, maps, budgets, cfg.cell_size,
+                                 cfg.fast_threshold_high, cfg.harris_rescore)
         with tracing.span("features.orb.describe"):
             ang, desc = _describe(levels, sels, cfg, describe, brief)
         with tracing.span("features.orb.assemble"):
@@ -476,8 +451,7 @@ def orb_detect_and_describe_quadtree(gray_u8, cfg: OrbConfig = OrbConfig(),
     parts = []
     for i, (img, budget) in enumerate(zip(_pyramid(gray, cfg), budgets)):
         lh, lw = img.shape
-        n_cells = (-(-lh // cfg.cell_size)) * (-(-lw // cfg.cell_size))
-        per_cell = max(2, -(-2 * budget // n_cells))
+        _, per_cell = cell_budget(lh, lw, budget, cfg.cell_size)
         kps = fast_detect_cells(
             img, cell_size=cfg.cell_size,
             threshold_high=cfg.fast_threshold_high,

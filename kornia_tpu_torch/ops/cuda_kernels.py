@@ -3,7 +3,9 @@ build and the launch counters.
 
 Each TPU kernel on a ported path (kornia_tpu/ops/pallas_kernels.py,
 warp_pallas.py, warp_shear.py) has one CUDA C++ source under ``csrc/`` for
-sm_90a and one wrapper here:
+sm_90a and one wrapper here; ``orb_select`` (K10) replaces no TPU kernel:
+the JAX package selects ORB's keypoints in dense XLA ops, which eager
+PyTorch on the card runs as some hundred launches a frame:
 
 ==============  ==========================================  =================
 wrapper         replaces                                    source
@@ -35,6 +37,10 @@ shear_x         warp_shear.py::_shear_x                     shear_x.cu
 shear_y         the same kernel on the transpose            shear_x.cu
                 (warp_shear.py::_shear_y), as a column
                 pass on the canvas in its own layout
+orb_select      none: features/fast.py::select_cells on     orb_select.cu
+                every level of a frame (two-tier gate,
+                Harris quantisation, cell top-k, stable
+                top-k), 3 launches for all levels
 ==============  ==========================================  =================
 
 Dispatch is by the tensor's device only: a CPU tensor runs the plain
@@ -44,9 +50,9 @@ Build: each source is compiled by ``nvcc`` into its own shared library with
 a plain C interface, loaded with ctypes, in ``kornia_tpu_torch/_build/``
 (git-ignored), named by the hash of the source, so an edited source is
 rebuilt. The first kernel call builds every library, one ``nvcc`` per
-source, all started together. ``LAUNCHES`` counts launches per C entry
-point (``KERNELS``: one per library, and the extra entries of
-``_EXTRA_ENTRIES``).
+source, all started together. ``LAUNCHES`` counts kernel launches per C
+entry point (``KERNELS``: one per library, and the extra entries of
+``_EXTRA_ENTRIES``): one a call, three a call of ``orb_select``.
 """
 
 from __future__ import annotations
@@ -73,7 +79,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 SOURCES = ("fast_harris", "windows_paired", "brief_sample", "windows",
-           "lane_gather", "preprocess", "remap", "lane_shift", "shear_x")
+           "lane_gather", "preprocess", "remap", "lane_shift", "shear_x",
+           "orb_select")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -159,6 +166,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> Dict[str, object]:
         "lane_shift": [p, p, p, i, i, i, i, p],
         "shear_x": [p, p, p, i, i, i, p],
         "shear_y": [p, p, p, i, i, i, p],
+        "orb_select": [i, p, p, p, p, p, p, i, f, i, p, p, p, p, p],
     }
     fns = {}
     for entry in (name,) + _EXTRA_ENTRIES.get(name, ()):
@@ -195,11 +203,12 @@ def _check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int):
         raise ValueError(f"{what}: expected a contiguous tensor")
 
 
-def _launched(name: str, rc: int) -> None:
+def _launched(name: str, rc: int, n: int = 1) -> None:
+    """Count the ``n`` kernel launches of one call of entry ``name``."""
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += n
 
 
 @functools.lru_cache(maxsize=None)
@@ -358,6 +367,135 @@ def fast_score(img: torch.Tensor, threshold: float, nms: bool = True,
             _stream(img))
         _launched("fast_score", rc)
     return out
+
+
+# --------------------------------------------------------------------------
+# K10: ORB's per-level selection, all levels of a frame
+# --------------------------------------------------------------------------
+
+# levels one K10 call takes (the kernel's MAX_LEVELS: its parameter table)
+ORB_SELECT_MAX_LEVELS = 32
+# slots of one level (the kernel's MAX_SLOTS)
+ORB_SELECT_MAX_SLOTS = 1 << 24
+# a level's sort keeps an 8-byte key a slot, padded to the next power of
+# two: in one block's shared memory up to this many keys (the kernel's
+# MAX_SORT: 128 KiB of the 227 KB a block may use), else in the scratch,
+# in global memory
+ORB_SELECT_SHARED_SORT = 16384
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+@functools.lru_cache(maxsize=64)
+def orb_select_plan(shapes: Tuple[Tuple[int, int], ...],
+                    budgets: Tuple[int, ...], cell_size: int):
+    """Per level (cells, per_cell) of ORB's selection on levels of
+    ``shapes`` with ``budgets`` keypoints, or None where K10 cannot take
+    the frame: no level or more than ORB_SELECT_MAX_LEVELS, cell_size² over
+    2048 (the packed key's 11 position bits), an empty level, or a level
+    with more than ORB_SELECT_MAX_SLOTS slots."""
+    if (not 1 <= len(shapes) <= ORB_SELECT_MAX_LEVELS
+            or len(budgets) != len(shapes)
+            or not 1 <= cell_size * cell_size <= 2048):
+        return None
+    plan = []
+    for (h, w), b in zip(shapes, budgets):
+        if h < 1 or w < 1 or b < 0:
+            return None
+        cells, per_cell = _fast.cell_budget(h, w, b, cell_size)
+        if cells * per_cell > ORB_SELECT_MAX_SLOTS:
+            return None
+        plan.append((cells, per_cell))
+    return tuple(plan)
+
+
+@functools.lru_cache(maxsize=64)
+def _select_table(shapes: Tuple[Tuple[int, int], ...],
+                  budgets: Tuple[int, ...], cell_size: int):
+    """The kernel's (hs, ws, budgets, per_cell) ctypes arrays and the
+    scratch's f32 words (8 bytes a cell and a slot, and a sort key of the
+    levels sorted in global memory), made once per pyramid shape; raises
+    where :func:`orb_select_plan` finds no plan."""
+    plan = orb_select_plan(shapes, budgets, cell_size)
+    if plan is None:
+        raise ValueError(f"orb_select cannot take levels {list(shapes)} with "
+                         f"budgets {list(budgets)} and cell {cell_size}")
+    n = len(shapes)
+    ints = [(ctypes.c_int * n)(*v) for v in (
+        [h for h, _ in shapes], [w for _, w in shapes], budgets,
+        [p for _, p in plan])]
+    keys = [_pow2(c * p) for c, p in plan]
+    return (*ints, 2 * sum(c + c * p for c, p in plan)
+            + 2 * sum(k for k in keys if k > ORB_SELECT_SHARED_SORT))
+
+
+def _orb_select_plain(levels, maps, budgets, cell_size, threshold_high,
+                      harris_rescore=True):
+    """features/fast.py::select_cells on every level: the per-level
+    composition (two-tier gate, Harris quantisation, packed cell top-k,
+    stable_topk, gather)."""
+    return [_fast.select_cells(img, s, h, int(b), cell_size, threshold_high,
+                               harris_rescore)
+            for img, (s, h), b in zip(levels, maps, budgets)]
+
+
+def orb_select(levels: Sequence[torch.Tensor],
+               maps: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+               budgets: Sequence[int], cell_size: int, threshold_high: float,
+               harris_rescore: bool = True) -> List[Tuple[torch.Tensor, ...]]:
+    """ORB's keypoint selection on every (H, W) u8 level of a frame: per
+    level (xy (B, 2) f32 level coordinates, vals (B,) f32, valid (B,)
+    bool), as ``fast.select_cells`` gives them on ``levels[i]``, K1's
+    (score, Harris) pair ``maps[i]`` (:func:`fast_harris_levels`) and
+    ``budgets[i]`` keypoints.
+
+    The plain version on a CPU tensor; on the card one call of the kernel,
+    3 launches (2 without ``harris_rescore``) for every level together, no
+    host sync, the outputs views of one buffer. Raises where
+    :func:`orb_select_plan` finds no plan."""
+    levels, maps = list(levels), list(maps)
+    budgets = tuple(int(b) for b in budgets)
+    if not levels or not len(levels) == len(maps) == len(budgets):
+        raise ValueError("orb_select: one map pair and one budget a level")
+    if levels[0].is_cpu:
+        return _orb_select_plain(levels, maps, budgets, cell_size,
+                                 threshold_high, harris_rescore)
+    shapes = tuple(tuple(img.shape) for img in levels)
+    hs, ws, bs, pcs, nf = _select_table(shapes, budgets, int(cell_size))
+    # device indices, not torch.device objects: this loop runs every frame
+    d = levels[0].get_device()
+    for i, (img, pair) in enumerate(zip(levels, maps)):
+        if img.dtype != torch.uint8 or img.get_device() != d:
+            raise ValueError(f"orb_select level {i}: expected torch.uint8 on "
+                             f"{levels[0].device}, got {img.dtype} on "
+                             f"{img.device}")
+        for t, what in zip(pair, ("score", "Harris")):
+            _check(t, f"orb_select level {i} {what} map", torch.float32, 2)
+            if t.shape != img.shape or t.get_device() != d:
+                raise ValueError(f"orb_select level {i}: {what} map "
+                                 f"{tuple(t.shape)} on {t.device}, level "
+                                 f"{shapes[i]} on {img.device}")
+    k = sum(budgets)
+    # one buffer: the scratch, xy, vals (f32), then valid (u8)
+    nw = nf + 3 * k
+    buf = torch.empty(4 * nw + k, dtype=torch.uint8, device=levels[0].device)
+    words = buf[:4 * nw].view(torch.float32)
+    xy = words[nf:nf + 2 * k].view(k, 2)
+    vals = words[nf + 2 * k:]
+    valid = buf[4 * nw:].view(torch.bool)
+    n = len(levels)
+    rescore = bool(harris_rescore)
+    rc = _kernel("orb_select")(
+        n, (ctypes.c_void_p * n)(*[s.data_ptr() for s, _ in maps]),
+        (ctypes.c_void_p * n)(*[h.data_ptr() for _, h in maps]),
+        hs, ws, bs, pcs, int(cell_size), float(threshold_high), int(rescore),
+        buf.data_ptr(), xy.data_ptr(), vals.data_ptr(), valid.data_ptr(),
+        _stream(levels[0]))
+    _launched("orb_select", rc, 3 if rescore else 2)
+    return list(zip(xy.split(budgets), vals.split(budgets),
+                    valid.split(budgets)))
 
 
 # --------------------------------------------------------------------------

@@ -527,19 +527,23 @@ def test_cuda_slice3_entry_points_launch_kernels(cuda_dev):
         return out, {k: v for k, v in ck.LAUNCHES.items() if v}
 
     paired, n = run(lambda: orb.orb_detect_and_describe(gray, cfg))
-    assert n == {"fast_harris": 1, "windows_paired": 2, "brief_rotated": 1}
+    assert n == {"fast_harris": 1, "orb_select": 3, "windows_paired": 2,
+                 "brief_rotated": 1}
     unp, n = run(lambda: orb.orb_detect_and_describe(gray, cfg,
                                                      describe="unpaired"))
-    assert n == {"fast_harris": 1, "windows": 2, "brief_rotated": 1}
+    assert n == {"fast_harris": 1, "orb_select": 3, "windows": 2,
+                 "brief_rotated": 1}
     assert torch.equal(unp.descriptors, paired.descriptors)
     assert torch.equal(unp.angle, paired.angle)
     lg, n = run(lambda: orb.orb_detect_and_describe(gray, cfg,
                                                     brief="lane_gather"))
-    assert n == {"fast_harris": 1, "windows": 2, "lane_gather": 4}
+    assert n == {"fast_harris": 1, "orb_select": 3, "windows": 2,
+                 "lane_gather": 4}
     assert torch.equal(lg.descriptors, paired.descriptors)
     odd, n = run(lambda: orb.orb_detect_and_describe(
         gray, dataclasses.replace(cfg, n_features=201)))
-    assert n == {"fast_harris": 1, "windows": 2, "brief_rotated": 1}
+    assert n == {"fast_harris": 1, "orb_select": 3, "windows": 2,
+                 "brief_rotated": 1}
     assert odd.descriptors.shape == (201, 256)
     _, n = run(lambda: orb.orb_detect_and_describe_quadtree(gray, cfg))
     # the quadtree's per-level detection runs K1's score-only entry
@@ -1015,9 +1019,9 @@ def test_cuda_slam_frame_loop(cuda_dev):
     """Eight 480×752 frames of chip_smoke.slam_sequence through
     MonocularSlam with SlamConfig() widths on the card: frame 0 is held,
     frame 1 bootstraps (two keyframes), every later frame is tracked;
-    each frame launches K1 once, K2 twice and K3 once and no other hand
-    kernel; the keyframe poses' camera centres within 0.05 of the truth
-    after a sim3 alignment."""
+    each frame launches K1 once, K2 twice, K3 once, K10 three times and
+    no other hand kernel; the keyframe poses' camera centres within 0.05
+    of the truth after a sim3 alignment."""
     import chip_smoke as cs
     from kornia_tpu_torch import slam
     frames, _, centres = cs.slam_sequence(n=cs.SLAM_FRAMES)
@@ -1031,7 +1035,8 @@ def test_cuda_slam_frame_loop(cuda_dev):
         states.append(system.process_frame(f).state)
         torch.cuda.synchronize()
         want = {name: 0 for name in ck.LAUNCHES}
-        want.update(fast_harris=1, windows_paired=2, brief_rotated=1)
+        want.update(fast_harris=1, windows_paired=2, brief_rotated=1,
+                    orb_select=3)
         assert dict(ck.LAUNCHES) == want
     assert states[0] == slam.TrackingState.INITIALIZING
     assert all(s == slam.TrackingState.TRACKING for s in states[1:])
@@ -1505,3 +1510,218 @@ def test_cuda_parallel_world_size_1_nccl(cuda_dev):
     (n,) = tmesh.spawn(_parallel_world_1, 1, devices=[str(cuda_dev) + ":0"],
                        timeout=300)
     assert n > 0
+
+
+# --------------------------------------------------------------------------
+# K10: ORB's selection of every level in one call
+# --------------------------------------------------------------------------
+
+
+def _blocky_u8(seed, shape, cell=8):
+    """Noise upsampled x``cell`` by repetition: plateaus, so many FAST
+    corners share a score and many Harris values tie."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    small = rng.random((h // cell + 1, w // cell + 1))
+    return (np.kron(small, np.ones((cell, cell)))[:h, :w] * 255).astype(
+        np.uint8)
+
+
+def _select_inputs(gray, cfg, dev):
+    from kornia_tpu_torch.features import orb
+
+    levels = orb._pyramid(convert.tensor(gray, dev), cfg)
+    return (levels, ck.fast_harris_levels(levels, cfg.fast_threshold_low),
+            orb._level_budgets(cfg))
+
+
+def _assert_sels_equal(got, want):
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        for a, b, what in zip(g, w, ("xy", "vals", "valid")):
+            assert a.dtype == b.dtype and a.shape == b.shape, (i, what)
+            assert torch.equal(a, b), (i, what)
+
+
+_SELECT_CASES = {
+    # (frame, shape, OrbConfig keywords)
+    "kitti": (_textured_u8, (376, 1241), {}),
+    "kitti-blocky": (_blocky_u8, (376, 1241), {}),
+    "euroc": (_textured_u8, (480, 752), dict(n_features=1000, n_levels=4)),
+    "levels17": (_blocky_u8, (480, 752), dict(n_levels=17,
+                                              scale_factor=1.1)),
+    "fast-rank": (_textured_u8, (376, 1241), dict(harris_rescore=False)),
+    "fast-rank-blocky": (_blocky_u8, (480, 752),
+                         dict(harris_rescore=False)),
+}
+
+
+def _select_args(cfg):
+    """ck.orb_select's arguments after the budgets, from an OrbConfig."""
+    return cfg.cell_size, cfg.fast_threshold_high, cfg.harris_rescore
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_SELECT_CASES))
+def test_cuda_orb_select_bit_equal(cuda_dev, case):
+    """K10 on K1's maps of every level: xy, vals and valid bit-equal to the
+    per-level composition on the card, in 3 launches (2 ranked by the FAST
+    score), whatever the level count (17 levels: K1 in two chunks)."""
+    from kornia_tpu_torch.features import orb
+
+    make, shape, kw = _SELECT_CASES[case]
+    cfg = orb.OrbConfig(**kw)
+    levels, maps, budgets = _select_inputs(make(50, shape), cfg, cuda_dev)
+    ck.reset_launch_counts()
+    got = ck.orb_select(levels, maps, budgets, *_select_args(cfg))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["orb_select"] == (3 if cfg.harris_rescore else 2)
+    want = ck._orb_select_plain(levels, maps, budgets, *_select_args(cfg))
+    _assert_sels_equal(got, want)
+    assert sum(int(v.sum()) for _, _, v in got) > cfg.n_features // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rescore", [True, False])
+def test_cuda_orb_select_sorts_big_levels_in_global_memory(cuda_dev,
+                                                           rescore):
+    """40,000 features on 2 levels of KITTI's frame: level 0 has more
+    slots than ORB_SELECT_SHARED_SORT, so its sort runs in global memory,
+    level 1's in shared memory; both bit-equal to the composition."""
+    from kornia_tpu_torch.features import orb
+
+    cfg = orb.OrbConfig(n_features=40000, n_levels=2,
+                        harris_rescore=rescore)
+    levels, maps, budgets = _select_inputs(_textured_u8(56, (376, 1241)),
+                                           cfg, cuda_dev)
+    plan = ck.orb_select_plan(tuple(tuple(lv.shape) for lv in levels),
+                              tuple(budgets), cfg.cell_size)
+    slots = [c * p for c, p in plan]
+    assert slots[0] > ck.ORB_SELECT_SHARED_SORT
+    got = ck.orb_select(levels, maps, budgets, *_select_args(cfg))
+    want = ck._orb_select_plain(levels, maps, budgets, *_select_args(cfg))
+    _assert_sels_equal(got, want)
+    assert all(int(v.sum()) > 0 for _, _, v in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rescore", [True, False])
+@pytest.mark.parametrize("maps_kind", ["flat", "constant-harris",
+                                       "no-high-tier"])
+def test_cuda_orb_select_degenerate_maps(cuda_dev, maps_kind, rescore):
+    """A flat frame (no eligible pixel: every slot -inf, every xy 0), a
+    constant Harris map (every key of a level ties on its quantised rank
+    and every score on hmin: position and slot order decide), and scores
+    all under the high tier: bit-equal to the composition."""
+    from kornia_tpu_torch.features import orb
+
+    cfg = orb.OrbConfig(harris_rescore=rescore)
+    gray = (np.full((376, 1241), 128, np.uint8) if maps_kind == "flat"
+            else _textured_u8(51, (376, 1241)))
+    levels, maps, budgets = _select_inputs(gray, cfg, cuda_dev)
+    if maps_kind == "constant-harris":
+        maps = [(s, torch.full_like(h, 0.25)) for s, h in maps]
+    elif maps_kind == "no-high-tier":
+        maps = [(torch.clamp(s, max=cfg.fast_threshold_high).contiguous(), h)
+                for s, h in maps]
+    got = ck.orb_select(levels, maps, budgets, *_select_args(cfg))
+    want = ck._orb_select_plain(levels, maps, budgets, *_select_args(cfg))
+    _assert_sels_equal(got, want)
+    n_valid = sum(int(v.sum()) for _, _, v in got)
+    assert (n_valid == 0) == (maps_kind == "flat")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, dict(n_features=1000, n_levels=4),
+                                dict(harris_rescore=False)])
+def test_cuda_orb_routes_give_the_same_features(cuda_dev, kw, monkeypatch):
+    """The whole of orb_detect_and_describe with K10 and with its plain
+    version (the per-level composition) in its place: every output equal;
+    K10 launches 3 times a frame (2 ranked by the FAST score)."""
+    from kornia_tpu_torch.features import orb
+
+    cfg = orb.OrbConfig(**kw)
+    gray = _textured_u8(52, (376, 1241))
+    orb.orb_detect_and_describe(gray, cfg)               # warm-up
+    ck.reset_launch_counts()
+    got = orb.orb_detect_and_describe(gray, cfg)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["orb_select"] == (3 if cfg.harris_rescore else 2)
+    assert ck.LAUNCHES["fast_harris"] == 1
+    monkeypatch.setattr(ck, "orb_select", ck._orb_select_plain)
+    ck.reset_launch_counts()
+    want = orb.orb_detect_and_describe(gray, cfg)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["orb_select"] == 0
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_cuda_orb_select_waits_for_nothing(cuda_dev):
+    """ORB's select stage on the card: one span a frame (attribute "all")
+    around one ck.orb_select call, which launches 3 times and does not
+    synchronise with the host (sync debug mode "error")."""
+    from kornia_tpu_torch.features import orb
+    from kornia_tpu_torch.utils import tracing
+
+    cfg = orb.OrbConfig()
+    gray = _textured_u8(53, (376, 1241))
+    levels, maps, budgets = _select_inputs(gray, cfg, cuda_dev)
+    want = ck._orb_select_plain(levels, maps, budgets, *_select_args(cfg))
+    ck.orb_select(levels, maps, budgets, *_select_args(cfg))   # warm-up
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sels = ck.orb_select(levels, maps, budgets, *_select_args(cfg))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["orb_select"] == 3
+    _assert_sels_equal(sels, want)
+    with tracing.recording() as rows:
+        orb.orb_detect_and_describe(gray, cfg)
+    assert [(r.name, r.attr) for r in rows
+            if r.name == "features.orb.select"] == [("features.orb.select",
+                                                     "all")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(cell_size=46),
+                                dict(n_levels=33, scale_factor=1.05)])
+def test_cuda_orb_over_capacity_raises(cuda_dev, kw):
+    """Cells over 2048 pixels, or more than ORB_SELECT_MAX_LEVELS levels:
+    ck.orb_select raises, and so does ORB on the card, which has no other
+    route; no K10 launch."""
+    from kornia_tpu_torch.features import orb
+
+    cfg = orb.OrbConfig(**kw)
+    gray = _textured_u8(54, (376, 1241))
+    levels, maps, budgets = _select_inputs(gray, cfg, cuda_dev)
+    ck.reset_launch_counts()
+    with pytest.raises(ValueError, match="cannot take"):
+        ck.orb_select(levels, maps, budgets, *_select_args(cfg))
+    with pytest.raises(ValueError, match="cannot take"):
+        orb.orb_detect_and_describe(gray, cfg)
+    assert ck.LAUNCHES["orb_select"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_orb_select_rejects_bad_input(cuda_dev):
+    from kornia_tpu_torch.features import orb
+
+    cfg = orb.OrbConfig(n_features=400, n_levels=2)
+    levels, maps, budgets = _select_inputs(_textured_u8(55, (120, 160)),
+                                           cfg, cuda_dev)
+    s, h = maps[1]
+    args = _select_args(cfg)
+    for bad in ([maps[0], (s.double(), h)], [maps[0], (s, h[:, :-1])],
+                [maps[0], (s.t(), h)], [maps[0], (s, h.cpu())]):
+        with pytest.raises(ValueError):
+            ck.orb_select(levels, bad, budgets, *args)
+    with pytest.raises(ValueError):
+        ck.orb_select([levels[0], levels[1].float()], maps, budgets, *args)
+    with pytest.raises(ValueError):
+        ck.orb_select(levels, maps[:1], budgets, *args)

@@ -230,6 +230,32 @@ def test_select_level_exact(frame, rescore):
         np.testing.assert_array_equal(tval.numpy(), np.asarray(rval))
 
 
+@pytest.mark.parametrize("frame,rescore", [("entry", True),
+                                           ("smooth", True),
+                                           ("smooth", False)])
+def test_orb_select_plain_equals_reference(frame, rescore):
+    """ck.orb_select's plain version, all levels at once on K1's maps (the
+    route ORB takes on the card, here through the plain versions), level by
+    level equal to the reference's _select_level."""
+    from kornia_tpu_torch.ops import cuda_kernels as ck
+
+    gray = _entry_frames()[1] if frame == "entry" else _smooth_frame(8)
+    cfg = dataclasses.replace(CFG, harris_rescore=rescore)
+    tcfg = convert.orb_config(dataclasses.asdict(cfg))
+    levels = _ref_pyramid(gray)
+    budgets = jorb._level_budgets(cfg)
+    tl = [tensor(lv) for lv in levels]
+    got = ck.orb_select(tl, ck.fast_harris_levels(
+        tl, tcfg.fast_threshold_low), budgets, tcfg.cell_size,
+        tcfg.fast_threshold_high, tcfg.harris_rescore)
+    assert len(got) == len(levels)
+    for (txy, tval, tvalid), lv, b in zip(got, levels, budgets):
+        rxy, rval, rvalid = jorb._select_level(jnp.asarray(lv), b, cfg)
+        np.testing.assert_array_equal(txy.numpy(), np.asarray(rxy))
+        np.testing.assert_array_equal(tvalid.numpy(), np.asarray(rvalid))
+        np.testing.assert_array_equal(tval.numpy(), np.asarray(rval))
+
+
 def _ref_describe_inputs(gray):
     levels = _ref_pyramid(gray)
     budgets = jorb._level_budgets(CFG)

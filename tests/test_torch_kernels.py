@@ -658,6 +658,109 @@ def test_resize_taps_rebuild_the_matrix(n_in, n_out):
     assert (idx[:, 0] <= idx[:, 1]).all()
 
 
+# --------------------------------------------------------------------------
+# K10: ORB's selection of every level
+# --------------------------------------------------------------------------
+
+
+def _kitti_shapes(n_levels=8, scale=1.2):
+    """The pyramid shapes orb._pyramid makes of a 376 x 1241 frame."""
+    return tuple((int(round(376 / scale ** i)), int(round(1241 / scale ** i)))
+                 for i in range(n_levels))
+
+
+def test_orb_select_plan_at_kitti_and_euroc():
+    """The slots a level at OrbConfig() on KITTI's frame (level 0: 396
+    cells of 3, 1,188 slots; level 7: 30 of 9) and at SlamConfig()'s ORB on
+    EuRoC's (4 levels of 1000 features: at most 924 slots a level)."""
+    from kornia_tpu_torch.features import orb as torb
+
+    cfg = torb.OrbConfig()
+    plan = ck.orb_select_plan(_kitti_shapes(), tuple(torb._level_budgets(
+        cfg)), cfg.cell_size)
+    assert plan[0] == (396, 3) and plan[-1] == (30, 9)
+    assert max(c * p for c, p in plan) == 1188
+    euroc = tuple((int(round(480 / 1.2 ** i)), int(round(752 / 1.2 ** i)))
+                  for i in range(4))
+    budgets = tuple(torb._level_budgets(torb.OrbConfig(n_features=1000,
+                                                       n_levels=4)))
+    plan = ck.orb_select_plan(euroc, budgets, 35)
+    assert max(c * p for c, p in plan) <= 924
+    # every level of both sorts in shared memory
+    assert all(2 * b <= c * p <= ck.ORB_SELECT_SHARED_SORT
+               for (c, p), b in zip(plan, budgets))
+
+
+@pytest.mark.parametrize("shapes,budgets,cell,fits", [
+    (((35, 35),), (8192,), 35, True),        # 1 cell x 16,384 slots
+    (((35, 35),), (8193,), 35, True),        # 16,386: a global-memory sort
+    (((35, 35),), (1 << 23,), 35, True),     # 2^24 slots
+    (((35, 35),), ((1 << 23) + 1,), 35, False),
+    (((90, 90),), (50,), 45, True),          # 2025 pixels a cell
+    (((92, 92),), (50,), 46, False),         # 2116 > 2048
+    (_kitti_shapes(32, 1.05), (10,) * 32, 35, True),
+    (_kitti_shapes(33, 1.05), (10,) * 33, 35, False),
+    (((376, 1241), (0, 10)), (10, 10), 35, False),
+    (((376, 1241),), (10, 10), 35, False),
+])
+def test_orb_select_plan_capacity(shapes, budgets, cell, fits):
+    """K10 takes a frame only within its capacity: at most
+    ORB_SELECT_MAX_LEVELS levels, cells of at most 2048 pixels, no empty
+    level, at most ORB_SELECT_MAX_SLOTS slots a level."""
+    plan = ck.orb_select_plan(shapes, budgets, cell)
+    assert (plan is not None) == fits
+
+
+@pytest.mark.parametrize("rescore", [True, False])
+def test_orb_select_plan_counts_the_composition_slots(rescore):
+    """cells x per_cell of each level is the length of the composition's
+    candidate list (fast.cell_candidates), which the kernel sorts."""
+    from kornia_tpu_torch.features import fast as tfast
+    from kornia_tpu_torch.features import orb as torb
+
+    cfg = torb.OrbConfig(n_features=600, n_levels=4, harris_rescore=rescore)
+    levels = torb._pyramid(tensor(_img(40, (120, 200))), cfg)
+    budgets = torb._level_budgets(cfg)
+    plan = ck.orb_select_plan(tuple(tuple(lv.shape) for lv in levels),
+                              tuple(budgets), cfg.cell_size)
+    maps = ck.fast_harris_levels(levels, cfg.fast_threshold_low)
+    for lv, (s, h), b, (cells, per_cell) in zip(levels, maps, budgets, plan):
+        xy, score = tfast.cell_candidates(lv, s, h, b, cfg.cell_size,
+                                          cfg.fast_threshold_high, rescore)
+        assert xy.shape == (cells * per_cell, 2)
+        assert score.shape == (cells * per_cell,)
+
+
+@pytest.mark.parametrize("budget,keys", [(8192, 0), (8193, 32768)])
+def test_orb_select_scratch_holds_the_global_sort(budget, keys):
+    """K10's scratch on one 35 x 35 level: 8 bytes a cell and a slot, and
+    for a level of more than ORB_SELECT_SHARED_SORT slots its sort keys
+    (8 bytes each, the next power of two over its slots)."""
+    *_, words = ck._select_table(((35, 35),), (budget,), 35)
+    assert words == 2 * (1 + 2 * budget) + 2 * keys
+
+
+@pytest.mark.parametrize("shapes,budgets,cell", [
+    (((92, 92),), (50,), 46),
+    (((35, 35),), ((1 << 23) + 1,), 35),
+    (_kitti_shapes(33, 1.05), (10,) * 33, 35),
+])
+def test_orb_select_table_raises_over_capacity(shapes, budgets, cell):
+    """Shapes K10 cannot take raise, as the other wrappers do; ORB takes
+    no other route on the card."""
+    with pytest.raises(ValueError, match="cannot take"):
+        ck._select_table(shapes, budgets, cell)
+
+
+def test_orb_select_plain_rejects_unmatched_lists():
+    levels = [tensor(_img(41, (40, 60)))]
+    maps = ck.fast_harris_levels(levels, 7.0)
+    with pytest.raises(ValueError, match="a level"):
+        ck.orb_select(levels, maps, [10, 10], 35, 20.0)
+    with pytest.raises(ValueError, match="a level"):
+        ck.orb_select([], [], [], 35, 20.0)
+
+
 def test_new_wrappers_count_no_cpu_launch():
     ck.reset_launch_counts()
     img, xy = _frame_and_keypoints(29, 40, 60, 5)
@@ -668,8 +771,11 @@ def test_new_wrappers_count_no_cpu_launch():
                                                     dtype=torch.int32))
     ck.fused_preprocess(tensor(_img(30, (20, 30, 3))), 8, 8)
     ck.fast_score(tensor(_img(31, (20, 30))), 10.0, nms=False)
+    levels = [tensor(_img(32, (40, 60))), tensor(_img(33, (33, 50)))]
+    ck.orb_select(levels, ck.fast_harris_levels(levels, 7.0), [20, 12], 35,
+                  20.0)
     assert all(v == 0 for v in ck.LAUNCHES.values())
-    assert len(ck.SOURCES) == 9
+    assert len(ck.SOURCES) == 10
     assert set(ck.LAUNCHES) == set(ck.KERNELS) == set(ck.SOURCES) | {
         "fast_score", "brief_rotated", "shear_y"}
 
