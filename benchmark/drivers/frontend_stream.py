@@ -97,8 +97,9 @@ def run(ctx) -> dict:
     t = time.perf_counter()
     out["check"], out["control"] = judge(ctx, kept, frames)
     out["judge_s"] = time.perf_counter() - t
-    out["record"] = {"spans": spans, "traced": traced, "frame_ms": ms,
-                     "card": ctx.card,
+    out["record"] = {"spans": spans, "traced": traced,
+                     "program": [] if traced is None else traced.rows,
+                     "frame_ms": ms, "card": ctx.card,
                      "orb_work": [roofline.orb_work(
                          frames[0].shape, ocfg.n_levels, ocfg.scale_factor,
                          k) for k in kps]}

@@ -252,8 +252,9 @@ def run(ctx) -> dict:
     t = time.perf_counter()
     out["check"], out["control"] = judge(ctx, cap, runs, frames, data)
     out["judge_s"] = time.perf_counter() - t
-    out["record"] = {"spans": spans, "traced": traced, "kinds": kinds,
-                     "frame_ms": ms, "card": ctx.card,
+    out["record"] = {"spans": spans, "traced": traced,
+                     "program": [] if traced is None else traced.rows,
+                     "kinds": kinds, "frame_ms": ms, "card": ctx.card,
                      "orb_work": [roofline.orb_work(
                          frames[0].shape, ocfg.n_levels, ocfg.scale_factor,
                          len(xy)) for _, xy, _ in cap.extract]}

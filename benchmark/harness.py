@@ -7,6 +7,7 @@ BENCHMARK.json.
 
 from __future__ import annotations
 
+import bisect
 import importlib.util
 import json
 import os
@@ -45,6 +46,13 @@ def load_module(kind: str, name: str):
     return mod
 
 
+def held_metrics(name: str) -> dict:
+    """benchmark/held/<name>.json, the metric entries of a held cell, or
+    none."""
+    path = os.path.join(BENCH, "held", name + ".json")
+    return load_json(path) if os.path.isfile(path) else {}
+
+
 class Cell:
     """One workload of BENCHMARK.json with its configuration and traffic
     files loaded."""
@@ -60,9 +68,17 @@ class Cell:
                            f"{sorted(by_name)}")
         self.traffic = load_json(path)
         # a cell held out of BENCHMARK.json (PERF.md, Open questions) is
-        # found by its files alone, for benchmark/control.py and the tests
-        self.entry = by_name.get(name, {"name": name, "chips": 1,
-                                        "config": self.traffic.get("config")})
+        # found by its files alone, and its metrics by held/<cell>.json,
+        # entries in BENCHMARK.json's form that name only held cells. Once
+        # the cell is listed, BENCHMARK.json alone holds for it.
+        self.entry = by_name.get(name)
+        if self.entry is None:
+            self.entry = {"name": name, "chips": 1,
+                          "config": self.traffic.get("config")}
+            held = held_metrics(name)
+            self.bench = dict(bench, **{
+                kind: bench[kind] + held.get(kind, [])
+                for kind in ("end_to_end", "per_layer")})
         self.config = load_json(os.path.join(
             BENCH, "configs", self.entry["config"] + ".json"))
         self.chips = int(self.entry["chips"])
@@ -121,12 +137,43 @@ class Spans:
     def of(self, name: str) -> List[tuple]:
         return [r for r in self.rows if r[0] == name]
 
+
+OUTSIDE = "between calls"
+
+
+class SpanIndex:
+    """The innermost span at a time, by lookup over rows (name, t0_ns,
+    t1_ns, tag) that nest, as the rows of one thread do (the harness's and
+    the program's together): rows sorted by start, each with the nearest
+    earlier row that encloses it; a time's innermost row is found by
+    bisection and a walk out through the enclosing rows. The label is the
+    shortest row that holds the time, the first in row order among equals;
+    a row of zero width holds no time."""
+
+    def __init__(self, rows: List[tuple]):
+        order = sorted(range(len(rows)),
+                       key=lambda i: (rows[i][1], -rows[i][2], -i))
+        self.rows = [rows[i] for i in order]
+        self.starts = [r[1] for r in self.rows]
+        self.parent: List[int] = []
+        open_: List[int] = []
+        for k, (_, t0, _, _) in enumerate(self.rows):
+            while open_ and self.rows[open_[-1]][2] <= t0:
+                open_.pop()
+            self.parent.append(open_[-1] if open_ else -1)
+            open_.append(k)
+
+    def find(self, t_ns: int) -> int:
+        """The sorted position of the innermost row holding ``t_ns``, or
+        -1."""
+        k = bisect.bisect_right(self.starts, t_ns) - 1
+        while k >= 0 and not t_ns < self.rows[k][2]:
+            k = self.parent[k]
+        return k
+
     def innermost(self, t_ns: int) -> str:
-        best, width = "between calls", None
-        for name, t0, t1, _ in self.rows:
-            if t0 <= t_ns < t1 and (width is None or t1 - t0 < width):
-                best, width = name, t1 - t0
-        return best
+        k = self.find(t_ns)
+        return OUTSIDE if k < 0 else self.rows[k][0]
 
 
 class Check:

@@ -21,6 +21,7 @@ import json
 import os
 import sys
 import time
+from collections import Counter
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
@@ -128,16 +129,22 @@ def main(argv=None) -> int:
     ctx = Context(cell, args.seed, args.seconds, bool(args.trace))
     driver = harness.load_module("drivers", cell.config["driver"])
     res = driver.run(ctx)
+    t = time.perf_counter()
     line = result_line(cell, res, bool(args.trace), cell.chips, ctx.card)
+    read_s = time.perf_counter() - t
     found = harness.loaded_forbidden()
     if found:
         print(f"run: the process loaded {found}: the benchmark runs the "
               "port alone", file=sys.stderr)
         return 4
+    rates = [round(r, 2) for r in harness.slice_rates(res["frame_ms"])]
     print(f"run: setup parts {json.dumps(res['setup_parts'])}, judged in "
-          f"{res['judge_s']:.1f} s; frames/s by 5-s slice "
-          f"{[round(r, 2) for r in harness.slice_rates(res['frame_ms'])]}",
-          file=sys.stderr)
+          f"{res['judge_s']:.1f} s, read in {read_s:.1f} s; frames/s by 5-s "
+          f"slice {rates}", file=sys.stderr)
+    if args.trace:
+        rows = Counter(r[0] for r in res["record"]["program"])
+        print(f"run: the program's span rows by name {json.dumps(rows)}",
+              file=sys.stderr)
     for text in res["check"].lines():
         print(text, file=sys.stderr)
     print(json.dumps(line))

@@ -5,26 +5,19 @@ and its stages, ``features.matching``) joined with the device trace.
     python3 benchmark/stages.py --seed <n> --seconds <s>
     python3 benchmark/stages.py --seed <n> --seconds <s> --alternate <w>
 
-The first form runs the ``orb_kitti.stream`` cell's driver as a
-``--trace 1`` run does, every traced frame also under
-``tracing.recording()``, and prints one JSON line: per stage (the
-innermost span, each ORB level apart) the launches, host ms, device ms,
-idle ms and host syncs a traced frame; the cell's per-layer metrics over
-the same frames; five stage metrics (``frontend.select_ms``,
-``frontend.select_launches_per_frame``, ``frontend.describe_ms``,
-``frontend.match_ms``, ``frontend.host_syncs_per_frame``); and checks
-of the spans' coverage. The second form runs the window untraced, the
-recording on in every other ``w``-s slice of it, and prints each slice's
-frames a second. Both need a CUDA card; nothing is written to disk.
-
-What the harness would need to report the stage metrics in every
-``--trace 1`` run is in PERF.md (Open questions).
+The first form runs the ``orb_kitti.stream`` cell as a ``--trace 1`` run
+does and prints one JSON line: per stage (the innermost span, each ORB
+level apart) the launches, host ms, device ms, idle ms and host syncs a
+traced frame; the cell's per-layer metrics over the same frames; checks
+of the spans' coverage; and the idle gaps. The second form runs the
+window untraced, the recording on in every other ``w``-s slice of it, and
+prints each slice's frames a second. Both need a CUDA card; nothing is
+written to disk.
 """
 
 from __future__ import annotations
 
 import argparse
-import bisect
 import json
 import os
 import sys
@@ -36,200 +29,9 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 from benchmark import harness  # noqa: E402
-from benchmark.trace import ENQUEUES, MARKER, Traced, _merged  # noqa: E402
-
-# runtime records that make the host wait for the device; "cudaMemcpy" is
-# the blocking copy (cudaMemcpyAsync is not one)
-SYNCS = {"cudaStreamSynchronize", "cudaDeviceSynchronize",
-         "cudaEventSynchronize", "cudaMemcpy"}
-OUTSIDE = "between calls"
-
-
-class SpanIndex:
-    """``harness.Spans.innermost`` by lookup, for rows that nest (the
-    spans of one thread do): rows sorted by start, each with the nearest
-    earlier row that encloses it; a time's innermost row is found by
-    bisection and a walk out through the enclosing rows. Its labels equal
-    the linear scan's: the shortest row that holds the time, the first in
-    row order among equals."""
-
-    def __init__(self, rows: List[tuple]):
-        order = sorted(range(len(rows)),
-                       key=lambda i: (rows[i][1], -rows[i][2], -i))
-        self.rows = [rows[i] for i in order]
-        self.starts = [r[1] for r in self.rows]
-        self.parent: List[int] = []
-        open_: List[int] = []
-        for k, (_, t0, _, _) in enumerate(self.rows):
-            while open_ and self.rows[open_[-1]][2] <= t0:
-                open_.pop()
-            self.parent.append(open_[-1] if open_ else -1)
-            open_.append(k)
-
-    def find(self, t_ns: int) -> int:
-        """The sorted position of the innermost row holding ``t_ns``, or
-        −1."""
-        k = bisect.bisect_right(self.starts, t_ns) - 1
-        while k >= 0 and not t_ns < self.rows[k][2]:
-            k = self.parent[k]
-        return k
-
-    def innermost(self, t_ns: int) -> str:
-        k = self.find(t_ns)
-        return OUTSIDE if k < 0 else self.rows[k][0]
-
-
-class StageTraced(Traced):
-    """A :class:`Traced` whose calls also run under
-    ``tracing.recording()``. Besides what Traced keeps (its frames and
-    records are the same), each read frame keeps the host-clock times of
-    its enqueue records (``enqueues``), its synchronising runtime records
-    (``syncs``: name, time) and the program's span rows (``rows``: name,
-    t0, t1, attr)."""
-
-    def __init__(self):
-        super().__init__()
-        self.enqueues: List[int] = []
-        self.syncs: List[tuple] = []
-        self.rows: List[tuple] = []
-
-    def call(self, fn):
-        import torch
-        from torch.profiler import ProfilerActivity, profile
-
-        from kornia_tpu_torch.utils import tracing
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            with tracing.recording() as rows:
-                t0 = time.perf_counter_ns()
-                out = fn()
-                torch.cuda.synchronize()
-                t1 = time.perf_counter_ns()
-            mark = time.perf_counter_ns()
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-        self.take(prof.profiler.kineto_results.events(), t0, t1, mark,
-                  rows)
-        return out
-
-    def take(self, events, t0: int, t1: int, mark: int, rows=()):
-        """Read one session's raw records as ``Traced.call`` does, and
-        keep the enqueue, synchronisation and span rows of the frame."""
-        from torch.autograd import DeviceType
-
-        runtime: Dict[int, tuple] = {}
-        device, syncs = [], []
-        for e in events:
-            if e.device_type() == DeviceType.CUDA:
-                device.append((e.name(), e.start_ns(),
-                               e.start_ns() + e.duration_ns(),
-                               e.correlation_id()))
-                continue
-            if e.name().startswith(ENQUEUES):
-                runtime[e.correlation_id()] = (e.name(), e.start_ns())
-            if e.name() in SYNCS:
-                syncs.append((e.name(), e.start_ns()))
-        marks = [runtime[c][1] for n, _, _, c in device
-                 if MARKER in n and c in runtime]
-        if marks:
-            self.offset = marks[-1] - mark
-        elif self.offset is None:
-            return
-        offset = self.offset
-        busy, r0 = 0, len(self.records)
-        for name, s, e, c in device:
-            if MARKER in name:
-                continue
-            launch = runtime.get(c, (None, None))[1]
-            self.records.append((name, s - offset, e - offset,
-                                 None if launch is None else launch - offset))
-        marker = {c for n, _, _, c in device if MARKER in n}
-        launches = sum(1 for c in runtime if c not in marker)
-        for s, e in _merged([(s - offset, e - offset) for n, s, e, _ in device
-                             if MARKER not in n]):
-            lo, hi = max(s, t0), min(e, t1)
-            busy += max(0, hi - lo)
-        self.enqueues.extend(sorted(t - offset for c, (_, t) in
-                                    runtime.items() if c not in marker))
-        self.syncs.extend((n, t - offset) for n, t in syncs
-                          if t0 <= t - offset <= t1)
-        self.rows.extend((r.name, r.t0_ns, r.t1_ns, r.attr) for r in rows)
-        self.frames.append({"t0": t0, "t1": t1, "wall_ns": t1 - t0,
-                            "busy_ns": busy, "launches": launches,
-                            "records": (r0, len(self.records))})
-
-
-# ------------------------------------------------------------------ readings
-def merged_spans(rec) -> List[tuple]:
-    """The harness's span rows and the program's, as (name, t0, t1, tag)."""
-    return list(rec["spans"].rows) + [
-        (n, t0, t1, attr) for n, t0, t1, attr in rec["traced"].rows]
-
-
-def _stage_traced(rec) -> Optional[StageTraced]:
-    tr = rec.get("traced")
-    if not isinstance(tr, StageTraced) or not tr.frames:
-        return None
-    return tr
-
-
-def _in_frames(tr, rows) -> List[tuple]:
-    """The rows that lie inside a read frame."""
-    starts = [f["t0"] for f in tr.frames]
-    out = []
-    for r in rows:
-        i = bisect.bisect_right(starts, r[1]) - 1
-        if i >= 0 and r[2] <= tr.frames[i]["t1"]:
-            out.append(r)
-    return out
-
-
-def span_ms(rec, name: str) -> Optional[float]:
-    """Host ms a read frame inside the spans named ``name``."""
-    tr = _stage_traced(rec)
-    if tr is None:
-        return None
-    rows = _in_frames(tr, [r for r in merged_spans(rec) if r[0] == name])
-    return sum(r[2] - r[1] for r in rows) / len(tr.frames) / 1e6
-
-
-def _count_inside(times, rows) -> int:
-    """How many of the sorted ``times`` lie inside one of ``rows``."""
-    return sum(bisect.bisect_left(times, t1) - bisect.bisect_left(times, t0)
-               for _, t0, t1, _ in rows)
-
-
-def launches_in(rec, name: str) -> Optional[float]:
-    """Launches and copies a read frame enqueued inside the spans named
-    ``name``."""
-    tr = _stage_traced(rec)
-    if tr is None:
-        return None
-    rows = [r for r in merged_spans(rec) if r[0] == name]
-    return _count_inside(tr.enqueues, rows) / len(tr.frames)
-
-
-def host_syncs(rec) -> Optional[float]:
-    """Synchronising runtime records a read frame inside any span (the
-    tracer's own synchronise at a frame's end lies outside them all)."""
-    tr = _stage_traced(rec)
-    if tr is None:
-        return None
-    index = SpanIndex(merged_spans(rec))
-    return sum(1 for _, t in tr.syncs
-               if index.find(t) >= 0) / len(tr.frames)
-
-
-STAGE_METRICS = {
-    "frontend.select_ms": lambda rec: span_ms(rec, "features.orb.select"),
-    "frontend.select_launches_per_frame":
-        lambda rec: launches_in(rec, "features.orb.select"),
-    "frontend.describe_ms": lambda rec: span_ms(rec,
-                                                "features.orb.describe"),
-    "frontend.match_ms": lambda rec: span_ms(rec, "features.matching"),
-    "frontend.host_syncs_per_frame": host_syncs,
-}
+from benchmark.harness import OUTSIDE, SpanIndex  # noqa: E402
+from benchmark.metrics._common import (  # noqa: E402
+    all_spans, in_frames, read_frames)
 
 
 def _label(name: str, attr) -> str:
@@ -256,11 +58,11 @@ def stage_table(rec) -> Optional[Dict[str, dict]]:
     host ms (the span's own time, its inner spans' taken out), device ms
     (records launched there), idle ms (device gaps ended by a record
     launched there) and host syncs."""
-    tr = _stage_traced(rec)
+    tr = read_frames(rec)
     if tr is None:
         return None
     rows = [(_label(r[0], r[3]), r[1], r[2], r[3])
-            for r in _in_frames(tr, merged_spans(rec))]
+            for r in in_frames(tr, all_spans(rec))]
     index = SpanIndex(rows)
     keys = ("launches", "host_ms", "device_ms", "idle_ms", "syncs")
     table: Dict[str, dict] = {}
@@ -301,10 +103,10 @@ def checks(rec) -> Optional[dict]:
     against the harness's ``orb`` span, the share of it its stages cover,
     the share of launches inside some span, and the stage that launched
     K1 and K3."""
-    tr = _stage_traced(rec)
+    tr = read_frames(rec)
     if tr is None:
         return None
-    rows = _in_frames(tr, merged_spans(rec))
+    rows = in_frames(tr, all_spans(rec))
     orb = [r for r in rows if r[0] == "features.orb"]
     outer = [r for r in rows if r[0] == "orb"]
     index = SpanIndex(rows)
@@ -389,16 +191,12 @@ def main(argv=None) -> int:
     cell = harness.Cell("orb_kitti.stream")
     alternating = _Alternating(args.alternate) if args.alternate else None
 
-    class StageContext(Context):
+    class AlternatingContext(Context):
         def traced(self):
-            if alternating is not None:
-                return alternating
-            traced = StageTraced()
-            traced.warm()
-            return traced
+            return alternating
 
-    ctx = StageContext(cell, args.seed, args.seconds,
-                       trace=alternating is None)
+    ctx = (Context if alternating is None else AlternatingContext)(
+        cell, args.seed, args.seconds, trace=alternating is None)
     driver = harness.load_module("drivers", cell.config["driver"])
     res = driver.run(ctx)
     t = time.perf_counter()
@@ -414,11 +212,9 @@ def main(argv=None) -> int:
         line["frames_read"] = len(tr.frames)
         line["metrics"] = {k: v["value"] for k, v in
                            per_layer(cell, rec).items()}
-        line["stage_metrics"] = {name: fn(rec)
-                                 for name, fn in STAGE_METRICS.items()}
         line["stages"] = stage_table(rec)
         line["checks"] = checks(rec)
-        line["idle_gaps"] = tr.idle_gaps(SpanIndex(merged_spans(rec)))
+        line["idle_gaps"] = tr.idle_gaps(rec["spans"])
     line["read_s"] = time.perf_counter() - t
     line["judge_s"] = res["judge_s"]
     print(json.dumps(line))

@@ -1,8 +1,9 @@
-"""The stage breakdown (benchmark/stages.py): the indexed innermost lookup
-against the harness's linear scan, the stage trace against trace.Traced
-on the same records, the readers on synthetic records, and on the card
-one traced frame of the front end."""
+"""The tracer with the program's span rows: the indexed innermost lookup
+against a linear scan, the tracer on fake profiler sessions, the
+per-layer readers and the stage breakdown (benchmark/stages.py) on
+synthetic records, and on the card one traced frame of the front end."""
 
+import copy
 import random
 import time
 import types
@@ -11,12 +12,31 @@ import pytest
 import torch
 from torch.autograd import DeviceType
 
+from conftest import Event
 from benchmark import harness, stages
+from benchmark.metrics import _common
 from benchmark.trace import Traced
+from kornia_tpu_torch.utils import tracing
 
 CARD = "NVIDIA H100 80GB HBM3"
 EXISTING = ("frontend.orb_ms", "frontend.launches_per_frame",
             "frontend.device_idle", "frontend.orb_roofline")
+STAGE = ("frontend.select_ms", "frontend.select_launches_per_frame",
+         "frontend.describe_ms", "frontend.match_ms",
+         "frontend.host_syncs_per_frame")
+
+
+def _read(name, rec):
+    return harness.load_module("metrics", name).read(rec)
+
+
+def _linear_innermost(rows, t_ns):
+    """The shortest row that holds ``t_ns``, the first among equals."""
+    best, width = harness.OUTSIDE, None
+    for name, t0, t1, _ in rows:
+        if t0 <= t_ns < t1 and (width is None or t1 - t0 < width):
+            best, width = name, t1 - t0
+    return best
 
 
 def _nested_rows(rng, t0, t1, depth, rows):
@@ -40,34 +60,11 @@ def test_indexed_innermost_equals_the_linear_scan(seed):
     rng = random.Random(seed)
     rows = _nested_rows(rng, 0, 5000, 4, [])
     rng.shuffle(rows)
-    linear = harness.Spans(True)
-    linear.rows = rows
-    index = stages.SpanIndex(rows)
+    index = harness.SpanIndex(rows)
     times = {t + d for _, a, b, _ in rows for t in (a, b) for d in (-1, 0, 1)}
     times |= {rng.randint(-10, 5010) for _ in range(500)}
     for t in sorted(times):
-        assert index.innermost(t) == linear.innermost(t), t
-
-
-class _Event:
-    def __init__(self, dev, name, start, dur, corr):
-        self.dev, self._name, self.start = dev, name, start
-        self.dur, self.corr = dur, corr
-
-    def device_type(self):
-        return self.dev
-
-    def name(self):
-        return self._name
-
-    def start_ns(self):
-        return self.start
-
-    def duration_ns(self):
-        return self.dur
-
-    def correlation_id(self):
-        return self.corr
+        assert index.innermost(t) == _linear_innermost(rows, t), t
 
 
 def _session(base):
@@ -76,22 +73,22 @@ def _session(base):
     three synchronisations and the clock marker."""
     cpu, gpu = DeviceType.CPU, DeviceType.CUDA
     return [
-        _Event(cpu, "cudaLaunchKernel", base + 100, 5, 1),
-        _Event(gpu, "void fast_harris_kernel<true, true, 9>", base + 150,
+        Event(cpu, "cudaLaunchKernel", base + 100, 5, 1),
+        Event(gpu, "void fast_harris_kernel<true, true, 9>", base + 150,
                40, 1),
-        _Event(cpu, "cudaMemcpyAsync", base + 200, 5, 2),
-        _Event(gpu, "Memcpy DtoH (Device -> Pageable)", base + 260, 10, 2),
-        _Event(cpu, "cudaStreamSynchronize", base + 210, 60, 3),
-        _Event(cpu, "cudaMemcpy", base + 300, 20, 4),
-        _Event(gpu, "Memcpy HtoD (Pageable -> Device)", base + 305, 10, 4),
-        _Event(gpu, "void brief_rotated_kernel<true, false>", base + 400,
+        Event(cpu, "cudaMemcpyAsync", base + 200, 5, 2),
+        Event(gpu, "Memcpy DtoH (Device -> Pageable)", base + 260, 10, 2),
+        Event(cpu, "cudaStreamSynchronize", base + 210, 60, 3),
+        Event(cpu, "cudaMemcpy", base + 300, 20, 4),
+        Event(gpu, "Memcpy HtoD (Pageable -> Device)", base + 305, 10, 4),
+        Event(gpu, "void brief_rotated_kernel<true, false>", base + 400,
                30, 5),
-        _Event(cpu, "cudaLaunchKernel", base + 350, 5, 6),
-        _Event(gpu, "elementwise_kernel", base + 420, 20, 6),
-        _Event(cpu, "cudaDeviceSynchronize", base + 500, 10, 7),
-        _Event(cpu, "cudaLaunchKernel", base + 600, 5, 8),
-        _Event(gpu, "spin_kernel", base + 610, 10, 8),
-        _Event(cpu, "cudaDeviceSynchronize", base + 620, 10, 9),
+        Event(cpu, "cudaLaunchKernel", base + 350, 5, 6),
+        Event(gpu, "elementwise_kernel", base + 420, 20, 6),
+        Event(cpu, "cudaDeviceSynchronize", base + 500, 10, 7),
+        Event(cpu, "cudaLaunchKernel", base + 600, 5, 8),
+        Event(gpu, "spin_kernel", base + 610, 10, 8),
+        Event(cpu, "cudaDeviceSynchronize", base + 620, 10, 9),
     ]
 
 
@@ -99,9 +96,10 @@ def _session(base):
 def fake_profiler(monkeypatch):
     """torch.profiler.profile replaced by sessions that hand back
     ``_session`` records, the card's calls by no-ops, and a host clock
-    whose three reads a session (start, end, marker) are 0, 700 and 750
-    ns after 10,000 + 1,000 a session (reset with ``restart``)."""
-    state = {"base": 0, "reads": 0}
+    whose reads in a session are ``reads`` ns (by default start, end and
+    marker: 0, 700 and 750) after 10,000 + 1,000 a session (reset with
+    ``restart(reads)``)."""
+    state = {"base": 0, "reads": 0, "seq": (0, 700, 750)}
 
     class Profile:
         def __init__(self, activities):
@@ -117,12 +115,12 @@ def fake_profiler(monkeypatch):
             return False
 
     def clock():
-        k, pos = divmod(state["reads"], 3)
+        k, pos = divmod(state["reads"], len(state["seq"]))
         state["reads"] += 1
-        return 10_000 + 1000 * k + (0, 700, 750)[pos]
+        return 10_000 + 1000 * k + state["seq"][pos]
 
-    def restart():
-        state.update(base=0, reads=0)
+    def restart(reads=(0, 700, 750)):
+        state.update(base=0, reads=0, seq=reads)
 
     monkeypatch.setattr(torch.profiler, "profile", Profile)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
@@ -131,46 +129,66 @@ def fake_profiler(monkeypatch):
     return restart
 
 
-def test_stage_trace_reads_what_traced_reads_and_the_syncs(fake_profiler):
-    plain, staged = Traced(), stages.StageTraced()
-    for tr in (plain, staged):
-        fake_profiler()
-        for _ in range(2):
-            assert tr.call(lambda: 5) == 5
-    assert staged.frames == plain.frames and staged.records == plain.records
-    assert [f["launches"] for f in staged.frames] == [4, 4]
-    assert len(staged.enqueues) == 8
+def test_the_tracer_keeps_records_syncs_and_every_program_row(
+        fake_profiler):
+    # each frame opens a program span with a count inside it: a row of
+    # zero width whose attr holds the number
+    fake_profiler((0, 100, 400, 400, 500, 700, 750))
+
+    def frame():
+        with tracing.span("features.orb"):
+            with tracing.span("slam.count", 17):
+                pass
+        return 5
+
+    tr = Traced()
+    assert [tr.call(frame) for _ in range(2)] == [5, 5]
+    assert [f["launches"] for f in tr.frames] == [4, 4]
+    assert len(tr.records) == 10 and tr.frames[1]["records"] == (5, 10)
     # the marker's launch (base + 600) is the host's 750: a record at
     # base + x lies at 150 + x, so the syncs at 210, 300 and 500 fall in
     # the frame (0 to 700) and the one after the marker does not
-    assert staged.syncs == [
-        (name, 10_000 + 1000 * k + t) for k in range(2)
+    at = [10_000 + 1000 * k for k in range(2)]
+    assert tr.enqueues == [b + t for b in at for t in (250, 350, 450, 500)]
+    assert tr.syncs == [
+        (name, b + t) for b in at
         for name, t in (("cudaStreamSynchronize", 360), ("cudaMemcpy", 450),
                         ("cudaDeviceSynchronize", 650))]
+    assert tr.rows == [row for b in at for row in (
+        ("features.orb", b + 100, b + 500, None),
+        ("slam.count", b + 400, b + 400, 17))]
+    rec = {"spans": harness.Spans(True), "traced": tr, "program": tr.rows}
+    assert [r[3] for r in _common.program(rec, "slam.count")] == [17, 17]
+    assert _common.launches_in(rec, "features.orb") == 3.0
+    assert _common.host_syncs(rec) == 2.0
+    index = harness.SpanIndex(tr.rows)
+    assert index.innermost(at[0] + 400) == "features.orb"
 
 
 def _record(traced, with_program_rows):
     """A run's record: harness spans around ORB, match and the read-back
-    of each traced frame, and (merged, as a driver with the recorder on
-    would) the program's spans inside them."""
+    of each traced frame, and (in the tracer, as a traced call records
+    them) the program's spans inside them."""
     spans = harness.Spans(True)
-    for f in traced.frames:
+    tr = copy.copy(traced)
+    tr.rows = []
+    for f in tr.frames:
         t0 = f["t0"]
         spans.rows += [("orb", t0 + 10, t0 + 400, (0, None)),
                        ("match", t0 + 400, t0 + 480, (0, None)),
                        ("readback", t0 + 480, t0 + 590, (0, None))]
         if with_program_rows:
-            spans.rows += [("features.orb", t0 + 20, t0 + 390, None),
-                           ("features.orb.upload", t0 + 25, t0 + 60, None),
-                           ("features.orb.fast_harris", t0 + 60, t0 + 120,
-                            None),
-                           ("features.orb.select", t0 + 120, t0 + 250, 0),
-                           ("features.orb.describe", t0 + 250, t0 + 385,
-                            None),
-                           ("features.matching", t0 + 405, t0 + 470, None)]
-    return {"spans": spans, "traced": traced, "card": CARD,
+            tr.rows += [("features.orb", t0 + 20, t0 + 390, None),
+                        ("features.orb.upload", t0 + 25, t0 + 60, None),
+                        ("features.orb.fast_harris", t0 + 60, t0 + 120,
+                         None),
+                        ("features.orb.select", t0 + 120, t0 + 250, 0),
+                        ("features.orb.describe", t0 + 250, t0 + 385,
+                         None),
+                        ("features.matching", t0 + 405, t0 + 470, None)]
+    return {"spans": spans, "traced": tr, "program": tr.rows, "card": CARD,
             "orb_work": [{"int32": 1e6, "f32": 1e6, "bytes": 1e6}] * len(
-                traced.frames)}
+                tr.frames)}
 
 
 def _frames_with_records():
@@ -194,41 +212,34 @@ def _frames_with_records():
 
 def test_existing_readers_do_not_move_when_program_rows_merge():
     tr = _frames_with_records()
-    read = {name: harness.load_module("metrics", name).read
-            for name in EXISTING}
-    alone = {n: r(_record(tr, False)) for n, r in read.items()}
-    merged = {n: r(_record(tr, True)) for n, r in read.items()}
+    alone = {n: _read(n, _record(tr, False)) for n in EXISTING}
+    merged = {n: _read(n, _record(tr, True)) for n in EXISTING}
     assert alone == merged and all(v is not None for v in alone.values())
     rec = _record(tr, True)
-    gaps = tr.idle_gaps(rec["spans"])
-    assert gaps == tr.idle_gaps(stages.SpanIndex(rec["spans"].rows))
-    assert {label for label, _ in gaps} >= {"features.orb.select",
-                                            "features.orb.describe"}
+    labels = {label for label, _ in rec["traced"].idle_gaps(rec["spans"])}
+    assert labels >= {"features.orb.select", "features.orb.describe"}
+    assert "orb" in {label for label, _ in tr.idle_gaps(rec["spans"])}
 
 
 def _stage_record():
-    """A StageTraced frame with program rows of its own: the record a
-    stage run leaves."""
-    tr = stages.StageTraced()
-    base = _frames_with_records()
-    tr.offset, tr.records, tr.frames = 0, base.records, base.frames
-    rec = _record(tr, False)
+    """Traced frames with the program's rows, enqueues and syncs: the
+    record a traced run leaves."""
+    tr = _frames_with_records()
     for f in tr.frames:
         t0 = f["t0"]
-        tr.rows += [r for r in _record(tr, True)["spans"].rows
-                    if r[0].startswith("features") and t0 <= r[1] < f["t1"]]
         tr.enqueues += [t0 + 5, t0 + 65, t0 + 130, t0 + 140, t0 + 260,
                         t0 + 410, t0 + 490]
         tr.syncs += [("cudaMemcpy", t0 + 40), ("cudaStreamSynchronize",
                                                t0 + 495),
                      ("cudaDeviceSynchronize", t0 + 595)]
-    tr.rows += [("features.orb", 90_000, 90_100, None)]   # outside frames
+    rec = _record(tr, True)
+    rec["program"].append(("features.orb", 90_000, 90_100, None))  # outside
     return rec
 
 
 def test_stage_readers_by_hand():
     rec = _stage_record()
-    got = {name: fn(rec) for name, fn in stages.STAGE_METRICS.items()}
+    got = {name: _read(name, rec) for name in STAGE}
     assert got == {"frontend.select_ms": 130 / 1e6,
                    "frontend.select_launches_per_frame": 2.0,
                    "frontend.describe_ms": 135 / 1e6,
@@ -251,14 +262,23 @@ def test_stage_readers_by_hand():
     assert chk["launches_inside_spans"] == pytest.approx(6 / 7)
 
 
-def test_stage_readers_find_nothing_without_a_stage_trace():
-    tr = _frames_with_records()
-    for rec in ({"spans": harness.Spans(False), "traced": None},
-                _record(tr, True),
-                {"spans": harness.Spans(True),
-                 "traced": stages.StageTraced()}):
-        assert all(fn(rec) is None for fn in stages.STAGE_METRICS.values())
+@pytest.mark.parametrize("case", ["untraced", "no frame read",
+                                  "no program rows"])
+def test_stage_readers_find_nothing_without_a_stage_trace(case):
+    if case == "untraced":
+        rec = {"spans": harness.Spans(False), "traced": None, "program": []}
+    elif case == "no frame read":
+        rec = {"spans": harness.Spans(True), "traced": Traced(),
+               "program": []}
+    else:
+        rec = _stage_record()
+        rec["program"] = []
+    got = {name: _read(name, rec) for name in STAGE}
+    if case == "no program rows":   # the harness's spans still hold syncs
+        assert got.pop("frontend.host_syncs_per_frame") == 2.0
+    else:
         assert stages.stage_table(rec) is None and stages.checks(rec) is None
+    assert all(v is None for v in got.values()), got
 
 
 @pytest.mark.cuda
@@ -282,12 +302,12 @@ def test_a_traced_frame_puts_its_launches_in_program_stages(cuda_dev):
         device=cuda_dev))
     count = spans.wrap("readback", lambda m: int(m.mask.sum()))
     prev = detect(frame)
-    tr = stages.StageTraced()
+    tr = Traced()
     tr.warm()
     for _ in range(3):
         tr.call(lambda: count(match(prev, detect(frame))))
     assert tr.frames
-    rec = {"spans": spans, "traced": tr}
+    rec = {"spans": spans, "traced": tr, "program": tr.rows}
     chk = stages.checks(rec)
     assert chk["kernel_stages"] == {"k1": ["features.orb.fast_harris"],
                                     "k3": ["features.orb.describe"]}

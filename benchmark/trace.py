@@ -1,4 +1,5 @@
-"""The device trace of a traced run, read from torch.profiler's raw records.
+"""The device trace of a traced run, read from torch.profiler's raw records,
+and the program's own span rows.
 
 Each traced call (a frame) runs in a profiler session of its own
 (``ProfilerActivity.CUDA``: CUPTI's runtime and device records, no ATen
@@ -6,7 +7,9 @@ op events), as chip_smoke.py's ``_frame_trace`` at commit adb6c1a does:
 one session over a whole window would hold millions of records, more than
 the tracer's buffers keep. The records are read raw
 (``prof.profiler.kineto_results.events()``): building a FunctionEvent for
-each takes seconds a frame.
+each takes seconds a frame. The call also runs under
+``kornia_tpu_torch.utils.tracing.recording()``, which keeps the spans the
+program records itself on the same host clock.
 
 A device record belongs to the host span in which its launch was
 enqueued: the runtime record that launched it shares its correlation id,
@@ -22,17 +25,32 @@ from __future__ import annotations
 import time
 from typing import Dict, List
 
+from benchmark.harness import OUTSIDE, SpanIndex
+
 ENQUEUES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
             "cuMemcpy", "cuMemset", "cudaGraphLaunch")
+# runtime records that make the host wait for the device; "cudaMemcpy" is
+# the blocking copy (cudaMemcpyAsync is not one)
+SYNCS = {"cudaStreamSynchronize", "cudaDeviceSynchronize",
+         "cudaEventSynchronize", "cudaMemcpy"}
 MARKER = "spin_kernel"
 
 
 class Traced:
-    """What the traced calls left: device records on the host clock."""
+    """What the traced calls left, on the host's perf_counter clock: for
+    each read frame its wall and busy time and launches (``frames``), the
+    device records (``records``), the times of its enqueue records
+    (``enqueues``) and of its synchronising runtime records (``syncs``:
+    name, time), and every row the program's spans recorded in it
+    (``rows``: name, t0_ns, t1_ns, attr, as the recording gave them; rows
+    of zero width too)."""
 
     def __init__(self):
         self.frames: List[dict] = []   # t0, t1, wall_ns, busy_ns, launches
         self.records: List[tuple] = []  # (name, start_ns, end_ns, launch_ns)
+        self.enqueues: List[int] = []
+        self.syncs: List[tuple] = []
+        self.rows: List[tuple] = []
         # the clock offset of the last session whose marker was recorded
         # (the tracer now and then loses it); frames before the first
         # such session are not read
@@ -49,36 +67,49 @@ class Traced:
             torch.cuda.synchronize()
 
     def call(self, fn):
-        """Run ``fn()`` (which ends in a synchronisation) under a session;
-        returns its result."""
+        """Run ``fn()`` (which ends in a synchronisation) under a session
+        and the program's recording; returns its result."""
         import torch
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
+
+        from kornia_tpu_torch.utils import tracing
 
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter_ns()
-            out = fn()
-            torch.cuda.synchronize()
-            t1 = time.perf_counter_ns()
+            with tracing.recording() as rows:
+                t0 = time.perf_counter_ns()
+                out = fn()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter_ns()
             mark = time.perf_counter_ns()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
+        self.take(prof.profiler.kineto_results.events(), t0, t1, mark, rows)
+        return out
+
+    def take(self, events, t0: int, t1: int, mark: int, rows):
+        """Read one session's raw records and keep the frame, unless no
+        marker has yet put the profiler's clock on the host's."""
+        from torch.autograd import DeviceType
+
         runtime: Dict[int, tuple] = {}
-        device = []
-        for e in prof.profiler.kineto_results.events():
+        device, syncs = [], []
+        for e in events:
             if e.device_type() == DeviceType.CUDA:
                 device.append((e.name(), e.start_ns(),
                                e.start_ns() + e.duration_ns(),
                                e.correlation_id()))
-            elif e.name().startswith(ENQUEUES):
+                continue
+            if e.name().startswith(ENQUEUES):
                 runtime[e.correlation_id()] = (e.name(), e.start_ns())
+            if e.name() in SYNCS:
+                syncs.append((e.name(), e.start_ns()))
         marks = [runtime[c][1] for n, _, _, c in device
                  if MARKER in n and c in runtime]
-        if marks:                           # profiler ns − perf_counter ns
+        if marks:                           # profiler ns - perf_counter ns
             self.offset = marks[-1] - mark
         elif self.offset is None:           # no clock yet: frame not read
-            return out
+            return
         offset = self.offset
         busy, r0 = 0, len(self.records)
         for name, s, e, c in device:
@@ -93,10 +124,14 @@ class Traced:
                              if MARKER not in n]):
             lo, hi = max(s, t0), min(e, t1)
             busy += max(0, hi - lo)
+        self.enqueues.extend(sorted(t - offset for c, (_, t) in
+                                    runtime.items() if c not in marker))
+        self.syncs.extend((n, t - offset) for n, t in syncs
+                          if t0 <= t - offset <= t1)
+        self.rows.extend((r.name, r.t0_ns, r.t1_ns, r.attr) for r in rows)
         self.frames.append({"t0": t0, "t1": t1, "wall_ns": t1 - t0,
                             "busy_ns": busy, "launches": launches,
                             "records": (r0, len(self.records))})
-        return out
 
     # ------------------------------------------------------------ readings
     @property
@@ -132,9 +167,11 @@ class Traced:
 
     def idle_gaps(self, spans, n: int = 10) -> List[list]:
         """The ``n`` longest device-idle gaps inside traced calls, each
-        named by the innermost host span that enqueued the work ending it
-        (the host was busy there while the device waited), or "frame end"
-        for the wait from the last record to the call's end."""
+        named by the innermost span, the harness's ``spans`` or the
+        program's rows, that enqueued the work ending it (the host was
+        busy there while the device waited), or "frame end" for the wait
+        from the last record to the call's end."""
+        index = SpanIndex(list(spans.rows) + self.rows)
         gaps = []
         for f in self.frames:
             r0, r1 = f["records"]
@@ -142,8 +179,8 @@ class Traced:
             for _, s, e, launch in sorted(self.records[r0:r1],
                                           key=lambda r: r[1]):
                 if s > cur:
-                    gaps.append((s - cur, "between calls" if launch is None
-                                 else spans.innermost(launch)))
+                    gaps.append((s - cur, OUTSIDE if launch is None
+                                 else index.innermost(launch)))
                 cur = max(cur, e)
             if f["t1"] > cur:
                 gaps.append((f["t1"] - cur, "frame end"))
