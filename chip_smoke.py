@@ -28,10 +28,12 @@ Phases (any failure raises, so the script exits non-zero):
    480×752 views of two textured, non-coplanar planes; ORB (OrbConfig())
    on both, Hamming matching, the two-view bootstrap (TwoViewParams()).
    Launch counts for the pair must be fast_harris 2 (one a frame),
-   windows_paired 4, brief_rotated 2, orb_select 6 (3 a frame); both
+   orb_select 6 (3 a frame), orb_describe 2 (K11, one a frame); both
    frames' ORB features must equal those of the route with one K1 launch
-   per level, and their descriptors
-   the index form's on the same windows and angles; rotation error ≤ 0.5°,
+   per level, each K11 call's angles and bits its plain version's (the
+   paired composition: K2 twice and K3 once a call), and its bits the
+   index form's on the plain version's windows and angles; rotation
+   error ≤ 0.5°,
    translation direction ≤ 5°, ≥ 100 inliers. The same pair is then run on
    the CPU and the shares of pyramid pixels, selected keypoints and
    descriptor bits that differ are printed (keypoints: ≤ 1%).
@@ -47,7 +49,13 @@ Phases (any failure raises, so the script exits non-zero):
    one launch per level (and the parent's kernel with --parent). K10 at
    KITTI's pyramid (a 376×1241 crop of the scene's texture, OrbConfig())
    against the per-level composition it replaced; its bound: K1's two f32
-   maps read once.
+   maps read once. K11 at KITTI's pyramid (2000 keypoints, 8 levels) and
+   at SlamConfig()'s ORB (1000 over 4 levels of a 480×752 view) against
+   its plain version, the composition it replaced; its bound: the f32
+   operations of the blur's vertical pass at the values the rotated taps
+   can reach and of the horizontal pass at the 512 taps (the design's
+   vertical pass over the whole window apart). Describe by the
+   composition and by K11, and the whole frame with either, in turns.
 5. rectify (the warping slice's path): a raw, distorted EuRoC-size stereo
    pair of the same scene (0.11 m baseline, < 1° relative rotation,
    K_EUROC and radtan distortion) → StereoRectifier.from_calib →
@@ -113,8 +121,8 @@ Phases (any failure raises, so the script exits non-zero):
    slam.track_step with SlamConfig() (ratio 0.8, distance ≤ 64, 3 px,
    256 × 6-point EPnP hypotheses, 2 LO refits, 10 LM steps), the draw
    from a CUDA generator seeded with SEED. The frame's ORB launches
-   fast_harris 1, windows_paired 2, brief_rotated 1, orb_select 3, each
-   K1-K3 and K10 call bit-equal to its plain version; the step runs
+   fast_harris 1, orb_select 3, orb_describe 1, each K1, K10 and K11
+   call bit-equal to its plain version; the step runs
    under torch.cuda.set_sync_debug_mode("error") (it must not
    wait for the
    device), must recover the pose within 0.1° and 0.02 units of centre
@@ -158,9 +166,9 @@ Phases (any failure raises, so the script exits non-zero):
    levels, ba_window 5, 10 local and 12 global BA iterations) with the
    loop thresholds of tests/test_slam.py's image loop test, a vocabulary
    (k 8, depth 3) built by the port from the ORB of every 6th frame.
-   Counted from 0 after the vocabulary: fast_harris 1, windows_paired 2,
-   brief_rotated 1, orb_select 3 a frame and no other kernel; the K1-K3
-   and K10 calls of the
+   Counted from 0 after the vocabulary: fast_harris 1, orb_select 3,
+   orb_describe 1 a frame and no other kernel; the K1, K10 and K11 calls
+   of the
    first and last frames bit-equal to their plain versions. Gates on the
    ground truth (slam_gates): tracking at the end, >= 70% of frames
    tracked, >= 5 keyframes, a loop closed to a keyframe < 8, keyframe
@@ -195,8 +203,8 @@ Phases (any failure raises, so the script exits non-zero):
    route's; K1 timed per form beside its plain version and its bound (the
    integer operations of the kernel's arc loop: 99 a pixel for n = 9, 131
    for n = 10-16). ORB (OrbConfig()) on the two-plane 480×752 pair, match,
-   estimate_relative_pose(solver="5pt"): fast_harris 2, windows_paired 4,
-   brief_rotated 2, orb_select 6 and no other kernel; rotation < 0.5°,
+   estimate_relative_pose(solver="5pt"): fast_harris 2, orb_select 6,
+   orb_describe 2 and no other kernel; rotation < 0.5°,
    direction < 3°
    from the truth (the reference test's gates); call ms and launches of
    the 5-point two-view. ICP on a seed-made 16,384-point scan and the same
@@ -274,8 +282,8 @@ Phases (any failure raises, so the script exits non-zero):
    parallel.mesh.spawn: (a) 1 rank over NCCL, (b) 4 ranks that share the
    card over gloo (NCCL refuses two ranks of one communicator on one
    card). Each: the sharded front end on the first 4 slam frames
-   (OrbConfig(); K1/K2/K3/K10 1/2/1/3 a frame on every rank, each K1-K3
-   and K10 call recorded and held to its plain version, the features
+   (OrbConfig(); K1/K10/K11 1/3/1 a frame on every rank, each K1, K10
+   and K11 call recorded and held to its plain version, the features
    bit-equal to
    the single process's); the exchange of the Dense configuration's
    keyframe layout
@@ -290,7 +298,7 @@ Phases (any failure raises, so the script exits non-zero):
    gates; on 4 ranks MonocularSlam(mesh=) over the 40 slam frames, rank 0
    leading each PGO and global BA through parallel.controller.lead and
    the other ranks in parallel.follow, under the slam gates and the slam
-   phase's loop count, the K1-K3 and K10 calls of its first and last
+   phase's loop count, the K1, K10 and K11 calls of its first and last
    frames bit-equal to their plain versions. Every rank's poses
    bit-equal. Printed: call ms and
    (one solve of each shape traced on rank 0) device ms and launches a LM
@@ -308,7 +316,7 @@ Phases (any failure raises, so the script exits non-zero):
    frame by frame). Inputs: the io phase's 1080p JPEG (for dog.jpeg),
    AVI and TUM directory; the two-view pair as PNGs; a small COLMAP text
    model. Runs and gates: fast_detector (fast_score 11; the corners equal
-   the CPU route's), orb_detector (1/2/1/3 K1/K2/K3/K10 an ORB frame, 12;
+   the CPU route's), orb_detector (1/3/1 K1/K10/K11 an ORB frame, 12;
    median reprojection error < 1.5 px), two_view 8pt and 5pt (22 ORB
    frames each;
    > 60 inliers), pnp_demo (< 1°), undistort_image (remap 11),
@@ -419,10 +427,24 @@ KERNELS = {
     "orb_select": ("kornia_tpu_torch/ops/csrc/orb_select.cu",
                    "none: kornia_tpu_torch/features/fast.py::select_cells, "
                    "the per-level composition, on every level"),
+    "orb_describe": ("kornia_tpu_torch/ops/csrc/orb_describe.cu",
+                     "none: kornia_tpu_torch/features/orb.py's paired "
+                     "describe composition (blurs, canvases, K2, centroid "
+                     "angle, cos/sin, K3), on every level"),
 }
 # K10's launches an ORB frame with Harris ranking (OrbConfig's default):
 # cell ranges, cell top-k, level sort
 ORB_SELECT = 3
+# the 7 x 7 blur of ORB's describe stage
+BLUR_KSIZE = (ck.ORB_BLUR_KSIZE, ck.ORB_BLUR_KSIZE)
+
+
+def orb_launches(frames: int, fast_harris: int | None = None) -> dict:
+    """The hand-kernel launches of ``frames`` paired ORB frames at
+    OrbConfig()'s ranking: K1 once (``fast_harris`` where a frame takes
+    more), K10 ORB_SELECT times and K11 once a frame."""
+    return {"fast_harris": frames if fast_harris is None else fast_harris,
+            "orb_select": ORB_SELECT * frames, "orb_describe": frames}
 # KITTI's frame (376 x 1241), where K10's row is timed
 HW_KITTI = (376, 1241)
 HW_1080P = (1080, 1920)
@@ -901,20 +923,18 @@ def brief_index_form(windows, angle, seed=7, pattern="rublee2011",
     return (s[:, :256] < s[:, 256:]).to(torch.uint8), s
 
 
-class IndexFormBrief:
-    """While the block runs, ORB describes through :func:`brief_index_form`
-    (the path before ``brief_rotated``), for a before/after stage time in
-    one run."""
+class ComposedDescribe:
+    """While the block runs, ORB's paired describe takes K11's plain
+    version (the composition: blurs, canvases, K2, orientation, K3), the
+    route before ``orb_describe``, for a before/after stage time in one
+    run."""
 
     def __enter__(self):
-        self.saved = (orb.brief_from_windows_paired, orb.brief_from_windows)
-        orb.brief_from_windows_paired = \
-            lambda *a, **kw: brief_index_form(*a, **kw)[0]
-        orb.brief_from_windows = \
-            lambda *a, **kw: brief_index_form(*a, **kw)[0]
+        self.saved = ck.orb_describe
+        ck.orb_describe = ck._orb_describe_plain
 
     def __exit__(self, *exc):
-        orb.brief_from_windows_paired, orb.brief_from_windows = self.saved
+        ck.orb_describe = self.saved
 
 
 def check_brief_calls(calls, label):
@@ -1011,6 +1031,120 @@ def orb_select_row(n_launches, cfg, thr, card_line) -> dict:
     return {"name": "orb_select", "route": "cuda", "source": src,
             "replaces": rep, "launches": n_launches, "max_abs_err": 0.0,
             "bound_ms": bms, "bound_by": by, **times}
+
+
+def check_describe_calls(rec, cfg, label):
+    """Every recorded ``orb_describe`` call (K11) against its plain version
+    on the same inputs (the paired composition, K2 and K3 on the card):
+    angles and bits bit-equal; the bits also equal the index form's
+    (``brief_index_form``) on the plain version's blurred windows and
+    angles. Returns (descriptor bits compared, the plain versions' hand
+    kernel launches)."""
+    n, plain = 0, {}
+    for (args, kwargs), (ang, bits) in zip(rec.calls, rec.outs):
+        (want_ang, want_bits), counts = counted(
+            lambda: ck._orb_describe_plain(*args, **kwargs))
+        for k, v in counts.items():
+            plain[k] = plain.get(k, 0) + v
+        levels, xys = args[0], args[1]
+        blurs = [gaussian_blur(lv.to(torch.float32), BLUR_KSIZE,
+                               ck.ORB_BLUR_SIGMA) for lv in levels]
+        windows = ck.extract_windows_packed_paired(
+            blurs, [torch.round(xy).to(torch.int32) for xy in xys])
+        old_bits, _ = brief_index_form(windows, want_ang, cfg.pattern_seed,
+                                       cfg.pattern)
+        if not (torch.equal(ang, want_ang) and torch.equal(bits, want_bits)
+                and torch.equal(bits, old_bits)):
+            raise AssertionError(f"orb_describe ({label}, {len(levels)} "
+                                 f"levels, {tuple(bits.shape)}) differs from "
+                                 "its plain version or the index form")
+        n += bits.numel()
+    return n, {k: v for k, v in plain.items() if v}
+
+
+def describe_reach(pattern: torch.Tensor) -> int:
+    """The vertical-pass values that K11's taps can read a keypoint: the
+    (row, column) places of the 512 rotated taps of ``pattern`` in the
+    (40, 64) half window over 16,384 angles (rounded half to even and
+    clamped as the kernel does), each widened by the blur's 3 columns a
+    side: of the design's 40 x 70, 1,347 for the rublee2011 pattern and
+    1,355 for the seeded one (the rotated taps lie in rows 2-38 and
+    columns 14-50)."""
+    pat = pattern.cpu().numpy().astype(np.float32)
+    px = np.concatenate([pat[:, 0], pat[:, 2]])
+    py = np.concatenate([pat[:, 1], pat[:, 3]])
+    th = np.linspace(-np.pi, np.pi, 16384, dtype=np.float32)
+    c, s = np.cos(th)[:, None], np.sin(th)[:, None]
+    dx = np.rint(px * c - py * s).astype(np.int64)
+    dy = np.rint(px * s + py * c).astype(np.int64)
+    rows = np.clip(ck.PAIR_CY + dy, 0, ck.PAIR_WIN_H - 1)
+    cols = np.clip(32 + dx, 0, 63) + 3        # 0-69 once widened
+    taps = np.unique(rows * 128 + cols)
+    return int(np.unique(taps[:, None] + np.arange(-3, 4)[None, :]).size)
+
+
+def orb_describe_row(n_launches, cfg, card_line) -> dict:
+    """K11's kernels-line row at KITTI's pyramid (a 376 x 1241 crop of the
+    scene's texture, ``cfg``'s 2000 keypoints over 8 levels), with a case
+    at SlamConfig()'s ORB (1000 over 4 levels of the 480 x 752 view): the
+    kernel against its plain version (the paired composition it replaced),
+    both bit-equal, device and call ms; the bound: the f32 operations that
+    the function needs, the vertical pass at the values its taps can reach
+    (:func:`describe_reach`) and the horizontal pass at its 512 taps, 13
+    ops a value, or the levels read once and 257 bytes a keypoint written,
+    whichever is longer. What the design computes, the vertical pass over
+    all 40 x 70 window columns, is reported apart (``design_*``)."""
+    rng = np.random.default_rng(SEED + 40)
+    frame = np.ascontiguousarray(np.clip(
+        _texture(rng)[:HW_KITTI[0], :HW_KITTI[1]], 0, 255).astype(np.uint8))
+    view = np.ascontiguousarray(np.clip(_texture(rng)[:H, :W], 0, 255)
+                                .astype(np.uint8))
+    cases = []
+    for label, img, c in (("KITTI", frame, cfg),
+                          ("SLAM", view, orb.OrbConfig(n_features=1000,
+                                                       n_levels=4))):
+        levels = orb._pyramid(torch.as_tensor(img, device=DEV), c)
+        sels = ck.orb_select(levels, ck.fast_harris_levels(
+            levels, c.fast_threshold_low), orb._level_budgets(c),
+            *select_args(c))
+        args = (levels, [xy for xy, _, _ in sels],
+                orb._pattern_on(c.pattern, c.pattern_seed, DEV))
+        got = ck.orb_describe(*args)
+        want = ck._orb_describe_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"orb_describe ({label}) differs from its "
+                                 "plain version")
+        if label == "KITTI":
+            HOST_CASES["orb_describe"] = lambda mod, a=args: \
+                mod.orb_describe(*a)
+        times = kernel_times(lambda a=args: ck.orb_describe(*a),
+                             lambda a=args: ck._orb_describe_plain(*a))
+        k = c.n_features
+        px = sum(lv.numel() for lv in levels)
+        reach = describe_reach(args[2])
+        f32_ops = k * (reach + 512) * 13
+        design_ops = k * (ck.PAIR_WIN_H * 70 + 512) * 13
+        nbytes = px + k * (8 + 4 + 256) + 256 * 16
+        bms, by = bound(nbytes, 0, f32_ops)
+        design_ms = bound(nbytes, 0, design_ops)[0]
+        log(f"time orb_describe (K11, {label} {tuple(levels[0].shape)}, "
+            f"{len(levels)} levels, {k} keypoints): "
+            f"{fmt_times(times, 'composition')}, bound {bms:.5f} ms ({by}: "
+            f"{f32_ops} f32 ops, the vertical pass at the {reach} values "
+            f"the taps reach, {nbytes} B); the design's vertical pass over "
+            f"all 40 x 70: {design_ops} f32 ops, {design_ms:.5f} ms "
+            f"[{card_line}]")
+        cases.append({"case": f"{label}, {len(levels)} levels, {k} "
+                              "keypoints", "max_abs_err": 0.0,
+                      "bound_ms": bms, "bound_by": by,
+                      "design_f32_ops": design_ops,
+                      "design_bound_ms": design_ms, **times})
+    src, rep = KERNELS["orb_describe"]
+    return {"name": "orb_describe", "route": "cuda", "source": src,
+            "replaces": rep, "launches": n_launches, "max_abs_err": 0.0,
+            **{k: v for k, v in cases[0].items() if k != "case"},
+            "cases": cases}
 
 
 def counted(fn):
@@ -1177,8 +1311,7 @@ def phase_rectify(card_line):
     path()                                          # warm-up
     (g1, g2, f1, f2, m), launches = counted(path)
     log(f"rectify path launches: {launches}")
-    only(launches, {"remap": 2, "fast_harris": 2, "windows_paired": 4,
-                    "brief_rotated": 2, "orb_select": 2 * ORB_SELECT})
+    only(launches, {"remap": 2, **orb_launches(2)})
     x1, x2, mk = matching.matched_points(f1.xy, f2.xy, m)
     dy = (x1[:, 1] - x2[:, 1]).abs()[mk].double()
     disp = (x1[:, 0] - x2[:, 0])[mk].double()
@@ -1834,7 +1967,11 @@ def phase_orb_variants(card_line, img1, parent=None):
     staged_ms = bound(a[0].numel() * 4 + rest)[0]
     k3u.update({"case": "brief_rotated, unpaired, 2000 x (48, 128) windows",
                 "max_abs_err": 0.0, "bound_ms": bms, "bound_by": by,
-                "staged_ms": staged_ms})
+                "staged_ms": staged_ms,
+                # K3's launches on the forms that still run it
+                "paths": {"orb unpaired": n_unp["brief_rotated"],
+                          "orb n_features=2001": n_odd["brief_rotated"],
+                          "orb quadtree": n_quad["brief_rotated"]}})
     chain_dev = device_ms(lambda: brief_index_form(a[0], ang_u))
     chain_call = cuda_ms(lambda: brief_index_form(a[0], ang_u))
     log(f"K3 brief_rotated on {tuple(a[0].shape)} windows (unpaired): "
@@ -1994,8 +2131,7 @@ def phase_orb_levels17(card_line, img1):
     with Record("_fast_harris_chunk") as rec:
         feats, launches = counted(run)
     log(f"orb 17 levels launches: {launches}")
-    only(launches, {"fast_harris": 2, "windows_paired": 2,
-                    "brief_rotated": 1, "orb_select": ORB_SELECT})
+    only(launches, orb_launches(1, fast_harris=2))
     chunks = [len(a[0]) for a, _ in rec.calls]
     if chunks != [16, 1]:
         raise AssertionError(f"17 levels went to K1 in chunks {chunks}")
@@ -2027,8 +2163,7 @@ def phase_orb_levels17(card_line, img1):
 
 
 # the wrappers of ORB's frame that Record holds to their plain versions
-TRACK_RECORDS = ("fast_harris_levels", "windows_paired", "brief_rotated",
-                 "orb_select")
+TRACK_RECORDS = ("fast_harris_levels", "orb_describe", "orb_select")
 
 
 def recorded_at_ends(recs, n):
@@ -2044,14 +2179,13 @@ def recorded_at_ends(recs, n):
     return per_frame
 
 
-def check_track_kernels(k1, k2, k3, k10, label="track"):
-    """The tracked frame's K1, K2, K3 and K10 calls, recorded on the main
+def check_track_kernels(k1, k11, k10, label="track"):
+    """The tracked frame's K1, K11 and K10 calls, recorded on the main
     path (``Record`` of each of TRACK_RECORDS), held to their plain
     versions on the same inputs: every output must be bit-equal. Returns
     each kernel's max |error|."""
-    errs = {"fast_harris": 0.0, "windows_paired": 0.0, "brief_rotated": 0.0,
-            "orb_select": 0.0}
-    pairs = {"fast_harris": [], "windows_paired": [], "brief_rotated": []}
+    errs = {"fast_harris": 0.0, "orb_describe": 0.0, "orb_select": 0.0}
+    pairs = {"fast_harris": [], "orb_describe": []}
     if not k10.calls:
         raise AssertionError(f"{label}: no orb_select call was recorded")
     k10_shapes = []
@@ -2065,12 +2199,9 @@ def check_track_kernels(k1, k2, k3, k10, label="track"):
         for lv, got in zip(levels, maps):
             pairs["fast_harris"] += list(zip(
                 got, ck._fast_harris_plain(lv, thr)))
-    for (args, kwargs), got in zip(k2.calls, k2.outs):
-        pairs["windows_paired"].append(
-            (got, ck._windows_paired_plain(*args, **kwargs)))
-    for (args, kwargs), got in zip(k3.calls, k3.outs):
-        pairs["brief_rotated"].append(
-            (got, ck._brief_rotated_plain(*args, **kwargs)))
+    for (args, kwargs), got in zip(k11.calls, k11.outs):
+        pairs["orb_describe"] += list(zip(
+            got, ck._orb_describe_plain(*args, **kwargs)))
     shapes = {}
     for name, found in pairs.items():
         if not found:
@@ -2087,7 +2218,7 @@ def check_track_kernels(k1, k2, k3, k10, label="track"):
     shapes["orb_select"] = [
         s if k10_shapes.count(s) == 1 else f"{s} x{k10_shapes.count(s)}"
         for s in dict.fromkeys(k10_shapes)]
-    log(f"{label}: the frame's K1/K2/K3/K10 outputs at the path's own shapes "
+    log(f"{label}: the frame's K1/K10/K11 outputs at the path's own shapes "
         f"bit-equal to their plain versions on the same inputs: {shapes}")
     return errs
 
@@ -2098,7 +2229,7 @@ def phase_track(card_line):
     n_levels=4), each valid keypoint lifted to its exact 3-D point, packed
     descriptors, a bucket of 2048 rows), the third view at a known pose
     (ORB, 1000 rows padded to 1024), then ``track_step`` with
-    SlamConfig(). Returns the frame's K1–K3 and K10 launches."""
+    SlamConfig(). Returns the frame's K1, K10 and K11 launches."""
     t_phase = time.perf_counter()
     scfg = slam.SlamConfig()
     ocfg = orb.OrbConfig(n_features=scfg.n_features, n_levels=scfg.n_levels)
@@ -2146,7 +2277,7 @@ def phase_track(card_line):
     recs = [Record(name) for name in TRACK_RECORDS]
 
     def path():
-        with recs[0], recs[1], recs[2], recs[3]:
+        with recs[0], recs[1], recs[2]:
             fin = frame_inputs()
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -2158,8 +2289,7 @@ def phase_track(card_line):
     (fin, res), launches = counted(path)
     log(f"track: launches for the frame's ORB and the step {launches}; "
         f"the step ran under torch.cuda.set_sync_debug_mode('error')")
-    only(launches, {"fast_harris": 1, "windows_paired": 2,
-                    "brief_rotated": 1, "orb_select": ORB_SELECT})
+    only(launches, orb_launches(1))
     errs = check_track_kernels(*recs)
     r = res.pose.rotation.double().cpu().numpy()
     t = res.pose.translation.double().cpu().numpy()
@@ -2218,8 +2348,7 @@ def phase_track(card_line):
            "rot_err_deg": rerr, "centre_err": cerr,
            "cpu_route": {"rot_rad": d_rot, "t": d_t, "n_inliers": d_n},
            "orb_launches": {name: launches[name] for name in (
-               "fast_harris", "windows_paired", "brief_rotated",
-               "orb_select")},
+               "fast_harris", "orb_select", "orb_describe")},
            "kernel_errs": errs,
            "checks_s": time.perf_counter() - t_phase}
     # a profiler trace of the step holds ~35,000 records a call (reading
@@ -2968,8 +3097,9 @@ def phase_slam(card_line):
     over SLAM_FRAMES 480×752 frames of an out-and-back path (K_EUROC,
     SlamConfig() widths, the image loop test's loop thresholds, a
     vocabulary built by the port from the sequence). Counted from 0 after
-    the vocabulary: K1 1, K2 2, K3 1, K10 3 a frame and no other kernel;
-    the K1-K3 calls of the first and last frames held to their plain versions;
+    the vocabulary: K1 1, K10 3, K11 1 a frame and no other kernel;
+    the K1, K10 and K11 calls of the first and last frames held to their
+    plain versions;
     ground-truth gates (slam_gates). Then the same loop again, each frame
     under the profiler and sync debug mode "warn", for launches,
     synchronisations and device busy time per frame kind."""
@@ -2986,8 +3116,7 @@ def phase_slam(card_line):
         lambda: run_slam(frames, vocab, "cuda", per_frame, stages))
     n = len(frames)
     log(f"slam: launches over {n} frames {launches}")
-    only(launches, {"fast_harris": n, "windows_paired": 2 * n,
-                    "brief_rotated": n, "orb_select": ORB_SELECT * n})
+    only(launches, orb_launches(n))
     errs = check_track_kernels(*recs, label="slam")
     summ = slam_summary(system, ms, centres, "cuda")
     kinds = frame_kinds(system.results)
@@ -3194,18 +3323,17 @@ def parallel_rank(mesh, inputs):
     out = {"rank": mesh.rank, "backend": torch.distributed.get_backend(),
            "device": str(mesh.device), "stage_s": {}}
     t0 = time.perf_counter()
-    # the sharded front end: B frames, B / D a rank, K1-K3 and K10 held to
-    # their plain versions on the calls the path made
+    # the sharded front end: B frames, B / D a rank, K1, K10 and K11 held
+    # to their plain versions on the calls the path made
     frames, cfg = inputs["frames"], orb.OrbConfig()
     per = len(frames) // mesh.size
     orb.orb_detect_and_describe(frames[0], cfg, device=mesh.device)
     recs = [Record(name) for name in TRACK_RECORDS]
-    with recs[0], recs[1], recs[2], recs[3]:
+    with recs[0], recs[1], recs[2]:
         (feats, coll), launches = counted(lambda: _collectives(
             mesh, lambda: frontend_dist.detect_and_describe_batch(
                 frames, cfg, mesh)))
-    only(launches, {"fast_harris": per, "windows_paired": 2 * per,
-                    "brief_rotated": per, "orb_select": ORB_SELECT * per})
+    only(launches, orb_launches(per))
     out["front"] = {"launches": launches, "collectives": coll,
                     "features": [_np(f) for f in feats],
                     "kernel_errs": check_track_kernels(
@@ -3415,7 +3543,7 @@ def phase_parallel(card_line, slam_summ, demo_single):
     SLAM frames, then ``slam_demo --mesh 4``'s rank function (the
     example's synthetic run; ``demo_single`` is the examples phase's
     single-process run). Gates: front-end features bit-equal to the single
-    process's, K1/K2/K3/K10 1/2/1/3 a frame on every rank, K1-K3
+    process's, K1/K10/K11 1/3/1 a frame on every rank, K1, K10 and K11
     bit-equal to their plain versions; received rows equal to the plan's;
     BA within
     PAR_BA_TOL of the single-process solve; PGO after 2 iterations within
@@ -3565,7 +3693,7 @@ def phase_parallel(card_line, slam_summ, demo_single):
             sl = ranks[0]["slam"]
             summ = sl["summary"]
             jobs = [r["slam"]["jobs"] for r in ranks[1:]]
-            only(sl["launches"], _orb_launches(summ["frames"]))
+            only(sl["launches"], orb_launches(summ["frames"]))
             kern["slam"] = {k: v for k, v in sl["launches"].items() if v}
             for k, v in sl["kernel_errs"].items():
                 kern["errs"][k] = max(kern["errs"].get(k, 0.0), v)
@@ -3606,11 +3734,11 @@ def phase_host(card_line, parent=None):
     Returns {name: {"new": [..], "parent": [..]}}."""
     out = {}
     for name, call in HOST_CASES.items():
-        # the parent's K5 has no broadcast mode, and it has no K10
+        # the parent's K5 has no broadcast mode, and it has no K11
         mods = ([("parent", parent), ("new", ck), ("new", ck),
                  ("parent", parent)]
                 if parent is not None
-                and name not in ("lane_gather broadcast", "orb_select")
+                and name not in ("lane_gather broadcast", "orb_describe")
                 else [("new", ck), ("new", ck)])
         t = {}
         for which, mod in mods:
@@ -4284,8 +4412,7 @@ def _five_point_pair(card_line):
 
     pair()                                               # warm-up
     (x1, x2, mk, res), launches = counted(pair)
-    only(launches, {"fast_harris": 2, "windows_paired": 4,
-                    "brief_rotated": 2, "orb_select": 2 * ORB_SELECT})
+    only(launches, orb_launches(2))
     r_est = res.rotation.double().cpu().numpy()
     t_est = res.translation.double().cpu().numpy()
     if not (np.isfinite(r_est).all() and np.isfinite(t_est).all()):
@@ -5569,14 +5696,8 @@ EXAMPLE_TIMEOUT = 300.0       # s: the CLI subprocess
 EXAMPLE_MESH_POSE_TOL = 5e-3
 # the hand kernels an example's path may launch, by the C entry counted,
 # and the wrappers that Record holds to their plain versions
-_EXAMPLE_RECORDS = ("fast_score", "fast_harris_levels", "windows_paired",
-                    "brief_rotated", "orb_select", "fused_preprocess",
-                    "remap")
-
-
-def _orb_launches(frames: int) -> dict:
-    return {"fast_harris": frames, "windows_paired": 2 * frames,
-            "brief_rotated": frames, "orb_select": ORB_SELECT * frames}
+_EXAMPLE_RECORDS = ("fast_score", "fast_harris_levels", "orb_describe",
+                    "orb_select", "fused_preprocess", "remap")
 
 
 def colmap_model(root):
@@ -5611,18 +5732,16 @@ def _example_inputs(tmp, img1, img2):
 
 def _example_kernel_errs(recs, label):
     """Each recorded hand-kernel call of an example's path against its
-    plain version on the same inputs: K1 (both entries), K2, K3, K7 and
-    K10 bit-equal, K6 bit-equal to its own arithmetic and within
+    plain version on the same inputs: K1 (both entries), K7, K10 and
+    K11 bit-equal, K6 bit-equal to its own arithmetic and within
     PLAIN_TOL["preprocess"] of the dense plain version. Returns the
     largest |error| by kernel row name."""
     errs = {}
     orb_recs = [recs[n] for n in TRACK_RECORDS]
     if any(r.calls for r in orb_recs):
         e = check_track_kernels(*orb_recs, label=label)
-        errs.update({"fast_harris": e["fast_harris"],
-                     "windows_paired": e["windows_paired"],
-                     "brief_sample": e["brief_rotated"],
-                     "orb_select": e["orb_select"]})
+        errs.update({k: e[k] for k in ("fast_harris", "orb_select",
+                                       "orb_describe")})
     for (args, kwargs), got in zip(recs["fast_score"].calls,
                                    recs["fast_score"].outs):
         if not torch.equal(got, ck._fast_score_plain(*args, **kwargs)):
@@ -5744,14 +5863,14 @@ def phase_examples(card_line, tmp, jpeg, avi, img1, img2):
              f"{len(xy_cpu)}")
 
         res, out = ex("orb_detector", ["--image", jpeg],
-                      lambda r: _orb_launches(r["orb_frames"]))
+                      lambda r: orb_launches(r["orb_frames"]))
         gate(res["median_err"] < 1.5, f"orb_detector: median reprojection "
              f"error {res['median_err']} px")
 
         for solver in ("8pt", "5pt"):
             res, out = ex("two_view", ["--frame-a", paths["a"], "--frame-b",
                                        paths["b"], "--solver", solver],
-                          lambda r: _orb_launches(r["orb_frames"]))
+                          lambda r: orb_launches(r["orb_frames"]))
             gate(res["inliers"] > 60, f"two_view {solver}: {res['inliers']} "
                  "inliers")
 
@@ -5782,7 +5901,7 @@ def phase_examples(card_line, tmp, jpeg, avi, img1, img2):
              "icp_registration: PGO")
 
         res, out = ex("bag_of_words", ["--image", jpeg],
-                      lambda r: _orb_launches(r["orb_frames"]))
+                      lambda r: orb_launches(r["orb_frames"]))
         gate(all(f"query place {i}: best {i}" in out for i in range(4)),
              "bag_of_words: a place does not retrieve itself")
 
@@ -5808,7 +5927,7 @@ def phase_examples(card_line, tmp, jpeg, avi, img1, img2):
         res, out = ex("orb_tracking_live", ["--frames",
                                             str(EXAMPLE_TRACK_FRAMES),
                                             "--viz", html],
-                      lambda r: _orb_launches(r["orb_frames"]))
+                      lambda r: orb_launches(r["orb_frames"]))
         flow = res["flow"][:, :2]
         gate("tracked matches" in out and "fps" in out
              and os.path.exists(html)
@@ -5834,17 +5953,13 @@ def phase_examples(card_line, tmp, jpeg, avi, img1, img2):
 
         fn, example = forward_step(DEV)
         with Record("fast_harris_levels") as k1, \
-                Record("windows_paired") as k2, \
-                Record("brief_rotated") as k3, Record("orb_select") as k10:
+                Record("orb_describe") as k11, Record("orb_select") as k10:
             fwd, counts = counted(lambda: fn(*example))
-        only(counts, _orb_launches(2))
-        e = check_track_kernels(k1, k2, k3, k10,
+        only(counts, orb_launches(2))
+        e = check_track_kernels(k1, k11, k10,
                                 label="examples: forward_step")
-        for k, key in (("fast_harris", "fast_harris"),
-                       ("windows_paired", "windows_paired"),
-                       ("brief_sample", "brief_rotated"),
-                       ("orb_select", "orb_select")):
-            errs[k] = max(errs.get(k, 0.0), e[key])
+        for k in ("fast_harris", "orb_select", "orb_describe"):
+            errs[k] = max(errs.get(k, 0.0), e[k])
         launches["examples: frontend_step.forward_step"] = {
             k: v for k, v in counts.items() if v}
         gate([tuple(t.shape) for t in fwd] == [(512, 2), (512, 2), (512,),
@@ -5866,7 +5981,7 @@ def phase_examples(card_line, tmp, jpeg, avi, img1, img2):
             f"loops to keyframes {single['loops']}")
         res, out = ex("slam_demo", ["--tum", os.path.join(tmp, "tum"),
                                     "--max-frames", str(EXAMPLE_TUM_FRAMES)],
-                      lambda r: _orb_launches(r["frames"]))
+                      lambda r: orb_launches(r["frames"]))
         gate("keyframes: " in out and res["frames"] == EXAMPLE_TUM_FRAMES,
              "slam_demo --tum: did not run to the end")
         log(f"examples: slam_demo --tum: {res['keyframes']} keyframes, ATE "
@@ -6001,7 +6116,7 @@ def main():
     log(f"K2 windows_paired: bit-equal, {xy_c.shape[0]} keypoints "
         f"({straddle} pairs straddle two levels), out {tuple(w_k.shape)}")
 
-    ang = orb.orientation_from_windows_paired(w_k)
+    ang = ck.orientation_from_windows_paired(w_k)
     rows, cols = orb._brief_tap_coords(ang, cfg.pattern_seed, cfg.pattern,
                                        half_w=32)
     k = ang.shape[0]
@@ -6047,19 +6162,19 @@ def main():
     torch.cuda.synchronize()
     ck.reset_launch_counts()
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    with Record("brief_from_windows_paired", orb) as rec_pair:
+    with Record("orb_describe") as rec_pair:
         f1, f2, m, res = run_pair(img1, img2, "cuda", gen)
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
     log(f"launches for the pair: {launches}")
-    only(launches, {"fast_harris": 2, "windows_paired": 4,
-                    "brief_rotated": 2, "orb_select": 2 * ORB_SELECT})
-    n_bits = check_brief_calls(rec_pair.calls, "pair")
+    only(launches, orb_launches(2))
+    n_bits, plain_launches = check_describe_calls(rec_pair, cfg, "pair")
     if len(rec_pair.calls) != 2 or n_bits != 2 * cfg.n_features * 256:
         raise AssertionError("recorded describe calls of the pair")
-    log(f"pair descriptors: both frames' {n_bits} bits through "
-        f"brief_rotated equal the index form's (brief_sample on "
-        f"_brief_tap_coords) on the same windows and angles")
+    log(f"pair descriptors: both frames' angles and {n_bits} bits through "
+        f"orb_describe (K11) equal its plain version's (launches "
+        f"{plain_launches}) and the index form's (brief_sample on "
+        f"_brief_tap_coords) on the plain version's windows and angles")
     for f in (f1, f2):
         for name, t in f._asdict().items():
             if t.dtype.is_floating_point and not torch.isfinite(t).all():
@@ -6205,19 +6320,27 @@ def main():
                  + bits_k.numel())
 
     rows_out = []
-    # K3's row is its brief_rotated entry, which the path runs
-    for name, n_launch, times, (bms, by) in (
-            ("fast_harris", launches["fast_harris"], t_k1,
+    # K3's row is its brief_rotated entry. ``launches`` is the pair's own
+    # count: K11 describes its frames, so K2 and K3 launch 0 times there.
+    # K2 runs only in K11's plain version, whose launches in the pair's
+    # check are kept apart (``plain_version_launches``); K3 also runs on
+    # the unpaired and quadtree forms (its ``launches_by_path``, below).
+    for name, n_launch, n_plain, times, (bms, by) in (
+            ("fast_harris", launches["fast_harris"], None, t_k1,
              bound(k1_bytes, k1_int, k1_f32)),
-            ("windows_paired", launches["windows_paired"], t_k2,
+            ("windows_paired", launches["windows_paired"],
+             plain_launches.get("windows_paired", 0), t_k2,
              bound(k2_bytes)),
-            ("brief_sample", launches["brief_rotated"], t_k3,
+            ("brief_sample", launches["brief_rotated"],
+             plain_launches.get("brief_rotated", 0), t_k3,
              bound(k3_bytes))):
         src, rep = KERNELS[name]
         rows_out.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": n_launch, "max_abs_err": errs[name],
             "bound_ms": bms, "bound_by": by, **times})
+        if n_plain is not None:
+            rows_out[-1]["plain_version_launches"] = n_plain
         log(f"time {name}: {fmt_times(times)}, bound {bms:.5f} ms ({by}) "
             f"[{card_line}]")
     k1 = rows_out[0]
@@ -6273,6 +6396,13 @@ def main():
 
     rows_out.append(orb_select_row(launches["orb_select"], cfg, thr,
                                    card_line))
+    rows_out.append(orb_describe_row(launches["orb_describe"], cfg,
+                                     card_line))
+    # the hand kernels of ORB's paired frame; K2 and K3 run in K11's plain
+    # version, K3 also in the other forms
+    frame_rows = [row for row in rows_out
+                  if row["name"] in ("fast_harris", "orb_select",
+                                     "orb_describe")]
 
     def stage(name, fn, reps=REPS):
         ms = cuda_ms(fn, reps=reps)
@@ -6293,33 +6423,45 @@ def main():
               + ("one K1 launch per level" if per_level
                  else "one K1 launch"), lambda: select(per_level))
     stage("blur, 8 levels (1 frame)",
-          lambda: [gaussian_blur(g, (7, 7), 2.0) for g in grays_f])
-    blurs = [gaussian_blur(g, (7, 7), 2.0) for g in grays_f]
+          lambda: [gaussian_blur(g, BLUR_KSIZE, ck.ORB_BLUR_SIGMA)
+                   for g in grays_f])
+    blurs = [gaussian_blur(g, BLUR_KSIZE, ck.ORB_BLUR_SIGMA)
+             for g in grays_f]
+    xys = [s[0] for s in sels]
+    pat = orb._pattern_on(cfg.pattern, cfg.pattern_seed, DEV)
 
-    def describe():
-        a = orb.orientation_from_windows_paired(
-            orb._extract_windows_packed_paired(grays_f, xy_ints))
-        return orb.brief_from_windows_paired(
-            orb._extract_windows_packed_paired(blurs, xy_ints), a,
-            cfg.pattern_seed, cfg.pattern)
+    def describe(index_form=False):
+        """The paired composition on the ready f32 levels and blurs; BRIEF
+        by K3, or by the index form that K3 replaced."""
+        a = ck.orientation_from_windows_paired(
+            ck.extract_windows_packed_paired(grays_f, xy_ints))
+        w = ck.extract_windows_packed_paired(blurs, xy_ints)
+        if index_form:
+            return brief_index_form(w, a, cfg.pattern_seed, cfg.pattern)[0]
+        return ck.brief_from_windows_paired(w, a, pat)
 
     def one_frame():
         return orb.orb_detect_and_describe(img1, cfg, device="cuda")
 
-    # before / after in turns, so that both see the same machine
-    with IndexFormBrief():
-        stage("describe (1 frame), BRIEF by the index form", describe, 100)
-    stage("describe (1 frame)", describe, 100)
-    stage("describe (1 frame)", describe, 100)
-    with IndexFormBrief():
-        stage("describe (1 frame), BRIEF by the index form", describe, 100)
-        stage("orb_detect_and_describe (1 frame), BRIEF by the index form",
-              one_frame)
+    def fused():
+        return ck.orb_describe(levels, xys, pat)
+
+    # before / after in turns, so that both see the same machine: the
+    # composition with BRIEF by the index form, then by K3; K11
+    stage("describe (1 frame), composition, BRIEF by the index form",
+          lambda: describe(index_form=True), 100)
+    stage("describe (1 frame), composition", describe, 100)
+    stage("describe (1 frame), K11", fused, 100)
+    stage("describe (1 frame), K11", fused, 100)
+    stage("describe (1 frame), composition", describe, 100)
+    with ComposedDescribe():
+        stage("orb_detect_and_describe (1 frame), describe by the "
+              "composition", one_frame)
     stage("orb_detect_and_describe (1 frame)", one_frame)
     stage("orb_detect_and_describe (1 frame)", one_frame)
-    with IndexFormBrief():
-        stage("orb_detect_and_describe (1 frame), BRIEF by the index form",
-              one_frame)
+    with ComposedDescribe():
+        stage("orb_detect_and_describe (1 frame), describe by the "
+              "composition", one_frame)
     stage("match_descriptors", lambda: matching.match_descriptors(
         f1.descriptors, f2.descriptors, a_mask=f1.mask, b_mask=f2.mask,
         max_distance=64, ratio=0.8, device="cuda"))
@@ -6356,6 +6498,10 @@ def main():
     k3["cases"].append({k: k3u[k] for k in ("case", "max_abs_err", "bound_ms",
                                             "bound_by", "staged_ms")
                         + TIME_KEYS})
+    k3["launches_by_path"] = {"pair": k3["launches"], **k3u["paths"]}
+    k3["launches"] = sum(k3["launches_by_path"].values())
+    k3["launches_by_entry"]["brief_rotated"] = (
+        k3["launches"] - k3["launches_by_entry"]["brief_sample"])
     lk_cases, lk_paths, lk_remaps = phase_lk(card_line, img1, feats)
     k4["cases"] += lk_cases
     k4["paths"].update(lk_paths)
@@ -6382,9 +6528,9 @@ def main():
 
     # 13. the tracking step (the seventh slice)
     track_launches, track_errs = phase_track(card_line)
-    # K1, K2, K3 and K10: the kernels of ORB's frame
-    for row in rows_out[:4]:
-        key = {"brief_sample": "brief_rotated"}.get(row["name"], row["name"])
+    # K1, K10 and K11: the kernels of ORB's frame
+    for row in frame_rows:
+        key = row["name"]
         row["launches_by_path"] = {"pair": row["launches"],
                                    "track frame": track_launches[key]}
         row["max_abs_err"] = max(row["max_abs_err"], track_errs[key])
@@ -6394,8 +6540,8 @@ def main():
     slam_launches, slam_errs, slam_summ = phase_slam(card_line)
     # 21. the fourteenth slice: the distributed layer
     par = phase_parallel(card_line, slam_summ, demo_single)
-    for row in rows_out[:4]:
-        key = {"brief_sample": "brief_rotated"}.get(row["name"], row["name"])
+    for row in frame_rows:
+        key = row["name"]
         row["launches_by_path"]["slam loop"] = slam_launches[key]
         row["launches_by_path"]["frontend_dist (per rank)"] = \
             par["front"][key]
@@ -6409,12 +6555,11 @@ def main():
         k1_fast_detect
     k1["launches_by_path"]["fast_detect arc lengths 9-12"] = k1_arc_launches
     k1["cases"] = k1_cases + k1_arc_cases
-    # the examples' paths: K1 (both entries), K2, K3, K6, K7
+    # the examples' paths: K1 (both entries), K6, K7, K10, K11
     k6["paths"] = {"preprocess phase": k6["launches"]}
     for label, counts in ex_launches.items():
-        for row in rows_out[:4]:
-            key = {"brief_sample": "brief_rotated"}.get(row["name"],
-                                                        row["name"])
+        for row in frame_rows:
+            key = row["name"]
             if counts.get(key):
                 row["launches_by_path"][label] = counts[key]
         if counts.get("fast_score"):
@@ -6423,7 +6568,7 @@ def main():
         for row, key in ((k6, "preprocess"), (k7, "remap")):
             if counts.get(key):
                 row["paths"][label] = counts[key]
-    for row in rows_out[:4]:
+    for row in frame_rows:
         row["max_abs_err"] = max(row["max_abs_err"],
                                  ex_errs.get(row["name"], 0.0))
     for row, key in ((k6, "preprocess"), (k7, "remap")):
@@ -6453,11 +6598,13 @@ def main():
         row["host_us_turns"] = host[{
             "brief_sample": "brief_rotated"}.get(row["name"], row["name"])]
     for row in rows_out:
-        if row["launches"] < 1 or \
-                row["max_abs_err"] > PLAIN_TOL.get(row["name"], 0.0):
+        # every kernel ran: on a path, or (K2) in K11's plain version
+        ran = row["launches"] + row.get("plain_version_launches", 0)
+        if ran < 1 or row["max_abs_err"] > PLAIN_TOL.get(row["name"], 0.0):
             raise AssertionError(f"kernel {row['name']}: launches "
-                                 f"{row['launches']}, max_abs_err "
-                                 f"{row['max_abs_err']}")
+                                 f"{row['launches']} (plain version "
+                                 f"{row.get('plain_version_launches', 0)}), "
+                                 f"max_abs_err {row['max_abs_err']}")
 
     log(f"device times: {TRACE_STATS['traces']} profiler traces, "
         f"{TRACE_STATS['again']} of them taken again; the tracer lost "

@@ -10,12 +10,16 @@ forms, chosen by the ``describe=`` argument of
 :func:`orb_detect_and_describe` (the reference picks them by environment
 variable and backend):
 
-* ``"paired"`` (the default for an even budget sum): all levels in one
-  edge-replicated canvas, keypoints 2i and 2i+1 share one (40, 128) window
-  (``cuda_kernels.windows_paired``), intensity-centroid orientation on
-  those windows, then ``cuda_kernels.brief_rotated``: one kernel that
-  rotates the pattern by each keypoint's (cos, sin), samples the window's
-  1024 taps and compares, windows in, descriptor bits out;
+* ``"paired"`` (the default for an even budget sum): every level's
+  keypoints in one ``cuda_kernels.orb_describe`` call, on the card one
+  kernel (the levels' blur, intensity-centroid orientation and rotated
+  BRIEF, u8 levels in, angles and descriptor bits out). Its plain version
+  (the CPU route, in ``cuda_kernels`` beside it) is the composition: all
+  levels in one edge-replicated canvas, keypoints 2i and 2i+1 share one
+  (40, 128) window (``cuda_kernels.windows_paired``), orientation on
+  those windows, then ``cuda_kernels.brief_rotated``, which rotates the
+  pattern by each keypoint's (cos, sin), samples the window's 1024 taps
+  and compares;
 * ``"unpaired"`` (odd budget sums): one (48, 128) window per keypoint from
   the same kind of canvas (``cuda_kernels.windows``); BRIEF either by
   ``brief="sample"`` (``cuda_kernels.brief_rotated`` on the 48-row layout,
@@ -51,11 +55,11 @@ from kornia_tpu_torch.utils import tracing
 
 _PATCH = 31
 _HALF = _PATCH // 2  # 15
-_PAIR_CX = (32, 96)   # per-half centres in the paired window layout
 _WIN_H = 48           # unpaired keypoint window: covers the 31×31
 _WIN_W = 128          # orientation patch and all rotated BRIEF taps
 _WIN_CY = 24
 _WIN_CX = 64
+_BLUR_KSIZE = (ck.ORB_BLUR_KSIZE, ck.ORB_BLUR_KSIZE)
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,13 +96,6 @@ def _pattern_on(pattern: str, seed: int, device) -> torch.Tensor:
     name), uploaded once per (pattern, seed, device)."""
     return torch.from_numpy(_resolve_pattern(pattern, seed)).to(
         device).contiguous()
-
-
-@functools.lru_cache(maxsize=None)
-def _circular_mask() -> np.ndarray:
-    """(31, 31) mask of the intensity-centroid circle of radius 15."""
-    yy, xx = np.mgrid[-_HALF: _HALF + 1, -_HALF: _HALF + 1]
-    return (xx * xx + yy * yy <= _HALF * _HALF).astype(np.float32)
 
 
 class OrbFeatures(NamedTuple):
@@ -182,26 +179,14 @@ def _extract_windows_packed(frames: List[torch.Tensor],
     """(K, 48, 128) windows over all levels from ONE stacked canvas: each
     keypoint's y is offset by its level's first canvas row."""
     canvas, starts = ck.prepare_window_canvas(frames, _WIN_H, _WIN_CY)
-    xy = torch.cat([
-        x + torch.tensor([0, s], dtype=torch.int32, device=x.device)[None]
-        for x, s in zip(xys, starts)]).contiguous()
     wimg = max(int(f.shape[1]) for f in frames)
-    return ck.windows(canvas, xy, _WIN_H, prepared=(starts[-1], wimg))
-
-
-def _centroid_angle(patches: torch.Tensor) -> torch.Tensor:
-    """Intensity-centroid orientation of (K, 31, 31) patches, radians."""
-    dev = patches.device
-    mask = torch.from_numpy(_circular_mask()).to(dev)
-    offs = torch.arange(-_HALF, _HALF + 1, dtype=torch.float32, device=dev)
-    m10 = torch.sum(patches * mask * offs[None, None, :], dim=(1, 2))
-    m01 = torch.sum(patches * mask * offs[None, :, None], dim=(1, 2))
-    return torch.atan2(m01, m10)
+    return ck.windows(canvas, ck.canvas_xy(xys, starts), _WIN_H,
+                      prepared=(starts[-1], wimg))
 
 
 def orientation_from_windows(windows: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid orientation from (K, 48, 128) windows."""
-    return _centroid_angle(
+    return ck.centroid_angle(
         windows[:, _WIN_CY - _HALF: _WIN_CY + _HALF + 1,
                 _WIN_CX - _HALF: _WIN_CX + _HALF + 1])
 
@@ -210,28 +195,7 @@ def orientation_ic(gray_f: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid orientation at (K, 2) keypoints by a patch
     gather."""
     xy_int = torch.round(xy).to(torch.int32)
-    return _centroid_angle(_gather_patches(gray_f, xy_int, _HALF))
-
-
-def _extract_windows_packed_paired(frames: List[torch.Tensor],
-                                   xys: List[torch.Tensor]) -> torch.Tensor:
-    """(K/2, 40, 128) paired windows over all levels from ONE stacked
-    canvas: each keypoint's y is offset by its level's first canvas row."""
-    canvas, starts = ck.prepare_window_canvas(frames)
-    xy = torch.cat([
-        x + torch.tensor([0, s], dtype=torch.int32, device=x.device)[None]
-        for x, s in zip(xys, starts)]).contiguous()
-    wimg = max(int(f.shape[1]) for f in frames)
-    return ck.windows_paired(canvas, xy, wimg)
-
-
-def orientation_from_windows_paired(windows: torch.Tensor) -> torch.Tensor:
-    """Intensity-centroid orientation from paired (K/2, 40, 128) windows →
-    (K,) radians in keypoint order."""
-    angs = [_centroid_angle(
-        windows[:, ck.PAIR_CY - _HALF: ck.PAIR_CY + _HALF + 1,
-                cx - _HALF: cx + _HALF + 1]) for cx in _PAIR_CX]
-    return torch.stack(angs, dim=1).reshape(-1)
+    return ck.centroid_angle(_gather_patches(gray_f, xy_int, _HALF))
 
 
 def _brief_tap_coords(angle: torch.Tensor, seed: int, pattern: str,
@@ -259,18 +223,6 @@ def _brief_tap_coords(angle: torch.Tensor, seed: int, pattern: str,
         cols = torch.clamp(half_w + dx, 0, 2 * half_w - 1)
         rows = torch.clamp(ck.PAIR_CY + dy, 0, ck.PAIR_WIN_H - 1)
     return rows, cols
-
-
-def brief_from_windows_paired(windows: torch.Tensor, angle: torch.Tensor,
-                              seed: int = 7,
-                              pattern: str = "rublee2011") -> torch.Tensor:
-    """Rotated BRIEF-256 (K, 256) u8 bits from paired (K/2, 40, 128)
-    blurred windows and (K,) angles: each window's 1024 taps (keypoint
-    2i's 512 about lane 32, 2i+1's about lane 96) rotated, sampled and
-    compared in one ``cuda_kernels.brief_rotated`` pass."""
-    return ck.brief_rotated(
-        windows.contiguous(), torch.cos(angle), torch.sin(angle),
-        _pattern_on(pattern, seed, angle.device), "paired")
 
 
 def brief_from_windows(windows: torch.Tensor, angle: torch.Tensor,
@@ -368,16 +320,15 @@ def _describe(levels: List[torch.Tensor], sels, cfg: OrbConfig,
               describe: str, brief: str):
     """Orientation and descriptor bits of the selected keypoints of every
     level in the resolved ``describe`` form: ((N,) angles, (N, 256) u8)."""
-    grays_f = [img.to(torch.float32) for img in levels]
-    blurs = [gaussian_blur(g, (7, 7), 2.0) for g in grays_f]
-    xy_ints = [torch.round(xy).to(torch.int32) for xy, _, _ in sels]
     if describe == "paired":
-        ang = orientation_from_windows_paired(
-            _extract_windows_packed_paired(grays_f, xy_ints))
-        desc = brief_from_windows_paired(
-            _extract_windows_packed_paired(blurs, xy_ints), ang,
-            cfg.pattern_seed, cfg.pattern)
-    elif describe == "unpaired":
+        return ck.orb_describe(
+            levels, [xy for xy, _, _ in sels],
+            _pattern_on(cfg.pattern, cfg.pattern_seed, levels[0].device))
+    grays_f = [img.to(torch.float32) for img in levels]
+    blurs = [gaussian_blur(g, _BLUR_KSIZE, ck.ORB_BLUR_SIGMA)
+             for g in grays_f]
+    xy_ints = [torch.round(xy).to(torch.int32) for xy, _, _ in sels]
+    if describe == "unpaired":
         ang = orientation_from_windows(
             _extract_windows_packed(grays_f, xy_ints))
         desc = brief_from_windows(
@@ -406,7 +357,9 @@ def orb_detect_and_describe(gray_u8, cfg: OrbConfig = OrbConfig(),
     Its stages are spans (``utils.tracing``): ``features.orb`` around the
     call, inside it ``.upload``, ``.pyramid``, ``.fast_harris``,
     ``.select`` (every level in one ``cuda_kernels.orb_select`` call,
-    attribute ``"all"``), ``.describe`` and ``.assemble``."""
+    attribute ``"all"``), ``.describe`` (attribute ``"fused"`` where the
+    paired form runs on the card, K11, else ``"composed"``) and
+    ``.assemble``."""
     with tracing.span("features.orb"):
         dev = resolve_device(device)
         with tracing.span("features.orb.upload"):
@@ -420,7 +373,9 @@ def orb_detect_and_describe(gray_u8, cfg: OrbConfig = OrbConfig(),
         with tracing.span("features.orb.select", "all"):
             sels = ck.orb_select(levels, maps, budgets, cfg.cell_size,
                                  cfg.fast_threshold_high, cfg.harris_rescore)
-        with tracing.span("features.orb.describe"):
+        route = ("fused" if describe == "paired"
+                 and ck.orb_describe_fused(levels) else "composed")
+        with tracing.span("features.orb.describe", route):
             ang, desc = _describe(levels, sels, cfg, describe, brief)
         with tracing.span("features.orb.assemble"):
             xy = torch.cat([s[0] * cfg.scale_factor ** i
@@ -470,7 +425,7 @@ def orb_detect_and_describe_quadtree(gray_u8, cfg: OrbConfig = OrbConfig(),
         gray_f = img.to(torch.float32)
         xy = torch.from_numpy(xy_np[idx]).to(dev)
         xy_int = torch.round(xy).to(torch.int32)
-        blurred = gaussian_blur(gray_f, (7, 7), 2.0)
+        blurred = gaussian_blur(gray_f, _BLUR_KSIZE, ck.ORB_BLUR_SIGMA)
         ang = orientation_from_windows(_extract_windows(gray_f, xy_int))
         desc = brief_from_windows(_extract_windows(blurred, xy_int), ang,
                                   cfg.pattern_seed, cfg.pattern, brief)

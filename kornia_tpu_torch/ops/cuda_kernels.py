@@ -3,9 +3,10 @@ build and the launch counters.
 
 Each TPU kernel on a ported path (kornia_tpu/ops/pallas_kernels.py,
 warp_pallas.py, warp_shear.py) has one CUDA C++ source under ``csrc/`` for
-sm_90a and one wrapper here; ``orb_select`` (K10) replaces no TPU kernel:
-the JAX package selects ORB's keypoints in dense XLA ops, which eager
-PyTorch on the card runs as some hundred launches a frame:
+sm_90a and one wrapper here; ``orb_select`` (K10) and ``orb_describe``
+(K11) replace no TPU kernel: the JAX package selects and describes ORB's
+keypoints in dense XLA ops around its kernels, which eager PyTorch on the
+card runs as some hundred launches a frame:
 
 ==============  ==========================================  =================
 wrapper         replaces                                    source
@@ -41,6 +42,10 @@ orb_select      none: features/fast.py::select_cells on     orb_select.cu
                 every level of a frame (two-tier gate,
                 Harris quantisation, cell top-k, stable
                 top-k), 3 launches for all levels
+orb_describe    none: features/orb.py's paired describe     orb_describe.cu
+                (casts, blurs, canvases, K2, centroid
+                angle, cos/sin, K3) on every level, one
+                launch for all levels
 ==============  ==========================================  =================
 
 Dispatch is by the tensor's device only: a CPU tensor runs the plain
@@ -72,7 +77,8 @@ import torch
 
 from kornia_tpu_torch.features import fast as _fast
 from kornia_tpu_torch.features.responses import harris_response
-from kornia_tpu_torch.ops.filters import gaussian_kernel1d
+from kornia_tpu_torch.ops.filters import (const_on, gaussian_blur,
+                                          gaussian_kernel1d)
 from kornia_tpu_torch.ops.resize import _resize_matrix
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -80,7 +86,7 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 SOURCES = ("fast_harris", "windows_paired", "brief_sample", "windows",
            "lane_gather", "preprocess", "remap", "lane_shift", "shear_x",
-           "orb_select")
+           "orb_select", "orb_describe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -167,6 +173,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> Dict[str, object]:
         "shear_x": [p, p, p, i, i, i, p],
         "shear_y": [p, p, p, i, i, i, p],
         "orb_select": [i, p, p, p, p, p, p, i, f, i, p, p, p, p, p],
+        "orb_describe": [i, p, p, p, p, p, p, p, p, p, p],
     }
     fns = {}
     for entry in (name,) + _EXTRA_ENTRIES.get(name, ()):
@@ -496,6 +503,194 @@ def orb_select(levels: Sequence[torch.Tensor],
     _launched("orb_select", rc, 3 if rescore else 2)
     return list(zip(xy.split(budgets), vals.split(budgets),
                     valid.split(budgets)))
+
+
+# --------------------------------------------------------------------------
+# K11: ORB's paired describe stage, all levels of a frame
+# --------------------------------------------------------------------------
+
+# the 7 x 7 Gaussian blur of ORB's describe stage, every form
+ORB_BLUR_KSIZE, ORB_BLUR_SIGMA = 7, 2.0
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_taps():
+    """The blur's seven f32 taps as the kernel's ctypes argument."""
+    taps = gaussian_kernel1d(ORB_BLUR_KSIZE, ORB_BLUR_SIGMA)
+    return (ctypes.c_float * ORB_BLUR_KSIZE)(*[float(v) for v in taps])
+
+
+def _orb_describe_shape(levels, xys, pattern):
+    """Checks shared by the kernel and plain routes of
+    :func:`orb_describe`; returns (shapes, budgets)."""
+    if not levels or len(levels) != len(xys):
+        raise ValueError("orb_describe: one keypoint tensor a level")
+    for i, (img, xy) in enumerate(zip(levels, xys)):
+        if img.ndim != 2:
+            raise ValueError(f"orb_describe level {i}: expected (H, W), got "
+                             f"{tuple(img.shape)}")
+        if xy.ndim != 2 or xy.shape[1] != 2:
+            raise ValueError(f"orb_describe level {i}: xy must be (B, 2), "
+                             f"got {tuple(xy.shape)}")
+    budgets = tuple(int(xy.shape[0]) for xy in xys)
+    if sum(budgets) % 2:
+        raise ValueError("orb_describe: the paired form needs an even "
+                         "keypoint count")
+    if tuple(pattern.shape) != (256, 4):
+        raise ValueError("orb_describe: pattern must be (256, 4)")
+    return tuple(tuple(img.shape) for img in levels), budgets
+
+
+@functools.lru_cache(maxsize=64)
+def _describe_table(shapes: Tuple[Tuple[int, int], ...],
+                    budgets: Tuple[int, ...]):
+    """The kernel's (hs, ws, budgets) ctypes arrays, made once per pyramid
+    shape; raises where K11 cannot take the frame: no level or more than
+    ORB_SELECT_MAX_LEVELS (K10's limit), or an empty level."""
+    n = len(shapes)
+    if not 1 <= n <= ORB_SELECT_MAX_LEVELS or len(budgets) != n:
+        raise ValueError(f"orb_describe takes 1 to {ORB_SELECT_MAX_LEVELS} "
+                         f"levels, got {n}")
+    if any(h < 1 or w < 1 for h, w in shapes):
+        raise ValueError(f"orb_describe cannot take an empty level: "
+                         f"{list(shapes)}")
+    return tuple((ctypes.c_int * n)(*v) for v in (
+        [h for h, _ in shapes], [w for _, w in shapes], budgets))
+
+
+# the intensity-centroid patch (31 x 31, radius 15), and the lanes that
+# the two halves of a paired (40, 128) window are centred on
+ORB_HALF = 15
+PAIR_CX = (32, 96)
+
+
+@functools.lru_cache(maxsize=None)
+def circular_mask() -> np.ndarray:
+    """(31, 31) mask of the intensity-centroid circle of radius 15."""
+    yy, xx = np.mgrid[-ORB_HALF: ORB_HALF + 1, -ORB_HALF: ORB_HALF + 1]
+    return (xx * xx + yy * yy <= ORB_HALF * ORB_HALF).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def circular_mask_on(device) -> torch.Tensor:
+    """:func:`circular_mask` on ``device``, uploaded once per device."""
+    return torch.from_numpy(circular_mask()).to(device)
+
+
+def centroid_angle(patches: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid orientation of (K, 31, 31) patches, radians."""
+    dev = patches.device
+    mask = circular_mask_on(dev)
+    offs = torch.arange(-ORB_HALF, ORB_HALF + 1, dtype=torch.float32,
+                        device=dev)
+    m10 = torch.sum(patches * mask * offs[None, None, :], dim=(1, 2))
+    m01 = torch.sum(patches * mask * offs[None, :, None], dim=(1, 2))
+    return torch.atan2(m01, m10)
+
+
+def canvas_xy(xys: Sequence[torch.Tensor], starts: Sequence[int]
+              ) -> torch.Tensor:
+    """(K, 2) int32 canvas keypoints of every level: each level's (x, y)
+    with y offset by its first canvas row (:func:`prepare_window_canvas`'s
+    ``starts``), the offsets one constant on the keypoints' device (no
+    upload once it is made)."""
+    offs = const_on(tuple((0, s) for s in starts[:-1]), xys[0].device,
+                    torch.int32)
+    return torch.cat([x + offs[i] for i, x in enumerate(xys)]).contiguous()
+
+
+def extract_windows_packed_paired(frames: Sequence[torch.Tensor],
+                                  xys: Sequence[torch.Tensor]
+                                  ) -> torch.Tensor:
+    """(K/2, 40, 128) paired windows over all levels from ONE stacked
+    canvas: each keypoint's y is offset by its level's first canvas row."""
+    canvas, starts = prepare_window_canvas(list(frames))
+    wimg = max(int(f.shape[1]) for f in frames)
+    return windows_paired(canvas, canvas_xy(xys, starts), wimg)
+
+
+def orientation_from_windows_paired(windows: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid orientation from paired (K/2, 40, 128) windows →
+    (K,) radians in keypoint order."""
+    angs = [centroid_angle(
+        windows[:, PAIR_CY - ORB_HALF: PAIR_CY + ORB_HALF + 1,
+                cx - ORB_HALF: cx + ORB_HALF + 1]) for cx in PAIR_CX]
+    return torch.stack(angs, dim=1).reshape(-1)
+
+
+def brief_from_windows_paired(windows: torch.Tensor, angle: torch.Tensor,
+                              pattern: torch.Tensor) -> torch.Tensor:
+    """Rotated BRIEF-256 (K, 256) u8 bits from paired (K/2, 40, 128)
+    blurred windows, (K,) angles and the (256, 4) int32 pattern: each
+    window's 1024 taps (keypoint 2i's 512 about lane 32, 2i+1's about lane
+    96) rotated, sampled and compared in one :func:`brief_rotated` pass."""
+    return brief_rotated(windows.contiguous(), torch.cos(angle),
+                         torch.sin(angle), pattern, "paired")
+
+
+def _orb_describe_plain(levels, xys, pattern):
+    """The paired composition: the f32 levels and their blurs, both
+    level-stacked canvases (:func:`extract_windows_packed_paired`, K2 on
+    the card), :func:`orientation_from_windows_paired`, then
+    :func:`brief_from_windows_paired` (K3) on the blurred windows."""
+    grays_f = [img.to(torch.float32) for img in levels]
+    blurs = [gaussian_blur(g, (ORB_BLUR_KSIZE, ORB_BLUR_KSIZE),
+                           ORB_BLUR_SIGMA) for g in grays_f]
+    xy_ints = [torch.round(xy).to(torch.int32) for xy in xys]
+    ang = orientation_from_windows_paired(
+        extract_windows_packed_paired(grays_f, xy_ints))
+    bits = brief_from_windows_paired(
+        extract_windows_packed_paired(blurs, xy_ints), ang, pattern)
+    return ang, bits
+
+
+def orb_describe_fused(levels: Sequence[torch.Tensor]) -> bool:
+    """Whether :func:`orb_describe` runs K11 on these levels (a card
+    tensor) rather than its plain version."""
+    return not levels[0].is_cpu
+
+
+def orb_describe(levels: Sequence[torch.Tensor],
+                 xys: Sequence[torch.Tensor], pattern: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ORB's paired describe stage on every (H, W) u8 level of a frame:
+    ``xys[i]`` the (B_i, 2) f32 level coordinates of level i's keypoints
+    (:func:`orb_select`'s xy), ``pattern`` the (256, 4) int32 BRIEF pattern
+    on the levels' device. Returns ((K,) f32 intensity-centroid angles,
+    (K, 256) u8 rotated BRIEF bits of the 7 x 7 σ 2 blurred levels), K =
+    ΣB_i, even, keypoints in level order.
+
+    The plain version (:func:`_orb_describe_plain`) on a CPU tensor; on the
+    card one launch for every level, no host sync, bit-equal to it for any
+    keypoint position. Raises where :func:`_describe_table` does."""
+    levels, xys = list(levels), list(xys)
+    shapes, budgets = _orb_describe_shape(levels, xys, pattern)
+    if not orb_describe_fused(levels):
+        return _orb_describe_plain(levels, xys, pattern)
+    hs, ws, bs = _describe_table(shapes, budgets)
+    d = levels[0].get_device()
+    for i, (img, xy) in enumerate(zip(levels, xys)):
+        _check(img, f"orb_describe level {i}", torch.uint8, 2)
+        _check(xy, f"orb_describe level {i} xy", torch.float32, 2)
+        if img.get_device() != d or xy.get_device() != d:
+            raise ValueError(f"orb_describe level {i}: level on {img.device}"
+                             f" and xy on {xy.device}, not {levels[0].device}")
+    _check(pattern, "orb_describe pattern", torch.int32, 2)
+    if pattern.get_device() != d or pattern.data_ptr() % 16:
+        raise ValueError("orb_describe: the pattern must be on the levels' "
+                         "device and start on a 16-byte boundary")
+    k = sum(budgets)
+    angle = torch.empty(k, dtype=torch.float32, device=levels[0].device)
+    bits = torch.empty((k, 256), dtype=torch.uint8, device=levels[0].device)
+    if k:
+        n = len(levels)
+        rc = _kernel("orb_describe")(
+            n, (ctypes.c_void_p * n)(*[img.data_ptr() for img in levels]),
+            (ctypes.c_void_p * n)(*[xy.data_ptr() for xy in xys]), hs, ws,
+            bs, _blur_taps(), pattern.data_ptr(), angle.data_ptr(),
+            bits.data_ptr(), _stream(levels[0]))
+        _launched("orb_describe", rc)
+    return angle, bits
 
 
 # --------------------------------------------------------------------------

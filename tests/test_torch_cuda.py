@@ -527,8 +527,7 @@ def test_cuda_slice3_entry_points_launch_kernels(cuda_dev):
         return out, {k: v for k, v in ck.LAUNCHES.items() if v}
 
     paired, n = run(lambda: orb.orb_detect_and_describe(gray, cfg))
-    assert n == {"fast_harris": 1, "orb_select": 3, "windows_paired": 2,
-                 "brief_rotated": 1}
+    assert n == {"fast_harris": 1, "orb_select": 3, "orb_describe": 1}
     unp, n = run(lambda: orb.orb_detect_and_describe(gray, cfg,
                                                      describe="unpaired"))
     assert n == {"fast_harris": 1, "orb_select": 3, "windows": 2,
@@ -1019,8 +1018,8 @@ def test_cuda_slam_frame_loop(cuda_dev):
     """Eight 480×752 frames of chip_smoke.slam_sequence through
     MonocularSlam with SlamConfig() widths on the card: frame 0 is held,
     frame 1 bootstraps (two keyframes), every later frame is tracked;
-    each frame launches K1 once, K2 twice, K3 once, K10 three times and
-    no other hand kernel; the keyframe poses' camera centres within 0.05
+    each frame launches K1 once, K10 three times, K11 once and no other
+    hand kernel; the keyframe poses' camera centres within 0.05
     of the truth after a sim3 alignment."""
     import chip_smoke as cs
     from kornia_tpu_torch import slam
@@ -1035,8 +1034,7 @@ def test_cuda_slam_frame_loop(cuda_dev):
         states.append(system.process_frame(f).state)
         torch.cuda.synchronize()
         want = {name: 0 for name in ck.LAUNCHES}
-        want.update(fast_harris=1, windows_paired=2, brief_rotated=1,
-                    orb_select=3)
+        want.update(fast_harris=1, orb_select=3, orb_describe=1)
         assert dict(ck.LAUNCHES) == want
     assert states[0] == slam.TrackingState.INITIALIZING
     assert all(s == slam.TrackingState.TRACKING for s in states[1:])
@@ -1725,3 +1723,192 @@ def test_cuda_orb_select_rejects_bad_input(cuda_dev):
         ck.orb_select([levels[0], levels[1].float()], maps, budgets, *args)
     with pytest.raises(ValueError):
         ck.orb_select(levels, maps[:1], budgets, *args)
+
+
+# --------------------------------------------------------------------------
+# K11: ORB's paired describe stage of every level in one launch
+# --------------------------------------------------------------------------
+
+_DESCRIBE_CASES = {
+    # (frame, shape, OrbConfig keywords)
+    "kitti": (_textured_u8, (376, 1241), {}),
+    "kitti-blocky": (_blocky_u8, (376, 1241), {}),
+    "euroc-slam": (_textured_u8, (480, 752), dict(n_features=1000,
+                                                  n_levels=4)),
+    "seeded": (_textured_u8, (376, 1241), dict(pattern="seeded",
+                                               pattern_seed=1)),
+    "odd-level-budgets": (_textured_u8, (480, 752), dict(n_features=1002,
+                                                         n_levels=5)),
+}
+
+
+def _describe_inputs(case, dev):
+    """A frame's levels on the card, K10's per-level xy and the pattern."""
+    from kornia_tpu_torch.features import orb
+
+    make, shape, kw = _DESCRIBE_CASES[case]
+    cfg = orb.OrbConfig(**kw)
+    levels, maps, budgets = _select_inputs(make(60, shape), cfg, dev)
+    sels = ck.orb_select(levels, maps, budgets, *_select_args(cfg))
+    return (levels, [xy for xy, _, _ in sels],
+            orb._pattern_on(cfg.pattern, cfg.pattern_seed, dev))
+
+
+def _border_xys(levels, seed, per_level=6):
+    """Keypoints of every level at its corners and edges, beyond them (the
+    canvas clips these; they reach a narrow level's zero padding and the
+    next level's rows) and inside, with fractional parts."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for lv in levels:
+        h, w = lv.shape
+        pts = [(0, 0), (w - 1, h - 1), (0, h - 1), (w - 1, 0),
+               (-7, h + 25), (w + 70, -3), (w + 40, h + 10), (2.5, 3.5),
+               (w - 1.5, h / 2)]
+        pts += [(rng.uniform(-40, w + 80), rng.uniform(-30, h + 45))
+                for _ in range(per_level)]
+        out.append(torch.tensor(pts, dtype=torch.float32, device=lv.device))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_DESCRIBE_CASES))
+def test_cuda_orb_describe_bit_equal(cuda_dev, case):
+    """K11 on K10's keypoints of every level: angles and bits bit-equal to
+    its plain version (the paired composition, K2 and K3 on the card) in
+    one launch: OrbConfig() at 376 x 1241 on textured and blocky frames,
+    1000 x 4 at 480 x 752, the seeded pattern (a tap at +20 rows: the row
+    clamp at 40) and odd level budgets (pairs across two levels)."""
+    levels, xys, pat = _describe_inputs(case, cuda_dev)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    ang, bits = ck.orb_describe(levels, xys, pat)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ck.LAUNCHES.items() if v} == {"orb_describe": 1}
+    want_ang, want_bits = ck._orb_describe_plain(levels, xys, pat)
+    torch.cuda.synchronize()
+    assert ang.dtype == torch.float32 and bits.dtype == torch.uint8
+    assert torch.equal(ang, want_ang) and torch.equal(bits, want_bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern,seed", [("rublee2011", 7), ("seeded", 1)])
+def test_cuda_orb_describe_at_borders(cuda_dev, pattern, seed):
+    """Keypoints at and beyond every level's border, on a pyramid and on
+    levels of 1 and 2 rows or columns: the kernel follows the canvas where
+    a clamped read of the level would not, bit-equal to the plain
+    version."""
+    from kornia_tpu_torch.features import orb
+
+    cfg = orb.OrbConfig(n_features=300, n_levels=6)
+    levels = orb._pyramid(convert.tensor(_textured_u8(61, (90, 140)),
+                                         cuda_dev), cfg)
+    levels += [convert.tensor(_textured_u8(62, s), cuda_dev)
+               for s in ((1, 9), (5, 1), (2, 2), (40, 3))]
+    xys = _border_xys(levels, 63)
+    pat = orb._pattern_on(pattern, seed, cuda_dev)
+    ang, bits = ck.orb_describe(levels, xys, pat)
+    want_ang, want_bits = ck._orb_describe_plain(levels, xys, pat)
+    torch.cuda.synchronize()
+    assert torch.equal(ang, want_ang) and torch.equal(bits, want_bits)
+
+
+def _sparse_u8(seed, shape):
+    """A flat frame with one textured corner: most cells find no corner,
+    so most levels end in invalid slots."""
+    img = np.full(shape, 90, np.uint8)
+    img[:96, :160] = _textured_u8(seed, (96, 160))
+    return img
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame,kw", [
+    ("textured", {}), ("textured", dict(n_features=1000, n_levels=4)),
+    ("textured", dict(pattern="seeded", pattern_seed=1)), ("sparse", {})])
+def test_cuda_orb_describe_routes_give_the_same_features(cuda_dev, frame,
+                                                         kw, monkeypatch):
+    """The whole of orb_detect_and_describe with K11 and with its plain
+    version in its place: every output equal, valid and invalid slots
+    alike (the sparse frame leaves most slots invalid); the fused route
+    launches K11 once a frame and neither K2 nor K3, the composed one K2
+    twice and K3 once."""
+    from kornia_tpu_torch.features import orb
+
+    cfg = orb.OrbConfig(**kw)
+    shape = (480, 752) if kw.get("n_levels") == 4 else (376, 1241)
+    gray = (_textured_u8 if frame == "textured" else _sparse_u8)(64, shape)
+    orb.orb_detect_and_describe(gray, cfg)               # warm-up
+    ck.reset_launch_counts()
+    got = orb.orb_detect_and_describe(gray, cfg)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ck.LAUNCHES.items() if v} == {
+        "fast_harris": 1, "orb_select": 3, "orb_describe": 1}
+    monkeypatch.setattr(ck, "orb_describe", ck._orb_describe_plain)
+    ck.reset_launch_counts()
+    want = orb.orb_detect_and_describe(gray, cfg)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ck.LAUNCHES.items() if v} == {
+        "fast_harris": 1, "orb_select": 3, "windows_paired": 2,
+        "brief_rotated": 1}
+    if frame == "sparse":
+        assert int(got.mask.sum()) < cfg.n_features // 2
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_cuda_orb_describe_waits_for_nothing(cuda_dev):
+    """One ck.orb_describe call launches once and does not synchronise
+    with the host (sync debug mode "error"); ORB's describe span carries
+    "fused" on the card, "composed" in the unpaired form."""
+    from kornia_tpu_torch.features import orb
+    from kornia_tpu_torch.utils import tracing
+
+    levels, xys, pat = _describe_inputs("kitti", cuda_dev)
+    want = ck._orb_describe_plain(levels, xys, pat)
+    ck.orb_describe(levels, xys, pat)                    # warm-up
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ck.orb_describe(levels, xys, pat)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["orb_describe"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    gray = _textured_u8(65, (376, 1241))
+    for form, attr in (("auto", "fused"), ("unpaired", "composed")):
+        with tracing.recording() as rows:
+            orb.orb_detect_and_describe(gray, describe=form)
+        assert [r.attr for r in rows
+                if r.name == "features.orb.describe"] == [attr]
+
+
+@pytest.mark.cuda
+def test_cuda_orb_describe_rejects_bad_input(cuda_dev):
+    """Inputs K11 cannot take raise before any launch: a level of another
+    dtype or device, xy of another dtype or device, a pattern of another
+    dtype, device or off a 16-byte boundary, an odd keypoint count, more
+    than ORB_SELECT_MAX_LEVELS levels, an empty level."""
+    levels, xys, pat = _describe_inputs("euroc-slam", cuda_dev)
+    pbuf = torch.zeros(1028, dtype=torch.int32, device=cuda_dev)
+    bad = [
+        ([levels[0].float()] + levels[1:], xys, pat),
+        ([levels[0], levels[1].cpu()] + levels[2:], xys, pat),
+        (levels, [xys[0].double()] + xys[1:], pat),
+        (levels, [xys[0].cpu()] + xys[1:], pat),
+        (levels, xys, pat.long()),
+        (levels, xys, pat.cpu()),
+        (levels, xys, pbuf[1:1025].view(256, 4)),
+        (levels, [xys[0][:-1]] + xys[1:], pat),
+        ([levels[0]] * 33, [xys[0][:2]] * 33, pat),
+        ([levels[0], levels[0][:0]], [xys[0][:2], xys[0][:2]], pat),
+    ]
+    ck.reset_launch_counts()
+    for args in bad:
+        with pytest.raises(ValueError):
+            ck.orb_describe(*args)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["orb_describe"] == 0

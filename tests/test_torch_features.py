@@ -25,6 +25,7 @@ from kornia_tpu_torch.features import fast as tfast
 from kornia_tpu_torch.features import matching as tmatch
 from kornia_tpu_torch.features import orb as torb
 from kornia_tpu_torch.features import responses as tresp
+from kornia_tpu_torch.ops import cuda_kernels as ck
 from kornia_tpu_torch.ops import filters as tfilt
 from kornia_tpu_torch.ops import resize as tres
 
@@ -288,7 +289,7 @@ def describe_ref():
 def test_describe_windows_exact(describe_ref):
     r = describe_ref
     for frames, want in ((r["grays"], r["win_g"]), (r["blurs"], r["win_b"])):
-        got = torb._extract_windows_packed_paired(
+        got = ck.extract_windows_packed_paired(
             [tensor(f) for f in frames],
             [tensor(x) for x in r["xy_ints"]])
         np.testing.assert_array_equal(got.numpy(), want)
@@ -298,7 +299,7 @@ def test_orientation_within_1e5(describe_ref):
     """Intensity-centroid angles from the reference's windows. The two
     moment sums run in another order than XLA's, so atan2 sees inputs a
     few ULP apart: within 1e-5 rad."""
-    got = torb.orientation_from_windows_paired(
+    got = ck.orientation_from_windows_paired(
         tensor(describe_ref["win_g"])).numpy()
     diff = np.abs(got - describe_ref["ang"])
     diff = np.minimum(diff, 2 * np.pi - diff)
@@ -311,10 +312,9 @@ def test_brief_given_reference_angles(describe_ref):
     inputs, and a tap exactly at .5 after rotation would round the other
     way; none does here (measured 0 flipped bits of 131072), so the bits
     are equal."""
-    got = torb.brief_from_windows_paired(
-        tensor(describe_ref["win_b"]),
-        tensor(describe_ref["ang"]), TCFG.pattern_seed,
-        TCFG.pattern).numpy()
+    got = ck.brief_from_windows_paired(
+        tensor(describe_ref["win_b"]), tensor(describe_ref["ang"]),
+        torb._pattern_on(TCFG.pattern, TCFG.pattern_seed, "cpu")).numpy()
     np.testing.assert_array_equal(got, describe_ref["desc"])
 
 

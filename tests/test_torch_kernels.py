@@ -418,7 +418,8 @@ def test_brief_rotated_bits_match_reference(layout, pattern, seed):
     if layout == "paired":
         want = jorb.brief_from_windows_paired(
             jnp.asarray(win.numpy()), jnp.asarray(ang.numpy()), seed, pattern)
-        got = torb.brief_from_windows_paired(win, ang, seed, pattern)
+        got = ck.brief_from_windows_paired(
+            win, ang, torb._pattern_on(pattern, seed, win.device))
     else:
         want = jorb.brief_from_windows(
             jnp.asarray(win.numpy()), jnp.asarray(ang.numpy()), seed, pattern)
@@ -774,8 +775,10 @@ def test_new_wrappers_count_no_cpu_launch():
     levels = [tensor(_img(32, (40, 60))), tensor(_img(33, (33, 50)))]
     ck.orb_select(levels, ck.fast_harris_levels(levels, 7.0), [20, 12], 35,
                   20.0)
+    ck.orb_describe(levels, [torch.zeros((20, 2)), torch.zeros((12, 2))],
+                    torch.zeros((256, 4), dtype=torch.int32))
     assert all(v == 0 for v in ck.LAUNCHES.values())
-    assert len(ck.SOURCES) == 10
+    assert len(ck.SOURCES) == 11
     assert set(ck.LAUNCHES) == set(ck.KERNELS) == set(ck.SOURCES) | {
         "fast_score", "brief_rotated", "shear_y"}
 
