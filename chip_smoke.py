@@ -3,10 +3,11 @@
     python3 chip_smoke.py [--parent DIR]
 
 ``--parent DIR``: DIR holds the parent commit's tree (e.g. unpacked by
-``git archive``); its own kernel wrappers (``ops/cuda_kernels.py``) are
-loaded, its kernels built from its sources, and its K1, K5, K8 and K9 and
-the host time of every wrapper timed against this tree's in turns, on the
-same inputs, as "parent" times.
+``git archive``); its own kernel wrappers are loaded (``ops/cuda_kernels.py``
+and, wherever it defines K1, K10 and K11, its ``features/fast.py`` and
+``orb.py``; ``load_parent``), its kernels built from its sources, and its
+K1, K5, K8 and K9 and the host time of every wrapper timed against this
+tree's in turns, on the same inputs, as "parent" times.
 
 Phases (any failure raises, so the script exits non-zero):
 
@@ -23,7 +24,7 @@ Phases (any failure raises, so the script exits non-zero):
    own, and brief_rotated's samples against brief_sample on
    _brief_tap_coords' indices. K10 orb_select: all 8 levels of each view
    in one call, xy, vals and valid bit-equal to the per-level composition
-   (ck._orb_select_plain, fast.select_cells a level) on the same K1 maps.
+   (orb._orb_select_plain, fast.select_cells a level) on the same K1 maps.
 3. The slice at full size on a seed-made scene with known pose: two
    480×752 views of two textured, non-coplanar planes; ORB (OrbConfig())
    on both, Hamming matching, the two-view bootstrap (TwoViewParams()).
@@ -360,6 +361,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -436,7 +438,7 @@ KERNELS = {
 # cell ranges, cell top-k, level sort
 ORB_SELECT = 3
 # the 7 x 7 blur of ORB's describe stage
-BLUR_KSIZE = (ck.ORB_BLUR_KSIZE, ck.ORB_BLUR_KSIZE)
+BLUR_KSIZE = (orb._BLUR_KSIZE, orb._BLUR_KSIZE)
 
 
 def orb_launches(frames: int, fast_harris: int | None = None) -> dict:
@@ -876,6 +878,16 @@ def bound(nbytes, int_ops=0, f32_ops=0):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def fast_score_plain(img, threshold, arc_length, nms, mask):
+    """K1's score-only plain version, with ``fast._kernel_score``'s
+    arguments, on the tensors' own device: the composition that the CPU
+    branch of ``fast._score_dispatch`` and ``_score_nms_dispatch`` runs."""
+    s = fast.fast_score(img, threshold, arc_length)
+    if mask is not None:
+        s = s * mask
+    return fast.nms_maxpool(s) if nms else s
+
+
 class Record:
     """Record the arguments (``calls``) and results (``outs``) of every
     call of one function of ``mod`` (a kernel wrapper of cuda_kernels by
@@ -930,11 +942,11 @@ class ComposedDescribe:
     run."""
 
     def __enter__(self):
-        self.saved = ck.orb_describe
-        ck.orb_describe = ck._orb_describe_plain
+        self.saved = orb.orb_describe
+        orb.orb_describe = orb._orb_describe_plain
 
     def __exit__(self, *exc):
-        ck.orb_describe = self.saved
+        orb.orb_describe = self.saved
 
 
 def check_brief_calls(calls, label):
@@ -972,15 +984,15 @@ def check_brief_calls(calls, label):
 
 
 def select_args(cfg):
-    """ck.orb_select's arguments after the budgets, from an OrbConfig."""
+    """orb.orb_select's arguments after the budgets, from an OrbConfig."""
     return cfg.cell_size, cfg.fast_threshold_high, cfg.harris_rescore
 
 
 def orb_select_equal(got, args, kwargs, label):
     """One K10 call's outputs ``got`` against the per-level composition
-    (``ck._orb_select_plain``) on the call's own arguments: xy, vals and
+    (``orb._orb_select_plain``) on the call's own arguments: xy, vals and
     valid bit-equal on every level. Returns the max |error| (0.0)."""
-    want = ck._orb_select_plain(*args, **kwargs)
+    want = orb._orb_select_plain(*args, **kwargs)
     if len(got) != len(want):
         raise AssertionError(f"{label}: orb_select gave {len(got)} levels, "
                              f"the composition {len(want)}")
@@ -1000,7 +1012,7 @@ def check_orb_select(levels, maps, budgets, cfg):
     same K1 maps: xy, vals and valid bit-equal on every level. Returns the
     max |error|."""
     args = (levels, maps, budgets, *select_args(cfg))
-    got = ck.orb_select(*args)
+    got = orb.orb_select(*args)
     torch.cuda.synchronize()
     return orb_select_equal(got, args, {}, "pair")
 
@@ -1014,12 +1026,12 @@ def orb_select_row(n_launches, cfg, thr, card_line) -> dict:
     frame = np.ascontiguousarray(np.clip(
         _texture(rng)[:HW_KITTI[0], :HW_KITTI[1]], 0, 255).astype(np.uint8))
     levels = orb._pyramid(torch.as_tensor(frame, device=DEV), cfg)
-    args = (levels, ck.fast_harris_levels(levels, thr),
+    args = (levels, fast.fast_harris_levels(levels, thr),
             orb._level_budgets(cfg), *select_args(cfg))
     check_orb_select(*args[:3], cfg)
     HOST_CASES["orb_select"] = lambda mod: mod.orb_select(*args)
-    times = kernel_times(lambda: ck.orb_select(*args),
-                         lambda: ck._orb_select_plain(*args))
+    times = kernel_times(lambda: orb.orb_select(*args),
+                         lambda: orb._orb_select_plain(*args))
     px = sum(lv.numel() for lv in levels)
     nbytes = px * 8 + cfg.n_features * 13
     bms, by = bound(nbytes)
@@ -1043,13 +1055,13 @@ def check_describe_calls(rec, cfg, label):
     n, plain = 0, {}
     for (args, kwargs), (ang, bits) in zip(rec.calls, rec.outs):
         (want_ang, want_bits), counts = counted(
-            lambda: ck._orb_describe_plain(*args, **kwargs))
+            lambda: orb._orb_describe_plain(*args, **kwargs))
         for k, v in counts.items():
             plain[k] = plain.get(k, 0) + v
         levels, xys = args[0], args[1]
         blurs = [gaussian_blur(lv.to(torch.float32), BLUR_KSIZE,
-                               ck.ORB_BLUR_SIGMA) for lv in levels]
-        windows = ck.extract_windows_packed_paired(
+                               orb._BLUR_SIGMA) for lv in levels]
+        windows = orb._extract_windows_packed_paired(
             blurs, [torch.round(xy).to(torch.int32) for xy in xys])
         old_bits, _ = brief_index_form(windows, want_ang, cfg.pattern_seed,
                                        cfg.pattern)
@@ -1104,13 +1116,13 @@ def orb_describe_row(n_launches, cfg, card_line) -> dict:
                           ("SLAM", view, orb.OrbConfig(n_features=1000,
                                                        n_levels=4))):
         levels = orb._pyramid(torch.as_tensor(img, device=DEV), c)
-        sels = ck.orb_select(levels, ck.fast_harris_levels(
+        sels = orb.orb_select(levels, fast.fast_harris_levels(
             levels, c.fast_threshold_low), orb._level_budgets(c),
             *select_args(c))
         args = (levels, [xy for xy, _, _ in sels],
                 orb._pattern_on(c.pattern, c.pattern_seed, DEV))
-        got = ck.orb_describe(*args)
-        want = ck._orb_describe_plain(*args)
+        got = orb.orb_describe(*args)
+        want = orb._orb_describe_plain(*args)
         torch.cuda.synchronize()
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
             raise AssertionError(f"orb_describe ({label}) differs from its "
@@ -1118,8 +1130,8 @@ def orb_describe_row(n_launches, cfg, card_line) -> dict:
         if label == "KITTI":
             HOST_CASES["orb_describe"] = lambda mod, a=args: \
                 mod.orb_describe(*a)
-        times = kernel_times(lambda a=args: ck.orb_describe(*a),
-                             lambda a=args: ck._orb_describe_plain(*a))
+        times = kernel_times(lambda a=args: orb.orb_describe(*a),
+                             lambda a=args: orb._orb_describe_plain(*a))
         k = c.n_features
         px = sum(lv.numel() for lv in levels)
         reach = describe_reach(args[2])
@@ -1169,27 +1181,92 @@ class PerLevelK1:
     (the route before ``fast_harris_levels``)."""
 
     def __enter__(self):
-        self.saved = ck.fast_harris_levels
-        ck.fast_harris_levels = lambda levels, thr: [
+        self.saved = orb.fast_harris_levels
+        orb.fast_harris_levels = lambda levels, thr: [
             self.saved([lv], thr)[0] for lv in levels]
 
     def __exit__(self, *exc):
-        ck.fast_harris_levels = self.saved
+        orb.fast_harris_levels = self.saved
+
+
+def wrappers(ck_mod, fast_mod, orb_mod):
+    """One tree's kernel wrappers by name, wherever the tree defines them:
+    K1 in features/fast.py and K10 and K11 in features/orb.py, or all of
+    them in ops/cuda_kernels.py in a tree from before they moved there.
+    A namespace, so that reading a wrapper adds no host time."""
+    return types.SimpleNamespace(**{**vars(orb_mod), **vars(fast_mod),
+                                    **vars(ck_mod)})
+
+
+# the modules of a tree that hold its kernel wrappers and their plain
+# versions, each after those it imports
+PARENT_MODULES = ("ops.cuda_kernels", "features.responses", "features.fast",
+                  "features.orb")
+# the wrappers that --parent times from wherever the parent defines them
+PARENT_WRAPPERS = ("fast_harris_levels", "fast_harris", "orb_select",
+                   "orb_describe")
+
+
+@contextlib.contextmanager
+def modules_as(mods):
+    """While the block runs, ``import kornia_tpu_torch.<name>`` (and
+    ``from <package> import <module>``) give ``mods[name]``."""
+    saved = []
+    for name, mod in mods.items():
+        pkg, leaf = ("kornia_tpu_torch." + name).rsplit(".", 1)
+        saved.append((name, pkg, leaf,
+                      sys.modules["kornia_tpu_torch." + name]))
+        sys.modules["kornia_tpu_torch." + name] = mod
+        setattr(sys.modules[pkg], leaf, mod)
+    try:
+        yield
+    finally:
+        for name, pkg, leaf, mod in saved:
+            sys.modules["kornia_tpu_torch." + name] = mod
+            setattr(sys.modules[pkg], leaf, mod)
 
 
 def load_parent(root: str):
-    """The parent tree's kernel wrappers, for before/after times in one
-    run: ``root``'s own ``kornia_tpu_torch/ops/cuda_kernels.py`` loaded
-    under another module name, with every kernel built from ``root``'s
-    sources into ``root``'s build directory."""
+    """The parent tree's kernel wrappers (:func:`wrappers`), for
+    before/after times in one run: ``root``'s own PARENT_MODULES loaded
+    under other module names, each importing the parent's modules before
+    it (the rest of what they import is this tree's), with every kernel
+    built from ``root``'s sources into ``root``'s build directory. Raises
+    unless each of PARENT_WRAPPERS launches through the parent's
+    ``cuda_kernels`` and every library that module loaded is ``root``'s
+    build."""
     import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "parent_cuda_kernels",
-        os.path.join(root, "kornia_tpu_torch", "ops", "cuda_kernels.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    mod.build()
-    return mod
+    mods = {}
+    for name in PARENT_MODULES:
+        spec = importlib.util.spec_from_file_location(
+            "parent_" + name.replace(".", "_"),
+            os.path.join(root, "kornia_tpu_torch", *name.split(".")) + ".py")
+        mod = importlib.util.module_from_spec(spec)
+        # under its own name too, where a dataclass looks its module up
+        sys.modules[spec.name] = mod
+        with modules_as(mods):
+            spec.loader.exec_module(mod)
+        mods[name] = mod
+    pck = mods["ops.cuda_kernels"]
+    pck.build()
+    build_dir = os.path.join(os.path.abspath(root), "kornia_tpu_torch",
+                             "_build") + os.sep
+    libs = {name: lib._name for name, lib in pck._LIBS.items()}
+    if set(libs) != set(pck.SOURCES) or not all(
+            path.startswith(build_dir) for path in libs.values()):
+        raise AssertionError(f"parent libraries {libs} are not all built "
+                             f"in {build_dir}")
+    parent = wrappers(pck, mods["features.fast"], mods["features.orb"])
+    for name in PARENT_WRAPPERS:
+        env = getattr(parent, name).__globals__
+        if env is not vars(pck) and env.get("ck") is not pck:
+            raise AssertionError(f"the parent's {name} does not launch "
+                                 "through the parent's cuda_kernels")
+    return parent
+
+
+# this tree's kernel wrappers, as load_parent gives the parent's
+NEW = wrappers(ck, fast, orb)
 
 
 def in_turns(new, old):
@@ -2128,7 +2205,7 @@ def phase_orb_levels17(card_line, img1):
         return orb.orb_detect_and_describe(frame, cfg, device=DEV)
 
     run()                                           # warm-up
-    with Record("_fast_harris_chunk") as rec:
+    with Record("_fast_harris_chunk", fast) as rec:
         feats, launches = counted(run)
     log(f"orb 17 levels launches: {launches}")
     only(launches, orb_launches(1, fast_harris=2))
@@ -2163,6 +2240,7 @@ def phase_orb_levels17(card_line, img1):
 
 
 # the wrappers of ORB's frame that Record holds to their plain versions
+# (Record(name, orb): ORB calls them through features/orb.py's names)
 TRACK_RECORDS = ("fast_harris_levels", "orb_describe", "orb_select")
 
 
@@ -2198,10 +2276,10 @@ def check_track_kernels(k1, k11, k10, label="track"):
         levels, thr = args
         for lv, got in zip(levels, maps):
             pairs["fast_harris"] += list(zip(
-                got, ck._fast_harris_plain(lv, thr)))
+                got, fast._fast_harris_plain(lv, thr)))
     for (args, kwargs), got in zip(k11.calls, k11.outs):
         pairs["orb_describe"] += list(zip(
-            got, ck._orb_describe_plain(*args, **kwargs)))
+            got, orb._orb_describe_plain(*args, **kwargs)))
     shapes = {}
     for name, found in pairs.items():
         if not found:
@@ -2274,7 +2352,7 @@ def phase_track(card_line):
     # not wait for the device anywhere
     gen = torch.Generator(device=DEV).manual_seed(SEED)
 
-    recs = [Record(name) for name in TRACK_RECORDS]
+    recs = [Record(name, orb) for name in TRACK_RECORDS]
 
     def path():
         with recs[0], recs[1], recs[2]:
@@ -3109,7 +3187,7 @@ def phase_slam(card_line):
     vocab = slam_vocabulary(frames, "cuda")
     # warm-up: bootstrap and a few tracked frames (cuBLAS, allocator)
     run_slam(frames[:4], vocab, "cuda")
-    recs = [Record(name) for name in TRACK_RECORDS]
+    recs = [Record(name, orb) for name in TRACK_RECORDS]
     per_frame = recorded_at_ends(recs, len(frames))
     stages = {}
     (system, ms), launches = counted(
@@ -3328,7 +3406,7 @@ def parallel_rank(mesh, inputs):
     frames, cfg = inputs["frames"], orb.OrbConfig()
     per = len(frames) // mesh.size
     orb.orb_detect_and_describe(frames[0], cfg, device=mesh.device)
-    recs = [Record(name) for name in TRACK_RECORDS]
+    recs = [Record(name, orb) for name in TRACK_RECORDS]
     with recs[0], recs[1], recs[2]:
         (feats, coll), launches = counted(lambda: _collectives(
             mesh, lambda: frontend_dist.detect_and_describe_batch(
@@ -3423,7 +3501,7 @@ def parallel_rank(mesh, inputs):
             lead = parallel.controller.lead
             parallel.controller.lead = lambda *a: leads.append(a[1]) or \
                 lead(*a)
-            recs = [Record(name) for name in TRACK_RECORDS]
+            recs = [Record(name, orb) for name in TRACK_RECORDS]
             try:
                 (system, ms), launches = counted(lambda: run_slam(
                     frames, vocab, mesh.device,
@@ -3734,12 +3812,9 @@ def phase_host(card_line, parent=None):
     Returns {name: {"new": [..], "parent": [..]}}."""
     out = {}
     for name, call in HOST_CASES.items():
-        # the parent's K5 has no broadcast mode, and it has no K11
-        mods = ([("parent", parent), ("new", ck), ("new", ck),
+        mods = ([("parent", parent), ("new", NEW), ("new", NEW),
                  ("parent", parent)]
-                if parent is not None
-                and name not in ("lane_gather broadcast", "orb_describe")
-                else [("new", ck), ("new", ck)])
+                if parent is not None else [("new", NEW), ("new", NEW)])
         t = {}
         for which, mod in mods:
             t.setdefault(which, []).append(host_us(lambda m=mod: call(m)))
@@ -4195,8 +4270,8 @@ def phase_imgproc(card_line):
         k1_launches += launches["fast_score"]
         nms = kw.get("nms", True)
         mask = kw.get("border_mask")
-        score = ck.fast_score(gray, FAST_THRESHOLD, nms=nms, mask=mask)
-        plain = ck._fast_score_plain(gray, FAST_THRESHOLD, nms, mask)
+        score = fast._kernel_score(gray, FAST_THRESHOLD, 9, nms, mask)
+        plain = fast_score_plain(gray, FAST_THRESHOLD, 9, nms, mask)
         if not torch.equal(score, plain):
             raise AssertionError(f"{label}: K1 score-only differs from its "
                                  f"plain version by {max_err(score, plain)}")
@@ -4233,10 +4308,10 @@ def phase_imgproc(card_line):
                              ("score-only, nms, ROI mask, 1080p", True, roi),
                              ("score-only, no nms, 1080p", False, None)):
         times = kernel_times(
-            lambda nms=nms, mask=mask: ck.fast_score(
-                gray, FAST_THRESHOLD, nms=nms, mask=mask),
-            lambda nms=nms, mask=mask: ck._fast_score_plain(
-                gray, FAST_THRESHOLD, nms, mask))
+            lambda nms=nms, mask=mask: fast._kernel_score(
+                gray, FAST_THRESHOLD, 9, nms, mask),
+            lambda nms=nms, mask=mask: fast_score_plain(
+                gray, FAST_THRESHOLD, 9, nms, mask))
         # per pixel: the 99 integer operations of the arc test and score;
         # f32: threshold, the mask multiply, the 3x3 pool and compare
         nbytes = px * (1 + 4 + (4 if mask is not None else 0))
@@ -4301,7 +4376,7 @@ def fast_arc_int_ops(n: int) -> int:
     arc loop): 16 ring differences; per side one min/max instruction per
     arc per level of arcs (0 levels for n = 1, 1 for 2-3, 2 for 4-9, 3 for
     10-16) and 8 for the best of the 16 arcs; 3 for the score."""
-    n = ck.fast_arc(n)
+    n = fast.fast_arc(n)
     levels = 0 if n == 1 else 1 if n <= 3 else 2 if n <= 9 else 3
     return 16 + 2 * (16 * levels + 8) + 3
 
@@ -4349,8 +4424,8 @@ def _fast_arc_cases(card_line, gray, gray_cpu, roi):
         kps, got = counted(call)
         only(got, {"fast_score": 1})
         launches += got["fast_score"]
-        score = ck.fast_score(gray, FAST_THRESHOLD, nms, mask, arc_length=n)
-        plain = ck._fast_score_plain(gray, FAST_THRESHOLD, nms, mask, n)
+        score = fast._kernel_score(gray, FAST_THRESHOLD, n, nms, mask)
+        plain = fast_score_plain(gray, FAST_THRESHOLD, n, nms, mask)
         if not torch.equal(score, plain):
             raise AssertionError(f"fast_detect {label}: K1 differs from its "
                                  f"plain version by {max_err(score, plain)}")
@@ -4367,10 +4442,10 @@ def _fast_arc_cases(card_line, gray, gray_cpu, roi):
         if n_kp < 1:
             raise AssertionError(f"fast_detect {label}: no keypoint")
         times = kernel_times(
-            lambda n=n, nms=nms, mask=mask: ck.fast_score(
-                gray, FAST_THRESHOLD, nms, mask, arc_length=n),
-            lambda n=n, nms=nms, mask=mask: ck._fast_score_plain(
-                gray, FAST_THRESHOLD, nms, mask, n))
+            lambda n=n, nms=nms, mask=mask: fast._kernel_score(
+                gray, FAST_THRESHOLD, n, nms, mask),
+            lambda n=n, nms=nms, mask=mask: fast_score_plain(
+                gray, FAST_THRESHOLD, n, nms, mask))
         nbytes = px * (1 + 4 + (4 if mask is not None else 0))
         f32 = px * (1 + (1 if mask is not None else 0) + (9 if nms else 0))
         int_ops = px * fast_arc_int_ops(n)
@@ -5694,10 +5769,11 @@ EXAMPLE_TIMEOUT = 300.0       # s: the CLI subprocess
 # tracked count, keyframe and loop, the map points, the ATE to 4
 # decimals) are held equal and the ATE under SLAM_DEMO_ATE_BOUND.
 EXAMPLE_MESH_POSE_TOL = 5e-3
-# the hand kernels an example's path may launch, by the C entry counted,
-# and the wrappers that Record holds to their plain versions
-_EXAMPLE_RECORDS = ("fast_score", "fast_harris_levels", "orb_describe",
-                    "orb_select", "fused_preprocess", "remap")
+# the wrappers of the hand kernels an example's path may launch that Record
+# holds to their plain versions, each by the module the path calls it from
+_EXAMPLE_RECORDS = {"_kernel_score": fast, "fast_harris_levels": orb,
+                    "orb_describe": orb, "orb_select": orb,
+                    "fused_preprocess": ck, "remap": ck}
 
 
 def colmap_model(root):
@@ -5742,9 +5818,9 @@ def _example_kernel_errs(recs, label):
         e = check_track_kernels(*orb_recs, label=label)
         errs.update({k: e[k] for k in ("fast_harris", "orb_select",
                                        "orb_describe")})
-    for (args, kwargs), got in zip(recs["fast_score"].calls,
-                                   recs["fast_score"].outs):
-        if not torch.equal(got, ck._fast_score_plain(*args, **kwargs)):
+    for (args, kwargs), got in zip(recs["_kernel_score"].calls,
+                                   recs["_kernel_score"].outs):
+        if not torch.equal(got, fast_score_plain(*args, **kwargs)):
             raise AssertionError(f"{label}: fast_score differs from its "
                                  "plain version")
         errs["fast_harris"] = errs.get("fast_harris", 0.0)
@@ -5779,7 +5855,7 @@ def _run_example(name, argv, label, card_line, want_launches):
 
     mod = importlib.import_module(f"kornia_tpu_torch.examples.{name}")
     trace = name not in UNTRACED_EXAMPLES
-    recs = {n: Record(n) for n in _EXAMPLE_RECORDS}
+    recs = {n: Record(n, m) for n, m in _EXAMPLE_RECORDS.items()}
     buf = stdio.StringIO()
     torch.cuda.synchronize()
     ck.reset_launch_counts()
@@ -5952,8 +6028,9 @@ def phase_examples(card_line, tmp, jpeg, avi, img1, img2):
             gate("generated" in out, f"vlm_demo {arch}: no line")
 
         fn, example = forward_step(DEV)
-        with Record("fast_harris_levels") as k1, \
-                Record("orb_describe") as k11, Record("orb_select") as k10:
+        with Record("fast_harris_levels", orb) as k1, \
+                Record("orb_describe", orb) as k11, \
+                Record("orb_select", orb) as k10:
             fwd, counts = counted(lambda: fn(*example))
         only(counts, orb_launches(2))
         e = check_track_kernels(k1, k11, k10,
@@ -6061,9 +6138,9 @@ def main():
     errs = {}
     k1_err = 0.0
     for view in (levels, levels2):
-        for (s_k, h_k), lv in zip(ck.fast_harris_levels(view, thr), view):
-            s_p, h_p = ck._fast_harris_plain(lv, thr)
-            s_1, h_1 = ck.fast_harris(lv, thr)
+        for (s_k, h_k), lv in zip(fast.fast_harris_levels(view, thr), view):
+            s_p, h_p = fast._fast_harris_plain(lv, thr)
+            s_1, h_1 = fast.fast_harris(lv, thr)
             torch.cuda.synchronize()
             if not torch.equal(s_k, s_p):
                 raise AssertionError(f"fast_harris score/NMS differs at "
@@ -6089,7 +6166,7 @@ def main():
         + (" and to the parent's kernel" if parent is not None else ""))
 
     sels = [orb._select_level(lv, b, cfg, mp) for lv, b, mp in zip(
-        levels, budgets, ck.fast_harris_levels(levels, thr))]
+        levels, budgets, fast.fast_harris_levels(levels, thr))]
     xy_ints = [torch.round(s[0]).to(torch.int32) for s in sels]
     # force border keypoints into every level: corners and edges
     for i, (xy, lv) in enumerate(zip(xy_ints, levels)):
@@ -6116,7 +6193,7 @@ def main():
     log(f"K2 windows_paired: bit-equal, {xy_c.shape[0]} keypoints "
         f"({straddle} pairs straddle two levels), out {tuple(w_k.shape)}")
 
-    ang = ck.orientation_from_windows_paired(w_k)
+    ang = orb.orientation_from_windows_paired(w_k)
     rows, cols = orb._brief_tap_coords(ang, cfg.pattern_seed, cfg.pattern,
                                        half_w=32)
     k = ang.shape[0]
@@ -6151,7 +6228,8 @@ def main():
         f"{tuple(samp_k.shape)} bit-equal to the plain version, samples "
         f"bit-equal to brief_sample on _brief_tap_coords' indices")
     errs["orb_select"] = max(
-        check_orb_select(view, ck.fast_harris_levels(view, thr), budgets, cfg)
+        check_orb_select(view, fast.fast_harris_levels(view, thr), budgets,
+                         cfg)
         for view in (levels, levels2))
     log(f"K10 orb_select: xy, vals and valid of all {len(levels)} levels "
         f"of both views bit-equal to the per-level composition")
@@ -6162,7 +6240,7 @@ def main():
     torch.cuda.synchronize()
     ck.reset_launch_counts()
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    with Record("orb_describe") as rec_pair:
+    with Record("orb_describe", orb) as rec_pair:
         f1, f2, m, res = run_pair(img1, img2, "cuda", gen)
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
@@ -6263,16 +6341,16 @@ def main():
                                                                   xy_c, W)
     HOST_CASES["brief_rotated"] = lambda mod: mod.brief_rotated(*rot)
     t_k1 = kernel_times(
-        lambda: ck.fast_harris_levels(levels, thr),
-        lambda: [ck._fast_harris_plain(lv, thr) for lv in levels])
+        lambda: fast.fast_harris_levels(levels, thr),
+        lambda: [fast._fast_harris_plain(lv, thr) for lv in levels])
     k1_new, k1_per_level = in_turns(
-        lambda: ck.fast_harris_levels(levels, thr),
-        lambda: [ck.fast_harris(lv, thr) for lv in levels])
+        lambda: fast.fast_harris_levels(levels, thr),
+        lambda: [fast.fast_harris(lv, thr) for lv in levels])
     t_k1["before_device_ms"] = k1_per_level["device"]
     t_k1["before_call_ms"] = k1_per_level["call"]
     if parent is not None:
         k1_new_p, k1_parent = in_turns(
-            lambda: ck.fast_harris_levels(levels, thr),
+            lambda: fast.fast_harris_levels(levels, thr),
             lambda: [parent.fast_harris(lv, thr) for lv in levels])
         t_k1["parent_device_ms"] = k1_parent["device"]
         t_k1["parent_call_ms"] = k1_parent["call"]
@@ -6413,7 +6491,7 @@ def main():
 
     def select(per_level):
         maps = ([None] * len(levels) if per_level
-                else ck.fast_harris_levels(levels, thr))
+                else fast.fast_harris_levels(levels, thr))
         return [orb._select_level(lv, b, cfg, mp)
                 for lv, b, mp in zip(levels, budgets, maps)]
 
@@ -6423,9 +6501,9 @@ def main():
               + ("one K1 launch per level" if per_level
                  else "one K1 launch"), lambda: select(per_level))
     stage("blur, 8 levels (1 frame)",
-          lambda: [gaussian_blur(g, BLUR_KSIZE, ck.ORB_BLUR_SIGMA)
+          lambda: [gaussian_blur(g, BLUR_KSIZE, orb._BLUR_SIGMA)
                    for g in grays_f])
-    blurs = [gaussian_blur(g, BLUR_KSIZE, ck.ORB_BLUR_SIGMA)
+    blurs = [gaussian_blur(g, BLUR_KSIZE, orb._BLUR_SIGMA)
              for g in grays_f]
     xys = [s[0] for s in sels]
     pat = orb._pattern_on(cfg.pattern, cfg.pattern_seed, DEV)
@@ -6433,18 +6511,18 @@ def main():
     def describe(index_form=False):
         """The paired composition on the ready f32 levels and blurs; BRIEF
         by K3, or by the index form that K3 replaced."""
-        a = ck.orientation_from_windows_paired(
-            ck.extract_windows_packed_paired(grays_f, xy_ints))
-        w = ck.extract_windows_packed_paired(blurs, xy_ints)
+        a = orb.orientation_from_windows_paired(
+            orb._extract_windows_packed_paired(grays_f, xy_ints))
+        w = orb._extract_windows_packed_paired(blurs, xy_ints)
         if index_form:
             return brief_index_form(w, a, cfg.pattern_seed, cfg.pattern)[0]
-        return ck.brief_from_windows_paired(w, a, pat)
+        return orb.brief_from_windows_paired(w, a, pat)
 
     def one_frame():
         return orb.orb_detect_and_describe(img1, cfg, device="cuda")
 
     def fused():
-        return ck.orb_describe(levels, xys, pat)
+        return orb.orb_describe(levels, xys, pat)
 
     # before / after in turns, so that both see the same machine: the
     # composition with BRIEF by the index form, then by K3; K11

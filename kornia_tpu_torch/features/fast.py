@@ -4,21 +4,27 @@ The dense formulation of the reference: the 16 ring neighbours are static
 shifts of the image, the "≥ N contiguous" test is a min/max over N circular
 neighbours, NMS is a 3×3 max-pool equality and the per-cell selection is a
 packed max-reduce. On the card the score, NMS and Harris map of ORB's levels
-come from one CUDA kernel (ops/cuda_kernels.fast_harris), and the score of
+come from one CUDA kernel, K1 (:func:`fast_harris_levels`), and the score of
 the detector path (:func:`fast_detect`, ``_score_dispatch``,
 ``_score_nms_dispatch``, ``_two_tier_select``) from the same kernel's
-score-only forms, at any arc length (ops/cuda_kernels.fast_score);
-``fast_score`` and ``nms_maxpool`` here are their plain versions.
+score-only forms, at any arc length (``_kernel_score``); ``fast_score``,
+``nms_maxpool`` and ``harris_response`` are their plain versions.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+import functools
+import operator
+from typing import List, NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from kornia_tpu_torch import entry
-from kornia_tpu_torch.ops.filters import div_scalar
+from kornia_tpu_torch.features.responses import harris_response
+from kornia_tpu_torch.ops import cuda_kernels as ck
+from kornia_tpu_torch.ops.filters import div_scalar, gaussian_kernel1d
 
 # 16-point Bresenham circle of radius 3, clockwise from 12 o'clock
 # ((dy, dx) offsets) — the standard FAST-16 ring.
@@ -122,11 +128,132 @@ def _score_nms_dispatch(gray, threshold, arc_length, border_mask=None):
     return nms_maxpool(s if mask is None else s * mask)
 
 
-def _kernel_score(gray, threshold, arc_length, nms, mask):
-    from kornia_tpu_torch.ops import cuda_kernels as ck
+def fast_arc(arc_length: int) -> int:
+    """The arc length K1 computes for ``arc_length`` (it is compiled for
+    1..16): the same value, with n <= 1 taken as 1 and n >= 16 as 16, as
+    the reference's log-step doubling reduces them (pallas_kernels.py:
+    262-272: an arc of n <= 1 is the ring entry itself, an arc of n >= 16
+    covers the whole ring)."""
+    return min(max(operator.index(arc_length), 1), 16)
 
-    return ck.fast_score(gray, threshold, nms=nms, mask=mask,
-                         arc_length=arc_length)
+
+def _kernel_score(img: torch.Tensor, threshold: float, arc_length: int,
+                  nms: bool, mask: torch.Tensor | None) -> torch.Tensor:
+    """(H, W) u8 card tensor → (H, W) f32: the thresholded FAST-n score (n
+    = ``arc_length``), 0 on the 3-px border, times the (H, W) f32 ROI
+    ``mask`` where given, then 3×3 non-maximum suppression where ``nms``
+    is set. K1 without its Harris phases, one launch."""
+    n = fast_arc(arc_length)
+    ck.check(img, "fast_score image", torch.uint8, 2)
+    if mask is not None:
+        ck.check(mask, "fast_score mask", torch.float32, 2)
+        if mask.shape != img.shape or mask.get_device() != img.get_device():
+            raise ValueError(f"fast_score: mask {tuple(mask.shape)} on "
+                             f"{mask.device} must be the image's "
+                             f"{tuple(img.shape)} on {img.device}")
+    h, w = img.shape
+    out = torch.empty((h, w), dtype=torch.float32, device=img.device)
+    if out.numel():
+        rc = ck.kernel("fast_harris", "fast_score")(
+            img.data_ptr(), h, w, 0 if mask is None else mask.data_ptr(),
+            out.data_ptr(), float(threshold), int(bool(nms)), n,
+            ck.stream(img))
+        ck.launched("fast_score", rc)
+    return out
+
+
+# --------------------------------------------------------------------------
+# K1: FAST score + NMS + Harris of every level of a pyramid
+# --------------------------------------------------------------------------
+
+_HARRIS_K = 0.04
+# levels one K1 launch takes (the kernel's parameter table)
+FAST_HARRIS_MAX_LEVELS = 16
+
+
+def _fast_harris_plain(img: torch.Tensor, threshold: float):
+    """``nms_maxpool(fast_score(img, threshold))`` and the central-gradient
+    Harris map, as the CPU reference runs them (fast.py:159-162,
+    orb.py:465)."""
+    score = nms_maxpool(fast_score(img, threshold, 9))
+    hmap = harris_response(img.to(torch.float32), k=_HARRIS_K, block_size=5,
+                           sigma=1.0, grad="central")
+    return score, hmap
+
+
+@functools.lru_cache(maxsize=None)
+def _harris_window():
+    """The five Gaussian window taps (block 5, sigma 1) as the kernel's
+    ctypes argument, made once per process."""
+    return (ctypes.c_float * 5)(*[float(v) for v in gaussian_kernel1d(5, 1.0)])
+
+
+@functools.lru_cache(maxsize=64)
+def _level_table(shapes: Tuple[Tuple[int, int], ...]):
+    """The kernel's (hs, ws) ctypes arrays and the levels' element offsets
+    in the flat outputs, made once per pyramid shape."""
+    n = len(shapes)
+    offs = np.cumsum([0] + [h * w for h, w in shapes]).tolist()
+    return ((ctypes.c_int * n)(*[h for h, _ in shapes]),
+            (ctypes.c_int * n)(*[w for _, w in shapes]), offs)
+
+
+def fast_harris_levels(levels: Sequence[torch.Tensor], threshold: float
+                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """FAST score + NMS and the Harris map of every (H, W) u8 level of a
+    pyramid: a list of (score, Harris) pairs, each (H, W) f32. Any number
+    of levels, all on one device, in ceil(n / FAST_HARRIS_MAX_LEVELS)
+    kernel launches of consecutive levels (the kernel's level table holds
+    16); the maps of one launch are contiguous views of one flat buffer
+    (every level's score map, then every level's Harris map)."""
+    levels = list(levels)
+    if not levels:
+        return []
+    dev = levels[0].device
+    if any(img.device != dev for img in levels):
+        raise ValueError("fast_harris_levels: every level must be on one "
+                         "device")
+    for i, img in enumerate(levels):
+        if img.dtype != torch.uint8 or img.ndim != 2:
+            raise ValueError(f"fast_harris level {i}: expected a 2-D "
+                             f"torch.uint8 tensor, got {img.ndim}-D "
+                             f"{img.dtype}")
+    return [m for i in range(0, len(levels), FAST_HARRIS_MAX_LEVELS)
+            for m in _fast_harris_chunk(
+                levels[i:i + FAST_HARRIS_MAX_LEVELS], threshold)]
+
+
+def _fast_harris_chunk(levels: List[torch.Tensor], threshold: float
+                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """At most FAST_HARRIS_MAX_LEVELS checked levels: their plain versions
+    on the CPU, one kernel launch on the card."""
+    if levels[0].is_cpu:
+        return [_fast_harris_plain(img, threshold) for img in levels]
+    for i, img in enumerate(levels):
+        ck.check(img, f"fast_harris level {i}", torch.uint8, 2)
+    shapes = tuple(tuple(img.shape) for img in levels)
+    hs, ws, offs = _level_table(shapes)
+    total = offs[-1]
+    # one buffer: every level's score map, then every level's Harris map
+    out = torch.empty(2 * total, dtype=torch.float32, device=levels[0].device)
+    if total:
+        n = len(levels)
+        rc = ck.kernel("fast_harris")(
+            n, (ctypes.c_void_p * n)(*[img.data_ptr() for img in levels]),
+            hs, ws, out.data_ptr(), out.data_ptr() + 4 * total,
+            float(threshold), _harris_window(), _HARRIS_K,
+            ck.stream(levels[0]))
+        ck.launched("fast_harris", rc)
+    return [(out.as_strided((h, w), (w, 1), off),
+             out.as_strided((h, w), (w, 1), total + off))
+            for (h, w), off in zip(shapes, offs)]
+
+
+def fast_harris(img: torch.Tensor, threshold: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(H, W) u8 → (NMS'd FAST-9 score, Harris map), both (H, W) f32: the
+    one-level call of :func:`fast_harris_levels`."""
+    return fast_harris_levels([img], threshold)[0]
 
 
 @entry

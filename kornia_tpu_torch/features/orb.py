@@ -2,24 +2,24 @@
 
 The FAST score, its 3×3 NMS and the dense Harris map of every pyramid
 level come from one CUDA kernel launch per 16 levels
-(``cuda_kernels.fast_harris_levels``); then per level the two-tier gate and
+(``fast.fast_harris_levels``, K1); then per level the two-tier gate and
 the packed per-cell top-k pick candidates and a stable top-k takes the
-level budget, all levels in one ``cuda_kernels.orb_select`` call (on the
-card one kernel, 3 launches a frame). The describe stage has three
-forms, chosen by the ``describe=`` argument of
-:func:`orb_detect_and_describe` (the reference picks them by environment
-variable and backend):
+level budget, all levels in one :func:`orb_select` call (on the card one
+kernel, K10, 3 launches a frame). The describe stage has three forms,
+chosen by the ``describe=`` argument of :func:`orb_detect_and_describe`
+(the reference picks them by environment variable and backend):
 
 * ``"paired"`` (the default for an even budget sum): every level's
-  keypoints in one ``cuda_kernels.orb_describe`` call, on the card one
-  kernel (the levels' blur, intensity-centroid orientation and rotated
-  BRIEF, u8 levels in, angles and descriptor bits out). Its plain version
-  (the CPU route, in ``cuda_kernels`` beside it) is the composition: all
-  levels in one edge-replicated canvas, keypoints 2i and 2i+1 share one
-  (40, 128) window (``cuda_kernels.windows_paired``), orientation on
-  those windows, then ``cuda_kernels.brief_rotated``, which rotates the
-  pattern by each keypoint's (cos, sin), samples the window's 1024 taps
-  and compares;
+  keypoints in one :func:`orb_describe` call, on the card one kernel, K11
+  (the levels' blur, intensity-centroid orientation and rotated BRIEF, u8
+  levels in, angles and descriptor bits out). Its plain version (the CPU
+  route) is the paired composition: all levels in one edge-replicated
+  canvas, keypoints 2i and 2i+1 share one (40, 128) window
+  (:func:`_extract_windows_packed_paired`, ``cuda_kernels.windows_paired``),
+  :func:`orientation_from_windows_paired` on those windows, then
+  :func:`brief_from_windows_paired` (``cuda_kernels.brief_rotated``), which
+  rotates the pattern by each keypoint's (cos, sin), samples the window's
+  1024 taps and compares;
 * ``"unpaired"`` (odd budget sums): one (48, 128) window per keypoint from
   the same kind of canvas (``cuda_kernels.windows``); BRIEF either by
   ``brief="sample"`` (``cuda_kernels.brief_rotated`` on the 48-row layout,
@@ -35,31 +35,36 @@ literal ORB-SLAM3 quadtree on the host and describes per level through
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import json
 import os
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from kornia_tpu_torch import resolve_device, to_device
 from kornia_tpu_torch.features.fast import (cell_budget, fast_detect_cells,
+                                            fast_harris, fast_harris_levels,
                                             select_cells)
 from kornia_tpu_torch.features.quadtree import distribute_quadtree
 from kornia_tpu_torch.ops import cuda_kernels as ck
-from kornia_tpu_torch.ops.filters import gaussian_blur
+from kornia_tpu_torch.ops.filters import (const_on, gaussian_blur,
+                                          gaussian_kernel1d)
 from kornia_tpu_torch.ops.resize import resize
 from kornia_tpu_torch.utils import tracing
 
 _PATCH = 31
 _HALF = _PATCH // 2  # 15
-_WIN_H = 48           # unpaired keypoint window: covers the 31×31
-_WIN_W = 128          # orientation patch and all rotated BRIEF taps
-_WIN_CY = 24
-_WIN_CX = 64
-_BLUR_KSIZE = (ck.ORB_BLUR_KSIZE, ck.ORB_BLUR_KSIZE)
+# keypoint windows (ck.WIN_H/WIN_CY/WIN_CX unpaired, ck.PAIR_WIN_H/PAIR_CY
+# paired) are 128 lanes wide: they cover the 31×31 orientation patch and
+# all rotated BRIEF taps
+_WIN_W = 128
+_PAIR_CX = (32, 96)   # the lanes the two halves of a paired window centre on
+# the Gaussian blur of the describe stage, every form
+_BLUR_KSIZE, _BLUR_SIGMA = 7, 2.0
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,6 +101,29 @@ def _pattern_on(pattern: str, seed: int, device) -> torch.Tensor:
     name), uploaded once per (pattern, seed, device)."""
     return torch.from_numpy(_resolve_pattern(pattern, seed)).to(
         device).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _circular_mask() -> np.ndarray:
+    """(31, 31) mask of the intensity-centroid circle of radius 15."""
+    yy, xx = np.mgrid[-_HALF: _HALF + 1, -_HALF: _HALF + 1]
+    return (xx * xx + yy * yy <= _HALF * _HALF).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _circular_mask_on(device) -> torch.Tensor:
+    """:func:`_circular_mask` on ``device``, uploaded once per device."""
+    return torch.from_numpy(_circular_mask()).to(device)
+
+
+def _centroid_angle(patches: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid orientation of (K, 31, 31) patches, radians."""
+    dev = patches.device
+    mask = _circular_mask_on(dev)
+    offs = torch.arange(-_HALF, _HALF + 1, dtype=torch.float32, device=dev)
+    m10 = torch.sum(patches * mask * offs[None, None, :], dim=(1, 2))
+    m01 = torch.sum(patches * mask * offs[None, :, None], dim=(1, 2))
+    return torch.atan2(m01, m10)
 
 
 class OrbFeatures(NamedTuple):
@@ -147,12 +175,141 @@ def _select_level(level_img: torch.Tensor, budget: int, cfg: OrbConfig,
                   maps=None):
     """Detection + budgeted selection for one octave: (xy level coords,
     vals, valid), by ``fast.select_cells``. ``maps``: the level's (NMS'd
-    score, Harris map) from ``cuda_kernels.fast_harris_levels``; None
-    computes them for this level alone."""
+    score, Harris map) from ``fast.fast_harris_levels``; None computes
+    them for this level alone."""
     s_lo, hmap = (maps if maps is not None
-                  else ck.fast_harris(level_img, cfg.fast_threshold_low))
+                  else fast_harris(level_img, cfg.fast_threshold_low))
     return select_cells(level_img, s_lo, hmap, budget, cfg.cell_size,
                         cfg.fast_threshold_high, cfg.harris_rescore)
+
+
+# --------------------------------------------------------------------------
+# K10: ORB's per-level selection, all levels of a frame
+# --------------------------------------------------------------------------
+
+# levels one K10 call takes (the kernel's MAX_LEVELS: its parameter table)
+ORB_SELECT_MAX_LEVELS = 32
+# slots of one level (the kernel's MAX_SLOTS)
+ORB_SELECT_MAX_SLOTS = 1 << 24
+# a level's sort keeps an 8-byte key a slot, padded to the next power of
+# two: in one block's shared memory up to this many keys (the kernel's
+# MAX_SORT: 128 KiB of the 227 KB a block may use), else in the scratch,
+# in global memory
+ORB_SELECT_SHARED_SORT = 16384
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+@functools.lru_cache(maxsize=64)
+def orb_select_plan(shapes: Tuple[Tuple[int, int], ...],
+                    budgets: Tuple[int, ...], cell_size: int):
+    """Per level (cells, per_cell) of ORB's selection on levels of
+    ``shapes`` with ``budgets`` keypoints, or None where K10 cannot take
+    the frame: no level or more than ORB_SELECT_MAX_LEVELS, cell_size² over
+    2048 (the packed key's 11 position bits), an empty level, or a level
+    with more than ORB_SELECT_MAX_SLOTS slots."""
+    if (not 1 <= len(shapes) <= ORB_SELECT_MAX_LEVELS
+            or len(budgets) != len(shapes)
+            or not 1 <= cell_size * cell_size <= 2048):
+        return None
+    plan = []
+    for (h, w), b in zip(shapes, budgets):
+        if h < 1 or w < 1 or b < 0:
+            return None
+        cells, per_cell = cell_budget(h, w, b, cell_size)
+        if cells * per_cell > ORB_SELECT_MAX_SLOTS:
+            return None
+        plan.append((cells, per_cell))
+    return tuple(plan)
+
+
+@functools.lru_cache(maxsize=64)
+def _select_table(shapes: Tuple[Tuple[int, int], ...],
+                  budgets: Tuple[int, ...], cell_size: int):
+    """The kernel's (hs, ws, budgets, per_cell) ctypes arrays and the
+    scratch's f32 words (8 bytes a cell and a slot, and a sort key of the
+    levels sorted in global memory), made once per pyramid shape; raises
+    where :func:`orb_select_plan` finds no plan."""
+    plan = orb_select_plan(shapes, budgets, cell_size)
+    if plan is None:
+        raise ValueError(f"orb_select cannot take levels {list(shapes)} with "
+                         f"budgets {list(budgets)} and cell {cell_size}")
+    n = len(shapes)
+    ints = [(ctypes.c_int * n)(*v) for v in (
+        [h for h, _ in shapes], [w for _, w in shapes], budgets,
+        [p for _, p in plan])]
+    keys = [_pow2(c * p) for c, p in plan]
+    return (*ints, 2 * sum(c + c * p for c, p in plan)
+            + 2 * sum(k for k in keys if k > ORB_SELECT_SHARED_SORT))
+
+
+def _orb_select_plain(levels, maps, budgets, cell_size, threshold_high,
+                      harris_rescore=True):
+    """features/fast.py::select_cells on every level: the per-level
+    composition (two-tier gate, Harris quantisation, packed cell top-k,
+    stable_topk, gather)."""
+    return [select_cells(img, s, h, int(b), cell_size, threshold_high,
+                         harris_rescore)
+            for img, (s, h), b in zip(levels, maps, budgets)]
+
+
+def orb_select(levels: Sequence[torch.Tensor],
+               maps: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+               budgets: Sequence[int], cell_size: int, threshold_high: float,
+               harris_rescore: bool = True) -> List[Tuple[torch.Tensor, ...]]:
+    """ORB's keypoint selection on every (H, W) u8 level of a frame: per
+    level (xy (B, 2) f32 level coordinates, vals (B,) f32, valid (B,)
+    bool), as ``fast.select_cells`` gives them on ``levels[i]``, K1's
+    (score, Harris) pair ``maps[i]`` (``fast.fast_harris_levels``) and
+    ``budgets[i]`` keypoints.
+
+    The plain version on a CPU tensor; on the card one call of the kernel,
+    3 launches (2 without ``harris_rescore``) for every level together, no
+    host sync, the outputs views of one buffer. Raises where
+    :func:`orb_select_plan` finds no plan."""
+    levels, maps = list(levels), list(maps)
+    budgets = tuple(int(b) for b in budgets)
+    if not levels or not len(levels) == len(maps) == len(budgets):
+        raise ValueError("orb_select: one map pair and one budget a level")
+    if levels[0].is_cpu:
+        return _orb_select_plain(levels, maps, budgets, cell_size,
+                                 threshold_high, harris_rescore)
+    shapes = tuple(tuple(img.shape) for img in levels)
+    hs, ws, bs, pcs, nf = _select_table(shapes, budgets, int(cell_size))
+    # device indices, not torch.device objects: this loop runs every frame
+    d = levels[0].get_device()
+    for i, (img, pair) in enumerate(zip(levels, maps)):
+        if img.dtype != torch.uint8 or img.get_device() != d:
+            raise ValueError(f"orb_select level {i}: expected torch.uint8 on "
+                             f"{levels[0].device}, got {img.dtype} on "
+                             f"{img.device}")
+        for t, what in zip(pair, ("score", "Harris")):
+            ck.check(t, f"orb_select level {i} {what} map", torch.float32, 2)
+            if t.shape != img.shape or t.get_device() != d:
+                raise ValueError(f"orb_select level {i}: {what} map "
+                                 f"{tuple(t.shape)} on {t.device}, level "
+                                 f"{shapes[i]} on {img.device}")
+    k = sum(budgets)
+    # one buffer: the scratch, xy, vals (f32), then valid (u8)
+    nw = nf + 3 * k
+    buf = torch.empty(4 * nw + k, dtype=torch.uint8, device=levels[0].device)
+    words = buf[:4 * nw].view(torch.float32)
+    xy = words[nf:nf + 2 * k].view(k, 2)
+    vals = words[nf + 2 * k:]
+    valid = buf[4 * nw:].view(torch.bool)
+    n = len(levels)
+    rescore = bool(harris_rescore)
+    rc = ck.kernel("orb_select")(
+        n, (ctypes.c_void_p * n)(*[s.data_ptr() for s, _ in maps]),
+        (ctypes.c_void_p * n)(*[h.data_ptr() for _, h in maps]),
+        hs, ws, bs, pcs, int(cell_size), float(threshold_high), int(rescore),
+        buf.data_ptr(), xy.data_ptr(), vals.data_ptr(), valid.data_ptr(),
+        ck.stream(levels[0]))
+    ck.launched("orb_select", rc, 3 if rescore else 2)
+    return list(zip(xy.split(budgets), vals.split(budgets),
+                    valid.split(budgets)))
 
 
 def _gather_patches(gray_f: torch.Tensor, xy_int: torch.Tensor,
@@ -171,31 +328,42 @@ def _extract_windows(img_f: torch.Tensor, xy_int: torch.Tensor
     """(K, 48, 128) windows centred at (K, 2) int32 keypoints of one frame,
     edge-replicated at the borders."""
     return ck.windows(img_f.to(torch.float32).contiguous(),
-                      xy_int.contiguous(), _WIN_H, _WIN_CY, _WIN_CX)
+                      xy_int.contiguous())
 
 
 def _extract_windows_packed(frames: List[torch.Tensor],
                             xys: List[torch.Tensor]) -> torch.Tensor:
     """(K, 48, 128) windows over all levels from ONE stacked canvas: each
     keypoint's y is offset by its level's first canvas row."""
-    canvas, starts = ck.prepare_window_canvas(frames, _WIN_H, _WIN_CY)
+    canvas, starts = ck.prepare_window_canvas(frames, ck.WIN_H, ck.WIN_CY)
     wimg = max(int(f.shape[1]) for f in frames)
-    return ck.windows(canvas, ck.canvas_xy(xys, starts), _WIN_H,
+    return ck.windows(canvas, _canvas_xy(xys, starts),
                       prepared=(starts[-1], wimg))
+
+
+def _canvas_xy(xys: Sequence[torch.Tensor], starts: Sequence[int]
+               ) -> torch.Tensor:
+    """(K, 2) int32 canvas keypoints of every level: each level's (x, y)
+    with y offset by its first canvas row (``prepare_window_canvas``'s
+    ``starts``), the offsets one constant on the keypoints' device (no
+    upload once it is made)."""
+    offs = const_on(tuple((0, s) for s in starts[:-1]), xys[0].device,
+                    torch.int32)
+    return torch.cat([x + offs[i] for i, x in enumerate(xys)]).contiguous()
 
 
 def orientation_from_windows(windows: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid orientation from (K, 48, 128) windows."""
-    return ck.centroid_angle(
-        windows[:, _WIN_CY - _HALF: _WIN_CY + _HALF + 1,
-                _WIN_CX - _HALF: _WIN_CX + _HALF + 1])
+    return _centroid_angle(
+        windows[:, ck.WIN_CY - _HALF: ck.WIN_CY + _HALF + 1,
+                ck.WIN_CX - _HALF: ck.WIN_CX + _HALF + 1])
 
 
 def orientation_ic(gray_f: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid orientation at (K, 2) keypoints by a patch
     gather."""
     xy_int = torch.round(xy).to(torch.int32)
-    return ck.centroid_angle(_gather_patches(gray_f, xy_int, _HALF))
+    return _centroid_angle(_gather_patches(gray_f, xy_int, _HALF))
 
 
 def _brief_tap_coords(angle: torch.Tensor, seed: int, pattern: str,
@@ -217,8 +385,8 @@ def _brief_tap_coords(angle: torch.Tensor, seed: int, pattern: str,
     dy = torch.round(px[None, :] * sa[:, None]
                      + py[None, :] * ca[:, None]).to(torch.int32)
     if half_w is None:
-        cols = torch.clamp(_WIN_CX + dx, 0, _WIN_W - 1)
-        rows = torch.clamp(_WIN_CY + dy, 0, _WIN_H - 1)
+        cols = torch.clamp(ck.WIN_CX + dx, 0, _WIN_W - 1)
+        rows = torch.clamp(ck.WIN_CY + dy, 0, ck.WIN_H - 1)
     else:
         cols = torch.clamp(half_w + dx, 0, 2 * half_w - 1)
         rows = torch.clamp(ck.PAIR_CY + dy, 0, ck.PAIR_WIN_H - 1)
@@ -244,13 +412,13 @@ def brief_from_windows(windows: torch.Tensor, angle: torch.Tensor,
     if brief != "lane_gather":
         raise ValueError(f"unknown BRIEF formulation {brief!r}")
     rows, cols = _brief_tap_coords(angle, seed, pattern)
-    src = windows.reshape(k * _WIN_H, _WIN_W)
-    iota_y = torch.arange(_WIN_H, device=windows.device)[None, :, None]
+    src = windows.reshape(k * ck.WIN_H, _WIN_W)
+    iota_y = torch.arange(ck.WIN_H, device=windows.device)[None, :, None]
     zero = torch.zeros((), dtype=windows.dtype, device=windows.device)
     samples = []
     for g in range(4):
         cg = cols[:, g * 128: (g + 1) * 128].contiguous()   # (K, 128)
-        gathered = ck.lane_gather(src, cg).reshape(k, _WIN_H, 128)
+        gathered = ck.lane_gather(src, cg).reshape(k, ck.WIN_H, 128)
         rg = rows[:, g * 128: (g + 1) * 128]           # (K, 128)
         oh = iota_y == rg[:, None, :]
         samples.append(torch.sum(torch.where(oh, gathered, zero), dim=1))
@@ -295,6 +463,152 @@ def unpack_descriptors(packed: torch.Tensor) -> torch.Tensor:
     return bits.reshape(packed.shape[0], -1)
 
 
+# --------------------------------------------------------------------------
+# the paired describe stage: its composition, and K11, all levels of a frame
+# --------------------------------------------------------------------------
+
+
+def _extract_windows_packed_paired(frames: Sequence[torch.Tensor],
+                                   xys: Sequence[torch.Tensor]
+                                   ) -> torch.Tensor:
+    """(K/2, 40, 128) paired windows over all levels from ONE stacked
+    canvas: each keypoint's y is offset by its level's first canvas row;
+    keypoints 2i and 2i+1 share window i, centred at lanes 32 and 96."""
+    canvas, starts = ck.prepare_window_canvas(list(frames))
+    wimg = max(int(f.shape[1]) for f in frames)
+    return ck.windows_paired(canvas, _canvas_xy(xys, starts), wimg)
+
+
+def orientation_from_windows_paired(windows: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid orientation from paired (K/2, 40, 128) windows →
+    (K,) radians in keypoint order."""
+    angs = [_centroid_angle(
+        windows[:, ck.PAIR_CY - _HALF: ck.PAIR_CY + _HALF + 1,
+                cx - _HALF: cx + _HALF + 1]) for cx in _PAIR_CX]
+    return torch.stack(angs, dim=1).reshape(-1)
+
+
+def brief_from_windows_paired(windows: torch.Tensor, angle: torch.Tensor,
+                              pattern: torch.Tensor) -> torch.Tensor:
+    """Rotated BRIEF-256 (K, 256) u8 bits from paired (K/2, 40, 128)
+    blurred windows, (K,) angles and the (256, 4) int32 pattern: each
+    window's 1024 taps (keypoint 2i's 512 about lane 32, 2i+1's about lane
+    96) rotated, sampled and compared in one ``cuda_kernels.brief_rotated``
+    pass."""
+    return ck.brief_rotated(windows.contiguous(), torch.cos(angle),
+                            torch.sin(angle), pattern, "paired")
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_taps():
+    """The blur's seven f32 taps as K11's ctypes argument."""
+    taps = gaussian_kernel1d(_BLUR_KSIZE, _BLUR_SIGMA)
+    return (ctypes.c_float * _BLUR_KSIZE)(*[float(v) for v in taps])
+
+
+def _orb_describe_shape(levels, xys, pattern):
+    """Checks shared by the kernel and plain routes of
+    :func:`orb_describe`; returns (shapes, budgets)."""
+    if not levels or len(levels) != len(xys):
+        raise ValueError("orb_describe: one keypoint tensor a level")
+    for i, (img, xy) in enumerate(zip(levels, xys)):
+        if img.ndim != 2:
+            raise ValueError(f"orb_describe level {i}: expected (H, W), got "
+                             f"{tuple(img.shape)}")
+        if xy.ndim != 2 or xy.shape[1] != 2:
+            raise ValueError(f"orb_describe level {i}: xy must be (B, 2), "
+                             f"got {tuple(xy.shape)}")
+    budgets = tuple(int(xy.shape[0]) for xy in xys)
+    if sum(budgets) % 2:
+        raise ValueError("orb_describe: the paired form needs an even "
+                         "keypoint count")
+    if tuple(pattern.shape) != (256, 4):
+        raise ValueError("orb_describe: pattern must be (256, 4)")
+    return tuple(tuple(img.shape) for img in levels), budgets
+
+
+@functools.lru_cache(maxsize=64)
+def _describe_table(shapes: Tuple[Tuple[int, int], ...],
+                    budgets: Tuple[int, ...]):
+    """The kernel's (hs, ws, budgets) ctypes arrays, made once per pyramid
+    shape; raises where K11 cannot take the frame: no level or more than
+    ORB_SELECT_MAX_LEVELS (K10's limit), or an empty level."""
+    n = len(shapes)
+    if not 1 <= n <= ORB_SELECT_MAX_LEVELS or len(budgets) != n:
+        raise ValueError(f"orb_describe takes 1 to {ORB_SELECT_MAX_LEVELS} "
+                         f"levels, got {n}")
+    if any(h < 1 or w < 1 for h, w in shapes):
+        raise ValueError(f"orb_describe cannot take an empty level: "
+                         f"{list(shapes)}")
+    return tuple((ctypes.c_int * n)(*v) for v in (
+        [h for h, _ in shapes], [w for _, w in shapes], budgets))
+
+
+def _orb_describe_plain(levels, xys, pattern):
+    """The paired composition: the f32 levels and their blurs, both
+    level-stacked canvases (:func:`_extract_windows_packed_paired`, K2 on
+    the card), :func:`orientation_from_windows_paired`, then
+    :func:`brief_from_windows_paired` (K3) on the blurred windows."""
+    grays_f = [img.to(torch.float32) for img in levels]
+    blurs = [gaussian_blur(g, (_BLUR_KSIZE, _BLUR_KSIZE), _BLUR_SIGMA)
+             for g in grays_f]
+    xy_ints = [torch.round(xy).to(torch.int32) for xy in xys]
+    ang = orientation_from_windows_paired(
+        _extract_windows_packed_paired(grays_f, xy_ints))
+    bits = brief_from_windows_paired(
+        _extract_windows_packed_paired(blurs, xy_ints), ang, pattern)
+    return ang, bits
+
+
+def orb_describe_fused(levels: Sequence[torch.Tensor]) -> bool:
+    """Whether :func:`orb_describe` runs K11 on these levels (a card
+    tensor) rather than its plain version."""
+    return not levels[0].is_cpu
+
+
+def orb_describe(levels: Sequence[torch.Tensor],
+                 xys: Sequence[torch.Tensor], pattern: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ORB's paired describe stage on every (H, W) u8 level of a frame:
+    ``xys[i]`` the (B_i, 2) f32 level coordinates of level i's keypoints
+    (:func:`orb_select`'s xy), ``pattern`` the (256, 4) int32 BRIEF pattern
+    on the levels' device. Returns ((K,) f32 intensity-centroid angles,
+    (K, 256) u8 rotated BRIEF bits of the 7 x 7 σ 2 blurred levels), K =
+    ΣB_i, even, keypoints in level order.
+
+    The plain version (:func:`_orb_describe_plain`) on a CPU tensor; on the
+    card one launch for every level, no host sync, bit-equal to it for any
+    keypoint position. Raises where :func:`_describe_table` does."""
+    levels, xys = list(levels), list(xys)
+    shapes, budgets = _orb_describe_shape(levels, xys, pattern)
+    if not orb_describe_fused(levels):
+        return _orb_describe_plain(levels, xys, pattern)
+    hs, ws, bs = _describe_table(shapes, budgets)
+    d = levels[0].get_device()
+    for i, (img, xy) in enumerate(zip(levels, xys)):
+        ck.check(img, f"orb_describe level {i}", torch.uint8, 2)
+        ck.check(xy, f"orb_describe level {i} xy", torch.float32, 2)
+        if img.get_device() != d or xy.get_device() != d:
+            raise ValueError(f"orb_describe level {i}: level on {img.device}"
+                             f" and xy on {xy.device}, not {levels[0].device}")
+    ck.check(pattern, "orb_describe pattern", torch.int32, 2)
+    if pattern.get_device() != d or pattern.data_ptr() % 16:
+        raise ValueError("orb_describe: the pattern must be on the levels' "
+                         "device and start on a 16-byte boundary")
+    k = sum(budgets)
+    angle = torch.empty(k, dtype=torch.float32, device=levels[0].device)
+    bits = torch.empty((k, 256), dtype=torch.uint8, device=levels[0].device)
+    if k:
+        n = len(levels)
+        rc = ck.kernel("orb_describe")(
+            n, (ctypes.c_void_p * n)(*[img.data_ptr() for img in levels]),
+            (ctypes.c_void_p * n)(*[xy.data_ptr() for xy in xys]), hs, ws,
+            bs, _blur_taps(), pattern.data_ptr(), angle.data_ptr(),
+            bits.data_ptr(), ck.stream(levels[0]))
+        ck.launched("orb_describe", rc)
+    return angle, bits
+
+
 _DESCRIBE = ("auto", "paired", "unpaired", "gather")
 _BRIEF = ("sample", "lane_gather")
 
@@ -321,11 +635,11 @@ def _describe(levels: List[torch.Tensor], sels, cfg: OrbConfig,
     """Orientation and descriptor bits of the selected keypoints of every
     level in the resolved ``describe`` form: ((N,) angles, (N, 256) u8)."""
     if describe == "paired":
-        return ck.orb_describe(
+        return orb_describe(
             levels, [xy for xy, _, _ in sels],
             _pattern_on(cfg.pattern, cfg.pattern_seed, levels[0].device))
     grays_f = [img.to(torch.float32) for img in levels]
-    blurs = [gaussian_blur(g, _BLUR_KSIZE, ck.ORB_BLUR_SIGMA)
+    blurs = [gaussian_blur(g, (_BLUR_KSIZE, _BLUR_KSIZE), _BLUR_SIGMA)
              for g in grays_f]
     xy_ints = [torch.round(xy).to(torch.int32) for xy, _, _ in sels]
     if describe == "unpaired":
@@ -356,7 +670,7 @@ def orb_detect_and_describe(gray_u8, cfg: OrbConfig = OrbConfig(),
 
     Its stages are spans (``utils.tracing``): ``features.orb`` around the
     call, inside it ``.upload``, ``.pyramid``, ``.fast_harris``,
-    ``.select`` (every level in one ``cuda_kernels.orb_select`` call,
+    ``.select`` (every level in one :func:`orb_select` call,
     attribute ``"all"``), ``.describe`` (attribute ``"fused"`` where the
     paired form runs on the card, K11, else ``"composed"``) and
     ``.assemble``."""
@@ -369,12 +683,12 @@ def orb_detect_and_describe(gray_u8, cfg: OrbConfig = OrbConfig(),
         with tracing.span("features.orb.pyramid"):
             levels = _pyramid(gray, cfg)
         with tracing.span("features.orb.fast_harris"):
-            maps = ck.fast_harris_levels(levels, cfg.fast_threshold_low)
+            maps = fast_harris_levels(levels, cfg.fast_threshold_low)
         with tracing.span("features.orb.select", "all"):
-            sels = ck.orb_select(levels, maps, budgets, cfg.cell_size,
-                                 cfg.fast_threshold_high, cfg.harris_rescore)
+            sels = orb_select(levels, maps, budgets, cfg.cell_size,
+                              cfg.fast_threshold_high, cfg.harris_rescore)
         route = ("fused" if describe == "paired"
-                 and ck.orb_describe_fused(levels) else "composed")
+                 and orb_describe_fused(levels) else "composed")
         with tracing.span("features.orb.describe", route):
             ang, desc = _describe(levels, sels, cfg, describe, brief)
         with tracing.span("features.orb.assemble"):
@@ -425,7 +739,8 @@ def orb_detect_and_describe_quadtree(gray_u8, cfg: OrbConfig = OrbConfig(),
         gray_f = img.to(torch.float32)
         xy = torch.from_numpy(xy_np[idx]).to(dev)
         xy_int = torch.round(xy).to(torch.int32)
-        blurred = gaussian_blur(gray_f, _BLUR_KSIZE, ck.ORB_BLUR_SIGMA)
+        blurred = gaussian_blur(gray_f, (_BLUR_KSIZE, _BLUR_KSIZE),
+                                _BLUR_SIGMA)
         ang = orientation_from_windows(_extract_windows(gray_f, xy_int))
         desc = brief_from_windows(_extract_windows(blurred, xy_int), ang,
                                   cfg.pattern_seed, cfg.pattern, brief)

@@ -2,8 +2,7 @@
 Harris dense and at keypoints, Shi-Tomasi, det(Hessian), DoG).
 
 ``harris_at_windows`` evaluates the structure tensor on keypoint windows cut
-by ``cuda_kernels.windows``; the imports of ``cuda_kernels`` are inside the
-functions because that module imports this one for its plain versions."""
+by ``cuda_kernels.windows``."""
 
 from __future__ import annotations
 
@@ -11,6 +10,7 @@ import numpy as np
 import torch
 
 from kornia_tpu_torch import entry
+from kornia_tpu_torch.ops import cuda_kernels as ck
 from kornia_tpu_torch.ops.filters import (_conv_sep, gaussian_kernel1d,
                                           index_on, sobel)
 
@@ -115,8 +115,6 @@ def harris_at_windows(gray_f: torch.Tensor, xy_int: torch.Tensor,
     instead of a dense map: the structure tensor of
     ``harris_response(grad="central")`` restricted to a (block + 2)² patch,
     ranking-consistent with the dense map away from the borders."""
-    from kornia_tpu_torch.ops import cuda_kernels as ck
-
     r = block_size // 2 + 1                  # + gradient halo
     win = ck.windows(gray_f.to(torch.float32).contiguous(),
                      xy_int.contiguous())    # (N, 48, 128)

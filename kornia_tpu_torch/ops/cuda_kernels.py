@@ -1,12 +1,14 @@
-"""Hand-written CUDA kernels of the port, their plain PyTorch versions, the
-build and the launch counters.
+"""The runtime of the port's hand-written CUDA kernels (build, binding,
+launch path, launch counters) and the kernels whose contracts are image
+operations, each with its plain PyTorch version.
 
 Each TPU kernel on a ported path (kornia_tpu/ops/pallas_kernels.py,
 warp_pallas.py, warp_shear.py) has one CUDA C++ source under ``csrc/`` for
-sm_90a and one wrapper here; ``orb_select`` (K10) and ``orb_describe``
-(K11) replace no TPU kernel: the JAX package selects and describes ORB's
-keypoints in dense XLA ops around its kernels, which eager PyTorch on the
-card runs as some hundred launches a frame:
+sm_90a and one wrapper, beside its plain version: here, or in the features
+module whose code that plain version is. ``orb_select`` (K10) and
+``orb_describe`` (K11) replace no TPU kernel: the JAX package selects and
+describes ORB's keypoints in dense XLA ops around its kernels, which eager
+PyTorch on the card runs as some hundred launches a frame:
 
 ==============  ==========================================  =================
 wrapper         replaces                                    source
@@ -14,8 +16,9 @@ wrapper         replaces                                    source
 fast_harris_    pallas_kernels.py::fast_score_pallas        fast_harris.cu
 levels,         (nms=True, harris=True): up to 16 levels
 fast_harris     of a pyramid in one launch, or one level
-fast_score      the same kernel's score-only forms          fast_harris.cu
-                (harris=False; nms on or off; border_mask
+(fast.py)
+_kernel_score   the same kernel's score-only forms          fast_harris.cu
+(fast.py)       (harris=False; nms on or off; border_mask
                 under the XLA path's contract; any
                 arc_length), one level
 windows_paired  pallas_kernels.py::                         windows_paired.cu
@@ -39,14 +42,18 @@ shear_y         the same kernel on the transpose            shear_x.cu
                 (warp_shear.py::_shear_y), as a column
                 pass on the canvas in its own layout
 orb_select      none: features/fast.py::select_cells on     orb_select.cu
-                every level of a frame (two-tier gate,
+(orb.py)        every level of a frame (two-tier gate,
                 Harris quantisation, cell top-k, stable
                 top-k), 3 launches for all levels
 orb_describe    none: features/orb.py's paired describe     orb_describe.cu
-                (casts, blurs, canvases, K2, centroid
+(orb.py)        (casts, blurs, canvases, K2, centroid
                 angle, cos/sin, K3) on every level, one
                 launch for all levels
 ==============  ==========================================  =================
+
+The wrappers marked (fast.py) and (orb.py) are in the package's features
+modules and launch through :func:`kernel`, :func:`check`, :func:`launched`
+and :func:`stream`. This module imports nothing from ``features``.
 
 Dispatch is by the tensor's device only: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel or raises. There is no fallback.
@@ -65,7 +72,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
-import operator
 import os
 import shutil
 import subprocess
@@ -75,10 +81,6 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from kornia_tpu_torch.features import fast as _fast
-from kornia_tpu_torch.features.responses import harris_response
-from kornia_tpu_torch.ops.filters import (const_on, gaussian_blur,
-                                          gaussian_kernel1d)
 from kornia_tpu_torch.ops.resize import _resize_matrix
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -189,7 +191,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> Dict[str, object]:
 # wrapper's host time is most of what a caller waits (PERF.md section 6).
 
 
-def _kernel(name: str, entry: str | None = None):
+def kernel(name: str, entry: str | None = None):
     """The bound C function ``kt_<entry or name>``; the first call builds
     every library."""
     fn = _FNS.get(entry or name)
@@ -199,7 +201,7 @@ def _kernel(name: str, entry: str | None = None):
     return fn
 
 
-def _check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int):
+def check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int):
     if not t.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -210,7 +212,7 @@ def _check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int):
         raise ValueError(f"{what}: expected a contiguous tensor")
 
 
-def _launched(name: str, rc: int, n: int = 1) -> None:
+def launched(name: str, rc: int, n: int = 1) -> None:
     """Count the ``n`` kernel launches of one call of entry ``name``."""
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
@@ -226,483 +228,24 @@ def _raw_stream_fn():
     return torch._C._cuda_getCurrentRawStream
 
 
-def _stream(t: torch.Tensor) -> int:
+def stream(t: torch.Tensor) -> int:
     return _raw_stream_fn()(t.get_device())
-
-
-# --------------------------------------------------------------------------
-# K1: FAST score + NMS + Harris
-# --------------------------------------------------------------------------
-
-_HARRIS_K = 0.04
-
-
-def _fast_harris_plain(img: torch.Tensor, threshold: float):
-    """``nms_maxpool(fast_score(img, threshold))`` and the central-gradient
-    Harris map, as the CPU reference runs them (fast.py:159-162,
-    orb.py:465)."""
-    score = _fast.nms_maxpool(_fast.fast_score(img, threshold, 9))
-    hmap = harris_response(img.to(torch.float32), k=_HARRIS_K, block_size=5,
-                           sigma=1.0, grad="central")
-    return score, hmap
-
-
-# levels one K1 launch takes (the kernel's parameter table)
-FAST_HARRIS_MAX_LEVELS = 16
-
-
-@functools.lru_cache(maxsize=None)
-def _harris_window():
-    """The five Gaussian window taps (block 5, sigma 1) as the kernel's
-    ctypes argument, made once per process."""
-    return (ctypes.c_float * 5)(*[float(v) for v in gaussian_kernel1d(5, 1.0)])
-
-
-@functools.lru_cache(maxsize=64)
-def _level_table(shapes: Tuple[Tuple[int, int], ...]):
-    """The kernel's (hs, ws) ctypes arrays and the levels' element offsets
-    in the flat outputs, made once per pyramid shape."""
-    n = len(shapes)
-    offs = np.cumsum([0] + [h * w for h, w in shapes]).tolist()
-    return ((ctypes.c_int * n)(*[h for h, _ in shapes]),
-            (ctypes.c_int * n)(*[w for _, w in shapes]), offs)
-
-
-def fast_harris_levels(levels: Sequence[torch.Tensor], threshold: float
-                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """FAST score + NMS and the Harris map of every (H, W) u8 level of a
-    pyramid: a list of (score, Harris) pairs, each (H, W) f32. Any number
-    of levels, all on one device, in ceil(n / FAST_HARRIS_MAX_LEVELS)
-    kernel launches of consecutive levels (the kernel's level table holds
-    16); the maps of one launch are contiguous views of one flat buffer
-    (every level's score map, then every level's Harris map)."""
-    levels = list(levels)
-    if not levels:
-        return []
-    dev = levels[0].device
-    if any(img.device != dev for img in levels):
-        raise ValueError("fast_harris_levels: every level must be on one "
-                         "device")
-    for i, img in enumerate(levels):
-        if img.dtype != torch.uint8 or img.ndim != 2:
-            raise ValueError(f"fast_harris level {i}: expected a 2-D "
-                             f"torch.uint8 tensor, got {img.ndim}-D "
-                             f"{img.dtype}")
-    return [m for i in range(0, len(levels), FAST_HARRIS_MAX_LEVELS)
-            for m in _fast_harris_chunk(
-                levels[i:i + FAST_HARRIS_MAX_LEVELS], threshold)]
-
-
-def _fast_harris_chunk(levels: List[torch.Tensor], threshold: float
-                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """At most FAST_HARRIS_MAX_LEVELS checked levels: their plain versions
-    on the CPU, one kernel launch on the card."""
-    if levels[0].is_cpu:
-        return [_fast_harris_plain(img, threshold) for img in levels]
-    for i, img in enumerate(levels):
-        _check(img, f"fast_harris level {i}", torch.uint8, 2)
-    shapes = tuple(tuple(img.shape) for img in levels)
-    hs, ws, offs = _level_table(shapes)
-    total = offs[-1]
-    # one buffer: every level's score map, then every level's Harris map
-    out = torch.empty(2 * total, dtype=torch.float32, device=levels[0].device)
-    if total:
-        n = len(levels)
-        rc = _kernel("fast_harris")(
-            n, (ctypes.c_void_p * n)(*[img.data_ptr() for img in levels]),
-            hs, ws, out.data_ptr(), out.data_ptr() + 4 * total,
-            float(threshold), _harris_window(), _HARRIS_K,
-            _stream(levels[0]))
-        _launched("fast_harris", rc)
-    return [(out.as_strided((h, w), (w, 1), off),
-             out.as_strided((h, w), (w, 1), total + off))
-            for (h, w), off in zip(shapes, offs)]
-
-
-def fast_harris(img: torch.Tensor, threshold: float
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(H, W) u8 → (NMS'd FAST-9 score, Harris map), both (H, W) f32: the
-    one-level call of :func:`fast_harris_levels`."""
-    return fast_harris_levels([img], threshold)[0]
-
-
-def _fast_score_plain(img: torch.Tensor, threshold: float, nms: bool = True,
-                      mask: torch.Tensor | None = None,
-                      arc_length: int = 9) -> torch.Tensor:
-    """``fast_score`` at ``arc_length``, times ``mask`` where given, then
-    ``nms_maxpool`` where ``nms`` is set: the XLA composition of
-    fast.py:158-162."""
-    score = _fast.fast_score(img, threshold, arc_length)
-    if mask is not None:
-        score = score * mask
-    return _fast.nms_maxpool(score) if nms else score
-
-
-def fast_arc(arc_length: int) -> int:
-    """The arc length K1 computes for ``arc_length`` (it is compiled for
-    1..16): the same value, with n <= 1 taken as 1 and n >= 16 as 16, as
-    the reference's log-step doubling reduces them (pallas_kernels.py:
-    262-272: an arc of n <= 1 is the ring entry itself, an arc of n >= 16
-    covers the whole ring)."""
-    return min(max(operator.index(arc_length), 1), 16)
-
-
-def fast_score(img: torch.Tensor, threshold: float, nms: bool = True,
-               mask: torch.Tensor | None = None,
-               arc_length: int = 9) -> torch.Tensor:
-    """(H, W) u8 → (H, W) f32: the thresholded FAST-n score (n =
-    ``arc_length``), 0 on the 3-px border, times the (H, W) f32 ROI
-    ``mask`` where given, then 3×3 non-maximum suppression where ``nms``
-    is set. K1 without its Harris phases, one launch; the plain version on
-    a CPU tensor."""
-    if img.is_cpu:
-        return _fast_score_plain(img, threshold, nms, mask, arc_length)
-    n = fast_arc(arc_length)
-    _check(img, "fast_score image", torch.uint8, 2)
-    if mask is not None:
-        _check(mask, "fast_score mask", torch.float32, 2)
-        if mask.shape != img.shape or mask.get_device() != img.get_device():
-            raise ValueError(f"fast_score: mask {tuple(mask.shape)} on "
-                             f"{mask.device} must be the image's "
-                             f"{tuple(img.shape)} on {img.device}")
-    h, w = img.shape
-    out = torch.empty((h, w), dtype=torch.float32, device=img.device)
-    if out.numel():
-        rc = _kernel("fast_harris", "fast_score")(
-            img.data_ptr(), h, w, 0 if mask is None else mask.data_ptr(),
-            out.data_ptr(), float(threshold), int(bool(nms)), n,
-            _stream(img))
-        _launched("fast_score", rc)
-    return out
-
-
-# --------------------------------------------------------------------------
-# K10: ORB's per-level selection, all levels of a frame
-# --------------------------------------------------------------------------
-
-# levels one K10 call takes (the kernel's MAX_LEVELS: its parameter table)
-ORB_SELECT_MAX_LEVELS = 32
-# slots of one level (the kernel's MAX_SLOTS)
-ORB_SELECT_MAX_SLOTS = 1 << 24
-# a level's sort keeps an 8-byte key a slot, padded to the next power of
-# two: in one block's shared memory up to this many keys (the kernel's
-# MAX_SORT: 128 KiB of the 227 KB a block may use), else in the scratch,
-# in global memory
-ORB_SELECT_SHARED_SORT = 16384
-
-
-def _pow2(n: int) -> int:
-    return 1 << max(n - 1, 0).bit_length()
-
-
-@functools.lru_cache(maxsize=64)
-def orb_select_plan(shapes: Tuple[Tuple[int, int], ...],
-                    budgets: Tuple[int, ...], cell_size: int):
-    """Per level (cells, per_cell) of ORB's selection on levels of
-    ``shapes`` with ``budgets`` keypoints, or None where K10 cannot take
-    the frame: no level or more than ORB_SELECT_MAX_LEVELS, cell_size² over
-    2048 (the packed key's 11 position bits), an empty level, or a level
-    with more than ORB_SELECT_MAX_SLOTS slots."""
-    if (not 1 <= len(shapes) <= ORB_SELECT_MAX_LEVELS
-            or len(budgets) != len(shapes)
-            or not 1 <= cell_size * cell_size <= 2048):
-        return None
-    plan = []
-    for (h, w), b in zip(shapes, budgets):
-        if h < 1 or w < 1 or b < 0:
-            return None
-        cells, per_cell = _fast.cell_budget(h, w, b, cell_size)
-        if cells * per_cell > ORB_SELECT_MAX_SLOTS:
-            return None
-        plan.append((cells, per_cell))
-    return tuple(plan)
-
-
-@functools.lru_cache(maxsize=64)
-def _select_table(shapes: Tuple[Tuple[int, int], ...],
-                  budgets: Tuple[int, ...], cell_size: int):
-    """The kernel's (hs, ws, budgets, per_cell) ctypes arrays and the
-    scratch's f32 words (8 bytes a cell and a slot, and a sort key of the
-    levels sorted in global memory), made once per pyramid shape; raises
-    where :func:`orb_select_plan` finds no plan."""
-    plan = orb_select_plan(shapes, budgets, cell_size)
-    if plan is None:
-        raise ValueError(f"orb_select cannot take levels {list(shapes)} with "
-                         f"budgets {list(budgets)} and cell {cell_size}")
-    n = len(shapes)
-    ints = [(ctypes.c_int * n)(*v) for v in (
-        [h for h, _ in shapes], [w for _, w in shapes], budgets,
-        [p for _, p in plan])]
-    keys = [_pow2(c * p) for c, p in plan]
-    return (*ints, 2 * sum(c + c * p for c, p in plan)
-            + 2 * sum(k for k in keys if k > ORB_SELECT_SHARED_SORT))
-
-
-def _orb_select_plain(levels, maps, budgets, cell_size, threshold_high,
-                      harris_rescore=True):
-    """features/fast.py::select_cells on every level: the per-level
-    composition (two-tier gate, Harris quantisation, packed cell top-k,
-    stable_topk, gather)."""
-    return [_fast.select_cells(img, s, h, int(b), cell_size, threshold_high,
-                               harris_rescore)
-            for img, (s, h), b in zip(levels, maps, budgets)]
-
-
-def orb_select(levels: Sequence[torch.Tensor],
-               maps: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-               budgets: Sequence[int], cell_size: int, threshold_high: float,
-               harris_rescore: bool = True) -> List[Tuple[torch.Tensor, ...]]:
-    """ORB's keypoint selection on every (H, W) u8 level of a frame: per
-    level (xy (B, 2) f32 level coordinates, vals (B,) f32, valid (B,)
-    bool), as ``fast.select_cells`` gives them on ``levels[i]``, K1's
-    (score, Harris) pair ``maps[i]`` (:func:`fast_harris_levels`) and
-    ``budgets[i]`` keypoints.
-
-    The plain version on a CPU tensor; on the card one call of the kernel,
-    3 launches (2 without ``harris_rescore``) for every level together, no
-    host sync, the outputs views of one buffer. Raises where
-    :func:`orb_select_plan` finds no plan."""
-    levels, maps = list(levels), list(maps)
-    budgets = tuple(int(b) for b in budgets)
-    if not levels or not len(levels) == len(maps) == len(budgets):
-        raise ValueError("orb_select: one map pair and one budget a level")
-    if levels[0].is_cpu:
-        return _orb_select_plain(levels, maps, budgets, cell_size,
-                                 threshold_high, harris_rescore)
-    shapes = tuple(tuple(img.shape) for img in levels)
-    hs, ws, bs, pcs, nf = _select_table(shapes, budgets, int(cell_size))
-    # device indices, not torch.device objects: this loop runs every frame
-    d = levels[0].get_device()
-    for i, (img, pair) in enumerate(zip(levels, maps)):
-        if img.dtype != torch.uint8 or img.get_device() != d:
-            raise ValueError(f"orb_select level {i}: expected torch.uint8 on "
-                             f"{levels[0].device}, got {img.dtype} on "
-                             f"{img.device}")
-        for t, what in zip(pair, ("score", "Harris")):
-            _check(t, f"orb_select level {i} {what} map", torch.float32, 2)
-            if t.shape != img.shape or t.get_device() != d:
-                raise ValueError(f"orb_select level {i}: {what} map "
-                                 f"{tuple(t.shape)} on {t.device}, level "
-                                 f"{shapes[i]} on {img.device}")
-    k = sum(budgets)
-    # one buffer: the scratch, xy, vals (f32), then valid (u8)
-    nw = nf + 3 * k
-    buf = torch.empty(4 * nw + k, dtype=torch.uint8, device=levels[0].device)
-    words = buf[:4 * nw].view(torch.float32)
-    xy = words[nf:nf + 2 * k].view(k, 2)
-    vals = words[nf + 2 * k:]
-    valid = buf[4 * nw:].view(torch.bool)
-    n = len(levels)
-    rescore = bool(harris_rescore)
-    rc = _kernel("orb_select")(
-        n, (ctypes.c_void_p * n)(*[s.data_ptr() for s, _ in maps]),
-        (ctypes.c_void_p * n)(*[h.data_ptr() for _, h in maps]),
-        hs, ws, bs, pcs, int(cell_size), float(threshold_high), int(rescore),
-        buf.data_ptr(), xy.data_ptr(), vals.data_ptr(), valid.data_ptr(),
-        _stream(levels[0]))
-    _launched("orb_select", rc, 3 if rescore else 2)
-    return list(zip(xy.split(budgets), vals.split(budgets),
-                    valid.split(budgets)))
-
-
-# --------------------------------------------------------------------------
-# K11: ORB's paired describe stage, all levels of a frame
-# --------------------------------------------------------------------------
-
-# the 7 x 7 Gaussian blur of ORB's describe stage, every form
-ORB_BLUR_KSIZE, ORB_BLUR_SIGMA = 7, 2.0
-
-
-@functools.lru_cache(maxsize=None)
-def _blur_taps():
-    """The blur's seven f32 taps as the kernel's ctypes argument."""
-    taps = gaussian_kernel1d(ORB_BLUR_KSIZE, ORB_BLUR_SIGMA)
-    return (ctypes.c_float * ORB_BLUR_KSIZE)(*[float(v) for v in taps])
-
-
-def _orb_describe_shape(levels, xys, pattern):
-    """Checks shared by the kernel and plain routes of
-    :func:`orb_describe`; returns (shapes, budgets)."""
-    if not levels or len(levels) != len(xys):
-        raise ValueError("orb_describe: one keypoint tensor a level")
-    for i, (img, xy) in enumerate(zip(levels, xys)):
-        if img.ndim != 2:
-            raise ValueError(f"orb_describe level {i}: expected (H, W), got "
-                             f"{tuple(img.shape)}")
-        if xy.ndim != 2 or xy.shape[1] != 2:
-            raise ValueError(f"orb_describe level {i}: xy must be (B, 2), "
-                             f"got {tuple(xy.shape)}")
-    budgets = tuple(int(xy.shape[0]) for xy in xys)
-    if sum(budgets) % 2:
-        raise ValueError("orb_describe: the paired form needs an even "
-                         "keypoint count")
-    if tuple(pattern.shape) != (256, 4):
-        raise ValueError("orb_describe: pattern must be (256, 4)")
-    return tuple(tuple(img.shape) for img in levels), budgets
-
-
-@functools.lru_cache(maxsize=64)
-def _describe_table(shapes: Tuple[Tuple[int, int], ...],
-                    budgets: Tuple[int, ...]):
-    """The kernel's (hs, ws, budgets) ctypes arrays, made once per pyramid
-    shape; raises where K11 cannot take the frame: no level or more than
-    ORB_SELECT_MAX_LEVELS (K10's limit), or an empty level."""
-    n = len(shapes)
-    if not 1 <= n <= ORB_SELECT_MAX_LEVELS or len(budgets) != n:
-        raise ValueError(f"orb_describe takes 1 to {ORB_SELECT_MAX_LEVELS} "
-                         f"levels, got {n}")
-    if any(h < 1 or w < 1 for h, w in shapes):
-        raise ValueError(f"orb_describe cannot take an empty level: "
-                         f"{list(shapes)}")
-    return tuple((ctypes.c_int * n)(*v) for v in (
-        [h for h, _ in shapes], [w for _, w in shapes], budgets))
-
-
-# the intensity-centroid patch (31 x 31, radius 15), and the lanes that
-# the two halves of a paired (40, 128) window are centred on
-ORB_HALF = 15
-PAIR_CX = (32, 96)
-
-
-@functools.lru_cache(maxsize=None)
-def circular_mask() -> np.ndarray:
-    """(31, 31) mask of the intensity-centroid circle of radius 15."""
-    yy, xx = np.mgrid[-ORB_HALF: ORB_HALF + 1, -ORB_HALF: ORB_HALF + 1]
-    return (xx * xx + yy * yy <= ORB_HALF * ORB_HALF).astype(np.float32)
-
-
-@functools.lru_cache(maxsize=None)
-def circular_mask_on(device) -> torch.Tensor:
-    """:func:`circular_mask` on ``device``, uploaded once per device."""
-    return torch.from_numpy(circular_mask()).to(device)
-
-
-def centroid_angle(patches: torch.Tensor) -> torch.Tensor:
-    """Intensity-centroid orientation of (K, 31, 31) patches, radians."""
-    dev = patches.device
-    mask = circular_mask_on(dev)
-    offs = torch.arange(-ORB_HALF, ORB_HALF + 1, dtype=torch.float32,
-                        device=dev)
-    m10 = torch.sum(patches * mask * offs[None, None, :], dim=(1, 2))
-    m01 = torch.sum(patches * mask * offs[None, :, None], dim=(1, 2))
-    return torch.atan2(m01, m10)
-
-
-def canvas_xy(xys: Sequence[torch.Tensor], starts: Sequence[int]
-              ) -> torch.Tensor:
-    """(K, 2) int32 canvas keypoints of every level: each level's (x, y)
-    with y offset by its first canvas row (:func:`prepare_window_canvas`'s
-    ``starts``), the offsets one constant on the keypoints' device (no
-    upload once it is made)."""
-    offs = const_on(tuple((0, s) for s in starts[:-1]), xys[0].device,
-                    torch.int32)
-    return torch.cat([x + offs[i] for i, x in enumerate(xys)]).contiguous()
-
-
-def extract_windows_packed_paired(frames: Sequence[torch.Tensor],
-                                  xys: Sequence[torch.Tensor]
-                                  ) -> torch.Tensor:
-    """(K/2, 40, 128) paired windows over all levels from ONE stacked
-    canvas: each keypoint's y is offset by its level's first canvas row."""
-    canvas, starts = prepare_window_canvas(list(frames))
-    wimg = max(int(f.shape[1]) for f in frames)
-    return windows_paired(canvas, canvas_xy(xys, starts), wimg)
-
-
-def orientation_from_windows_paired(windows: torch.Tensor) -> torch.Tensor:
-    """Intensity-centroid orientation from paired (K/2, 40, 128) windows →
-    (K,) radians in keypoint order."""
-    angs = [centroid_angle(
-        windows[:, PAIR_CY - ORB_HALF: PAIR_CY + ORB_HALF + 1,
-                cx - ORB_HALF: cx + ORB_HALF + 1]) for cx in PAIR_CX]
-    return torch.stack(angs, dim=1).reshape(-1)
-
-
-def brief_from_windows_paired(windows: torch.Tensor, angle: torch.Tensor,
-                              pattern: torch.Tensor) -> torch.Tensor:
-    """Rotated BRIEF-256 (K, 256) u8 bits from paired (K/2, 40, 128)
-    blurred windows, (K,) angles and the (256, 4) int32 pattern: each
-    window's 1024 taps (keypoint 2i's 512 about lane 32, 2i+1's about lane
-    96) rotated, sampled and compared in one :func:`brief_rotated` pass."""
-    return brief_rotated(windows.contiguous(), torch.cos(angle),
-                         torch.sin(angle), pattern, "paired")
-
-
-def _orb_describe_plain(levels, xys, pattern):
-    """The paired composition: the f32 levels and their blurs, both
-    level-stacked canvases (:func:`extract_windows_packed_paired`, K2 on
-    the card), :func:`orientation_from_windows_paired`, then
-    :func:`brief_from_windows_paired` (K3) on the blurred windows."""
-    grays_f = [img.to(torch.float32) for img in levels]
-    blurs = [gaussian_blur(g, (ORB_BLUR_KSIZE, ORB_BLUR_KSIZE),
-                           ORB_BLUR_SIGMA) for g in grays_f]
-    xy_ints = [torch.round(xy).to(torch.int32) for xy in xys]
-    ang = orientation_from_windows_paired(
-        extract_windows_packed_paired(grays_f, xy_ints))
-    bits = brief_from_windows_paired(
-        extract_windows_packed_paired(blurs, xy_ints), ang, pattern)
-    return ang, bits
-
-
-def orb_describe_fused(levels: Sequence[torch.Tensor]) -> bool:
-    """Whether :func:`orb_describe` runs K11 on these levels (a card
-    tensor) rather than its plain version."""
-    return not levels[0].is_cpu
-
-
-def orb_describe(levels: Sequence[torch.Tensor],
-                 xys: Sequence[torch.Tensor], pattern: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """ORB's paired describe stage on every (H, W) u8 level of a frame:
-    ``xys[i]`` the (B_i, 2) f32 level coordinates of level i's keypoints
-    (:func:`orb_select`'s xy), ``pattern`` the (256, 4) int32 BRIEF pattern
-    on the levels' device. Returns ((K,) f32 intensity-centroid angles,
-    (K, 256) u8 rotated BRIEF bits of the 7 x 7 σ 2 blurred levels), K =
-    ΣB_i, even, keypoints in level order.
-
-    The plain version (:func:`_orb_describe_plain`) on a CPU tensor; on the
-    card one launch for every level, no host sync, bit-equal to it for any
-    keypoint position. Raises where :func:`_describe_table` does."""
-    levels, xys = list(levels), list(xys)
-    shapes, budgets = _orb_describe_shape(levels, xys, pattern)
-    if not orb_describe_fused(levels):
-        return _orb_describe_plain(levels, xys, pattern)
-    hs, ws, bs = _describe_table(shapes, budgets)
-    d = levels[0].get_device()
-    for i, (img, xy) in enumerate(zip(levels, xys)):
-        _check(img, f"orb_describe level {i}", torch.uint8, 2)
-        _check(xy, f"orb_describe level {i} xy", torch.float32, 2)
-        if img.get_device() != d or xy.get_device() != d:
-            raise ValueError(f"orb_describe level {i}: level on {img.device}"
-                             f" and xy on {xy.device}, not {levels[0].device}")
-    _check(pattern, "orb_describe pattern", torch.int32, 2)
-    if pattern.get_device() != d or pattern.data_ptr() % 16:
-        raise ValueError("orb_describe: the pattern must be on the levels' "
-                         "device and start on a 16-byte boundary")
-    k = sum(budgets)
-    angle = torch.empty(k, dtype=torch.float32, device=levels[0].device)
-    bits = torch.empty((k, 256), dtype=torch.uint8, device=levels[0].device)
-    if k:
-        n = len(levels)
-        rc = _kernel("orb_describe")(
-            n, (ctypes.c_void_p * n)(*[img.data_ptr() for img in levels]),
-            (ctypes.c_void_p * n)(*[xy.data_ptr() for xy in xys]), hs, ws,
-            bs, _blur_taps(), pattern.data_ptr(), angle.data_ptr(),
-            bits.data_ptr(), _stream(levels[0]))
-        _launched("orb_describe", rc)
-    return angle, bits
 
 
 # --------------------------------------------------------------------------
 # K2: paired keypoint windows
 # --------------------------------------------------------------------------
 
-# The paired window layout, shared with features/orb.py: PAIR_WIN_H rows
-# (rotated BRIEF taps reach at most ±19 rows from the keypoint), the
-# keypoint on row PAIR_CY; each level is padded _WIN_CX columns left.
+# The window layouts, shared with features/orb.py: a paired window has
+# PAIR_WIN_H rows (rotated BRIEF taps reach at most ±19 rows from the
+# keypoint), the keypoint on row PAIR_CY; an unpaired one WIN_H rows, the
+# keypoint on row WIN_CY and lane WIN_CX; each level of a canvas is padded
+# WIN_CX columns left.
 PAIR_CY = 20
 PAIR_WIN_H = 40
-_WIN_CX = 64
+WIN_H = 48
+WIN_CY = 24
+WIN_CX = 64
 
 
 def prepare_window_canvas(frames: List[torch.Tensor],
@@ -721,7 +264,7 @@ def prepare_window_canvas(frames: List[torch.Tensor],
         dev = f.device
         iy = torch.clamp(torch.arange(-cy_off, h + win_h - cy_off,
                                       device=dev), 0, h - 1)
-        ix = torch.clamp(torch.arange(-_WIN_CX, w + 128 - _WIN_CX,
+        ix = torch.clamp(torch.arange(-WIN_CX, w + 128 - WIN_CX,
                                       device=dev), 0, w - 1)
         pads.append(f.to(torch.float32).index_select(0, iy)
                     .index_select(1, ix))
@@ -766,8 +309,8 @@ def windows_paired(canvas: torch.Tensor, xy: torch.Tensor,
     canvas keypoints (x, y) from a :func:`prepare_window_canvas` canvas."""
     if canvas.device.type == "cpu":
         return _windows_paired_plain(canvas, xy, wimg)
-    _check(canvas, "windows_paired canvas", torch.float32, 2)
-    _check(xy, "windows_paired xy", torch.int32, 2)
+    check(canvas, "windows_paired canvas", torch.float32, 2)
+    check(xy, "windows_paired xy", torch.int32, 2)
     if xy.shape[1] != 2 or xy.device != canvas.device:
         raise ValueError("windows_paired: xy must be (K, 2) on the canvas' "
                          "device")
@@ -777,10 +320,10 @@ def windows_paired(canvas: torch.Tensor, xy: torch.Tensor,
                       device=canvas.device)
     if k == 0:
         return out
-    rc = _kernel("windows_paired")(
+    rc = kernel("windows_paired")(
         canvas.data_ptr(), xy.data_ptr(), out.data_ptr(), k, hc, wc, hc,
-        int(wimg), PAIR_WIN_H, _stream(canvas))
-    _launched("windows_paired", rc)
+        int(wimg), PAIR_WIN_H, stream(canvas))
+    launched("windows_paired", rc)
     return out
 
 
@@ -804,9 +347,9 @@ def brief_sample(windows: torch.Tensor, rows: torch.Tensor,
     """(K, wh, ww) f32 windows, (K, T) int32 rows/cols → (K, T) f32."""
     if windows.device.type == "cpu":
         return _brief_sample_plain(windows, rows, cols)
-    _check(windows, "brief_sample windows", torch.float32, 3)
-    _check(rows, "brief_sample rows", torch.int32, 2)
-    _check(cols, "brief_sample cols", torch.int32, 2)
+    check(windows, "brief_sample windows", torch.float32, 3)
+    check(rows, "brief_sample rows", torch.int32, 2)
+    check(cols, "brief_sample cols", torch.int32, 2)
     k, wh, ww = windows.shape
     if (rows.shape != cols.shape or rows.shape[0] != k
             or rows.device != windows.device
@@ -817,16 +360,14 @@ def brief_sample(windows: torch.Tensor, rows: torch.Tensor,
     out = torch.empty((k, taps), dtype=torch.float32, device=windows.device)
     if k == 0 or taps == 0:
         return out
-    rc = _kernel("brief_sample")(
+    rc = kernel("brief_sample")(
         windows.data_ptr(), rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
-        k, wh, ww, taps, _stream(windows))
-    _launched("brief_sample", rc)
+        k, wh, ww, taps, stream(windows))
+    launched("brief_sample", rc)
     return out
 
 
 BRIEF_LAYOUTS = {"unpaired": 0, "paired": 1}
-_UNPAIRED_WIN_H = 48
-_UNPAIRED_CY = 24
 
 
 def _brief_rotated_shape(windows, cos, sin, pattern, layout, out):
@@ -837,7 +378,7 @@ def _brief_rotated_shape(windows, cos, sin, pattern, layout, out):
     if out not in ("bits", "samples"):
         raise ValueError(f"brief_rotated: unknown output {out!r}")
     paired = layout == "paired"
-    wh = PAIR_WIN_H if paired else _UNPAIRED_WIN_H
+    wh = PAIR_WIN_H if paired else WIN_H
     if windows.ndim != 3 or tuple(windows.shape[1:]) != (wh, 128):
         raise ValueError(f"brief_rotated: {layout} windows must be "
                          f"(Kw, {wh}, 128), got {tuple(windows.shape)}")
@@ -873,8 +414,8 @@ def _brief_rotated_plain(windows: torch.Tensor, cos: torch.Tensor,
         rows = torch.clamp(PAIR_CY + dy, 0, PAIR_WIN_H - 1).reshape(
             k // 2, 1024)
     else:
-        cols = torch.clamp(_WIN_CX + dx, 0, 127)
-        rows = torch.clamp(_UNPAIRED_CY + dy, 0, _UNPAIRED_WIN_H - 1)
+        cols = torch.clamp(WIN_CX + dx, 0, 127)
+        rows = torch.clamp(WIN_CY + dy, 0, WIN_H - 1)
     s = _brief_sample_plain(windows, rows, cols).reshape(k, 512)
     if out == "samples":
         return s
@@ -898,10 +439,10 @@ def brief_rotated(windows: torch.Tensor, cos: torch.Tensor,
     (K, 512) f32 ``[A(256), B(256)]``, as :func:`brief_sample` gives them."""
     if windows.device.type == "cpu":
         return _brief_rotated_plain(windows, cos, sin, pattern, layout, out)
-    _check(windows, "brief_rotated windows", torch.float32, 3)
-    _check(cos, "brief_rotated cos", torch.float32, 1)
-    _check(sin, "brief_rotated sin", torch.float32, 1)
-    _check(pattern, "brief_rotated pattern", torch.int32, 2)
+    check(windows, "brief_rotated windows", torch.float32, 3)
+    check(cos, "brief_rotated cos", torch.float32, 1)
+    check(sin, "brief_rotated sin", torch.float32, 1)
+    check(pattern, "brief_rotated pattern", torch.int32, 2)
     k = _brief_rotated_shape(windows, cos, sin, pattern, layout, out)
     if not (cos.device == sin.device == pattern.device == windows.device):
         raise ValueError("brief_rotated: every input must be on the "
@@ -916,11 +457,11 @@ def brief_rotated(windows: torch.Tensor, cos: torch.Tensor,
                       device=windows.device)
     if k == 0:
         return res
-    rc = _kernel("brief_sample", "brief_rotated")(
+    rc = kernel("brief_sample", "brief_rotated")(
         windows.data_ptr(), cos.data_ptr(), sin.data_ptr(),
         pattern.data_ptr(), res.data_ptr(), k, BRIEF_LAYOUTS[layout],
-        int(samples), _stream(windows))
-    _launched("brief_rotated", rc)
+        int(samples), stream(windows))
+    launched("brief_rotated", rc)
     return res
 
 
@@ -939,8 +480,8 @@ def _window_frame(src: torch.Tensor, win_h: int, cy_off: int, cx_off: int,
     return 0, 0, int(wimg) - 1, int(hsum) - 1
 
 
-def _windows_plain(src: torch.Tensor, xy: torch.Tensor, win_h: int = 48,
-                   cy_off: int = 24, cx_off: int = 64,
+def _windows_plain(src: torch.Tensor, xy: torch.Tensor, win_h: int = WIN_H,
+                   cy_off: int = WIN_CY, cx_off: int = WIN_CX,
                    prepared=None) -> torch.Tensor:
     """The vmapped ``dynamic_slice`` branches (orb.py:155-162, 330-347;
     optical_flow.py:169-175, 306-323) as one advanced-indexing gather with
@@ -958,8 +499,8 @@ def _windows_plain(src: torch.Tensor, xy: torch.Tensor, win_h: int = 48,
     return src[rows[:, :, None], cols[:, None, :]]
 
 
-def windows(src: torch.Tensor, xy: torch.Tensor, win_h: int = 48,
-            cy_off: int = 24, cx_off: int = 64,
+def windows(src: torch.Tensor, xy: torch.Tensor, win_h: int = WIN_H,
+            cy_off: int = WIN_CY, cx_off: int = WIN_CX,
             prepared: Tuple[int, int] | None = None) -> torch.Tensor:
     """(K, win_h, 128) f32 edge-replicated windows at (K, 2) int32
     keypoints (x, y).
@@ -971,8 +512,8 @@ def windows(src: torch.Tensor, xy: torch.Tensor, win_h: int = 48,
     canvas coordinates and ``prepared = (canvas rows, widest level)``."""
     if src.device.type == "cpu":
         return _windows_plain(src, xy, win_h, cy_off, cx_off, prepared)
-    _check(src, "windows src", torch.float32, 2)
-    _check(xy, "windows xy", torch.int32, 2)
+    check(src, "windows src", torch.float32, 2)
+    check(xy, "windows xy", torch.int32, 2)
     if xy.shape[1] != 2 or xy.device != src.device:
         raise ValueError("windows: xy must be (K, 2) on the source's device")
     oy, ox, xmax, ymax = _window_frame(src, win_h, cy_off, cx_off, prepared)
@@ -984,10 +525,10 @@ def windows(src: torch.Tensor, xy: torch.Tensor, win_h: int = 48,
         return out
     if hs == 0 or ws == 0:
         raise ValueError("windows: empty source")
-    rc = _kernel("windows")(src.data_ptr(), xy.data_ptr(), out.data_ptr(), k,
-                            hs, ws, xmax, ymax, oy, ox, int(win_h),
-                            _stream(src))
-    _launched("windows", rc)
+    rc = kernel("windows")(src.data_ptr(), xy.data_ptr(), out.data_ptr(), k,
+                           hs, ws, xmax, ymax, oy, ox, int(win_h),
+                           stream(src))
+    launched("windows", rc)
     return out
 
 
@@ -1028,17 +569,17 @@ def lane_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if src.is_cpu:
         return _lane_gather_plain(src, idx)
     g = _lane_gather_group(src, idx)
-    _check(src, "lane_gather src", torch.float32, 2)
-    _check(idx, "lane_gather idx", torch.int32, 2)
+    check(src, "lane_gather src", torch.float32, 2)
+    check(idx, "lane_gather idx", torch.int32, 2)
     if idx.get_device() != src.get_device():
         raise ValueError("lane_gather: idx must be on the source's device")
     out = torch.empty_like(src)
     n = src.shape[0]
     if n == 0:
         return out
-    rc = _kernel("lane_gather")(src.data_ptr(), idx.data_ptr(),
-                                out.data_ptr(), n, g, _stream(src))
-    _launched("lane_gather", rc)
+    rc = kernel("lane_gather")(src.data_ptr(), idx.data_ptr(),
+                               out.data_ptr(), n, g, stream(src))
+    launched("lane_gather", rc)
     return out
 
 
@@ -1133,7 +674,7 @@ def fused_preprocess(rgb_u8: torch.Tensor, out_h: int, out_w: int,
         raise ValueError("fused_preprocess: expected an (H, W, 3) image")
     if rgb_u8.device.type == "cpu":
         return _fused_preprocess_plain(rgb_u8, out_h, out_w, mean, std)
-    _check(rgb_u8, "fused_preprocess rgb", torch.uint8, 3)
+    check(rgb_u8, "fused_preprocess rgb", torch.uint8, 3)
     h, w, _ = rgb_u8.shape
     if h == 0 or w == 0:
         raise ValueError("fused_preprocess: empty image")
@@ -1145,11 +686,11 @@ def fused_preprocess(rgb_u8: torch.Tensor, out_h: int, out_w: int,
     yi, yw = _device_taps(h, out_h, str(dev))
     xi, xw = _device_taps(w, out_w, str(dev))
     f3 = ctypes.c_float * 3
-    rc = _kernel("preprocess")(
+    rc = kernel("preprocess")(
         rgb_u8.data_ptr(), w, yi.data_ptr(), yw.data_ptr(), xi.data_ptr(),
         xw.data_ptr(), f3(*scale.tolist()), f3(*bias.tolist()),
-        out.data_ptr(), out_h, out_w, _stream(rgb_u8))
-    _launched("preprocess", rc)
+        out.data_ptr(), out_h, out_w, stream(rgb_u8))
+    launched("preprocess", rc)
     return out
 
 
@@ -1258,12 +799,12 @@ def remap(img: torch.Tensor, out_hw: Tuple[int, int], form: str,
     if img.dtype not in (torch.uint8, torch.float32):
         raise ValueError(f"remap img: expected uint8 or float32, got "
                          f"{img.dtype}")
-    _check(img, "remap img", img.dtype, 3)
+    check(img, "remap img", img.dtype, 3)
     h, w, c = img.shape
     ptrs = [None, None]
     if form == "data":
         for i, (t, nm) in enumerate(((map_x, "map_x"), (map_y, "map_y"))):
-            _check(t, f"remap {nm}", torch.float32, 2)
+            check(t, f"remap {nm}", torch.float32, 2)
             if tuple(t.shape) != (ho, wo) or t.device != img.device:
                 raise ValueError(f"remap {nm}: expected ({ho}, {wo}) on "
                                  f"{img.device}")
@@ -1277,12 +818,12 @@ def remap(img: torch.Tensor, out_hw: Tuple[int, int], form: str,
     out = torch.empty((ho, wo, c), dtype=img.dtype, device=img.device)
     if out.numel() == 0:
         return out
-    rc = _kernel("remap")(
+    rc = kernel("remap")(
         img.data_ptr(), int(img.dtype == torch.uint8), h, w, c,
         out.data_ptr(), ho, wo, REMAP_FORMS[form], ptrs[0], ptrs[1],
         (ctypes.c_float * 9)(*cvals), cdev, int(bool(nearest)),
-        int(bool(border)), float(fill), _stream(img))
-    _launched("remap", rc)
+        int(bool(border)), float(fill), stream(img))
+    launched("remap", rc)
     return out
 
 
@@ -1313,8 +854,8 @@ def lane_shift(src: torch.Tensor, shifts: torch.Tensor,
     nd = src.ndim
     if nd not in (2, 3):
         raise ValueError("lane_shift src: expected (rr, cc) or (B, rr, cc)")
-    _check(src, "lane_shift src", torch.float32, nd)
-    _check(shifts, "lane_shift shifts", torch.int32, 1)
+    check(src, "lane_shift src", torch.float32, nd)
+    check(shifts, "lane_shift shifts", torch.int32, 1)
     shape = src.shape
     rr, cc = shape[-2], shape[-1]
     if shifts.shape[0] != rr or shifts.get_device() != src.get_device():
@@ -1326,10 +867,10 @@ def lane_shift(src: torch.Tensor, shifts: torch.Tensor,
                       device=src.device)
     if out.numel() == 0:
         return out
-    rc = _kernel("lane_shift")(src.data_ptr(), shifts.data_ptr(),
-                               out.data_ptr(), b, rr, cc, out_w,
-                               _stream(src))
-    _launched("lane_shift", rc)
+    rc = kernel("lane_shift")(src.data_ptr(), shifts.data_ptr(),
+                              out.data_ptr(), b, rr, cc, out_w,
+                              stream(src))
+    launched("lane_shift", rc)
     return out
 
 
@@ -1368,8 +909,8 @@ def _shear_launch(entry: str, img: torch.Tensor,
     """Checks and launch of one of the two modes of shear_x.cu."""
     if img.ndim not in (2, 3) or img.shape[-1] != img.shape[-2]:
         raise ValueError(f"{entry} img: expected (c, c) or (B, c, c)")
-    _check(img, f"{entry} img", torch.float32, img.ndim)
-    _check(shifts, f"{entry} shifts", torch.float32, 1)
+    check(img, f"{entry} img", torch.float32, img.ndim)
+    check(shifts, f"{entry} shifts", torch.float32, 1)
     c = img.shape[-1]
     if shifts.shape[0] != c or shifts.device != img.device:
         raise ValueError(f"{entry}: shifts must be (c,) on the canvas' "
@@ -1381,10 +922,10 @@ def _shear_launch(entry: str, img: torch.Tensor,
     out = torch.empty_like(img)
     if out.numel() == 0:
         return out
-    rc = _kernel("shear_x", entry)(img.data_ptr(), shifts.data_ptr(),
-                                   out.data_ptr(), b, c, shear_slack(c),
-                                   _stream(img))
-    _launched(entry, rc)
+    rc = kernel("shear_x", entry)(img.data_ptr(), shifts.data_ptr(),
+                                  out.data_ptr(), b, c, shear_slack(c),
+                                  stream(img))
+    launched(entry, rc)
     return out
 
 

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from kornia_tpu_torch import convert
+from kornia_tpu_torch.features import fast as tfast
+from kornia_tpu_torch.features import orb as torb
 from kornia_tpu_torch.ops import cuda_kernels as ck
 
 _SHAPES = [(60, 80), (50, 67), (42, 56)]
@@ -35,8 +37,8 @@ def test_cuda_fast_harris_bit_equal(cuda_dev, shape):
     included (the kernel keeps the reference padding and op order)."""
     img = convert.tensor(_img(10, shape), cuda_dev)
     ck.reset_launch_counts()
-    s_k, h_k = ck.fast_harris(img, 7.0)
-    s_p, h_p = ck._fast_harris_plain(img, 7.0)
+    s_k, h_k = tfast.fast_harris(img, 7.0)
+    s_p, h_p = tfast._fast_harris_plain(img, 7.0)
     torch.cuda.synchronize()
     assert ck.LAUNCHES["fast_harris"] == 1
     assert torch.equal(s_k, s_p) and torch.equal(h_k, h_p)
@@ -64,12 +66,12 @@ def test_cuda_fast_harris_levels_bit_equal(cuda_dev, shapes):
                          cuda_dev)
     levels[0] = buf[3:3 + h * w].view(h, w)
     ck.reset_launch_counts()
-    got = ck.fast_harris_levels(levels, 7.0)
+    got = tfast.fast_harris_levels(levels, 7.0)
     torch.cuda.synchronize()
     assert ck.LAUNCHES["fast_harris"] == 1 and len(got) == len(levels)
     for (s_k, h_k), lv in zip(got, levels):
-        s_p, h_p = ck._fast_harris_plain(lv, 7.0)
-        s_1, h_1 = ck.fast_harris(lv, 7.0)
+        s_p, h_p = tfast._fast_harris_plain(lv, 7.0)
+        s_1, h_1 = tfast.fast_harris(lv, 7.0)
         torch.cuda.synchronize()
         assert s_k.shape == lv.shape and s_k.is_contiguous()
         assert torch.equal(s_k, s_p) and torch.equal(h_k, h_p), lv.shape
@@ -89,12 +91,12 @@ def test_cuda_fast_harris_levels_launch_per_16_levels(cuda_dev, n_levels,
     levels = [convert.tensor(rng.integers(0, 256, s).astype(np.uint8),
                              cuda_dev) for s in shapes]
     ck.reset_launch_counts()
-    got = ck.fast_harris_levels(levels, 7.0)
+    got = tfast.fast_harris_levels(levels, 7.0)
     torch.cuda.synchronize()
     assert ck.LAUNCHES["fast_harris"] == launches and len(got) == n_levels
     for (s_k, h_k), lv in zip(got, levels):
-        s_p, h_p = ck._fast_harris_plain(lv, 7.0)
-        s_1, h_1 = ck.fast_harris(lv, 7.0)
+        s_p, h_p = tfast._fast_harris_plain(lv, 7.0)
+        s_1, h_1 = tfast.fast_harris(lv, 7.0)
         torch.cuda.synchronize()
         assert torch.equal(s_k, s_p) and torch.equal(h_k, h_p), lv.shape
         assert torch.equal(s_k, s_1) and torch.equal(h_k, h_1), lv.shape
@@ -122,13 +124,13 @@ def test_cuda_orb_levels_launch_k1_per_16(cuda_dev, n_levels, launches):
                                           for i, s in enumerate(sels)]))
     assert torch.equal(got.score, torch.cat([s[1] for s in sels]))
     assert torch.equal(got.mask, torch.cat([s[2] for s in sels]))
-    saved = ck.fast_harris_levels
+    saved = tfast.fast_harris_levels
     try:
-        ck.fast_harris_levels = lambda lvs, thr: [saved([lv], thr)[0]
-                                                  for lv in lvs]
+        orb.fast_harris_levels = lambda lvs, thr: [saved([lv], thr)[0]
+                                                   for lv in lvs]
         per_level = orb.orb_detect_and_describe(gray, cfg)
     finally:
-        ck.fast_harris_levels = saved
+        orb.fast_harris_levels = saved
     for name in got._fields:
         assert torch.equal(getattr(got, name), getattr(per_level, name)), \
             name
@@ -138,11 +140,11 @@ def test_cuda_orb_levels_launch_k1_per_16(cuda_dev, n_levels, launches):
 def test_cuda_fast_harris_levels_reject_bad_input(cuda_dev):
     lv = torch.zeros((20, 30), dtype=torch.uint8, device=cuda_dev)
     with pytest.raises(ValueError, match="one device"):
-        ck.fast_harris_levels([lv, lv.cpu()], 7.0)
+        tfast.fast_harris_levels([lv, lv.cpu()], 7.0)
     with pytest.raises(ValueError):
-        ck.fast_harris_levels([lv, lv.float()], 7.0)
+        tfast.fast_harris_levels([lv, lv.float()], 7.0)
     ck.reset_launch_counts()
-    empty = ck.fast_harris_levels([lv[:0], lv[:, :0]], 7.0)
+    empty = tfast.fast_harris_levels([lv[:0], lv[:, :0]], 7.0)
     assert ck.LAUNCHES["fast_harris"] == 0
     assert [tuple(s.shape) for s, _ in empty] == [(0, 30), (20, 0)]
 
@@ -177,9 +179,9 @@ def test_cuda_windows_and_taps_bit_equal(cuda_dev, k):
 def test_cuda_wrappers_reject_bad_input(cuda_dev):
     img = convert.tensor(_img(13, (32, 32)), cuda_dev)
     with pytest.raises(ValueError):
-        ck.fast_harris(img.to(torch.float32), 7.0)
+        tfast.fast_harris(img.to(torch.float32), 7.0)
     with pytest.raises(ValueError):
-        ck.fast_harris(img.t(), 7.0)       # not contiguous
+        tfast.fast_harris(img.t(), 7.0)       # not contiguous
     win = torch.zeros((2, 40, 128), device=cuda_dev)
     idx = torch.zeros((2, 1024), dtype=torch.int64, device=cuda_dev)
     with pytest.raises(ValueError):
@@ -1053,6 +1055,21 @@ def _textured_u8(seed, shape):
     return np.clip(up + rng.normal(0, 6, up.shape), 0, 255).astype(np.uint8)
 
 
+def _score(img, threshold, nms, mask=None, n=9):
+    """fast's score dispatch: K1's score-only form on a card tensor, its
+    plain version on a CPU tensor."""
+    dispatch = tfast._score_nms_dispatch if nms else tfast._score_dispatch
+    return dispatch(img, threshold, n, mask)
+
+
+def _score_plain(img, threshold, nms, mask=None, n=9):
+    """K1's score-only plain version (the CPU branch of the dispatch) on
+    CPU copies of the card tensors: its ops are exact, so the device
+    does not matter."""
+    return _score(img.cpu(), threshold, nms,
+                  None if mask is None else mask.cpu(), n)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(480, 752), (1080, 1920)])
 @pytest.mark.parametrize("nms", [True, False], ids=["nms", "no-nms"])
@@ -1075,10 +1092,10 @@ def test_cuda_fast_score_bit_equal(cuda_dev, shape, nms, mask):
         m = convert.tensor(np.random.default_rng(45).normal(
             size=shape).astype(np.float32), cuda_dev)
     ck.reset_launch_counts()
-    got = ck.fast_score(img, 20.0, nms=nms, mask=m)
+    got = _score(img, 20.0, nms, m)
     torch.cuda.synchronize()
     assert ck.LAUNCHES["fast_score"] == 1 and ck.LAUNCHES["fast_harris"] == 0
-    assert torch.equal(got, ck._fast_score_plain(img, 20.0, nms, m))
+    assert torch.equal(got.cpu(), _score_plain(img, 20.0, nms, m))
     assert int((got > 0).sum()) > 100
 
 
@@ -1086,12 +1103,14 @@ def test_cuda_fast_score_bit_equal(cuda_dev, shape, nms, mask):
 def test_cuda_fast_score_rejects_bad_input(cuda_dev):
     img = convert.tensor(_img(42, (40, 50)), cuda_dev)
     with pytest.raises(ValueError, match="uint8"):
-        ck.fast_score(img.float(), 10.0)
+        tfast._kernel_score(img.float(), 10.0, 9, True, None)
     with pytest.raises(ValueError, match="mask"):
-        ck.fast_score(img, 10.0, mask=torch.ones((40, 49), device=cuda_dev))
+        tfast._kernel_score(img, 10.0, 9, True,
+                            torch.ones((40, 49), device=cuda_dev))
     with pytest.raises(ValueError, match="float32"):
-        ck.fast_score(img, 10.0, mask=torch.ones((40, 50), device=cuda_dev,
-                                                 dtype=torch.float64))
+        tfast._kernel_score(img, 10.0, 9, True,
+                            torch.ones((40, 50), device=cuda_dev,
+                                       dtype=torch.float64))
 
 
 @pytest.mark.cuda
@@ -1105,12 +1124,12 @@ def test_cuda_fast_harris_levels_unchanged_by_the_score_modes(
                              .astype(np.uint8), cuda_dev)
               for i in range(n_levels)]
     ck.reset_launch_counts()
-    got = ck.fast_harris_levels(levels, 7.0)
+    got = tfast.fast_harris_levels(levels, 7.0)
     torch.cuda.synchronize()
     assert ck.LAUNCHES["fast_harris"] == launches
     assert ck.LAUNCHES["fast_score"] == 0
     for (s_k, h_k), lv in zip(got, levels):
-        s_p, h_p = ck._fast_harris_plain(lv, 7.0)
+        s_p, h_p = tfast._fast_harris_plain(lv, 7.0)
         assert torch.equal(s_k, s_p) and torch.equal(h_k, h_p)
 
 
@@ -1160,10 +1179,10 @@ def test_cuda_fast_score_arc_lengths_bit_equal(cuda_dev, shape, nms, mask,
         m = convert.tensor(np.random.default_rng(47).normal(
             size=shape).astype(np.float32), cuda_dev)
     ck.reset_launch_counts()
-    got = ck.fast_score(img, 20.0, nms=nms, mask=m, arc_length=n)
+    got = _score(img, 20.0, nms, m, n)
     torch.cuda.synchronize()
     assert ck.LAUNCHES["fast_score"] == 1 and ck.LAUNCHES["fast_harris"] == 0
-    assert torch.equal(got, ck._fast_score_plain(img, 20.0, nms, m, n))
+    assert torch.equal(got.cpu(), _score_plain(img, 20.0, nms, m, n))
 
 
 @pytest.mark.cuda
@@ -1173,10 +1192,10 @@ def test_cuda_fast_score_arc_lengths_outside_the_ring(cuda_dev, n):
     reference's doubling reduces them: bit-equal to the plain version at
     the same n."""
     img = convert.tensor(_textured_u8(48, (120, 160)), cuda_dev)
-    got = ck.fast_score(img, 5.0, nms=True, arc_length=n)
-    assert torch.equal(got, ck._fast_score_plain(img, 5.0, True, None, n))
+    got = _score(img, 5.0, True, None, n)
+    assert torch.equal(got.cpu(), _score_plain(img, 5.0, True, None, n))
     with pytest.raises(TypeError):
-        ck.fast_score(img, 5.0, arc_length=9.5)
+        _score(img, 5.0, True, None, 9.5)
 
 
 @pytest.mark.cuda
@@ -1529,7 +1548,7 @@ def _select_inputs(gray, cfg, dev):
     from kornia_tpu_torch.features import orb
 
     levels = orb._pyramid(convert.tensor(gray, dev), cfg)
-    return (levels, ck.fast_harris_levels(levels, cfg.fast_threshold_low),
+    return (levels, tfast.fast_harris_levels(levels, cfg.fast_threshold_low),
             orb._level_budgets(cfg))
 
 
@@ -1555,7 +1574,7 @@ _SELECT_CASES = {
 
 
 def _select_args(cfg):
-    """ck.orb_select's arguments after the budgets, from an OrbConfig."""
+    """torb.orb_select's arguments after the budgets, from an OrbConfig."""
     return cfg.cell_size, cfg.fast_threshold_high, cfg.harris_rescore
 
 
@@ -1571,10 +1590,10 @@ def test_cuda_orb_select_bit_equal(cuda_dev, case):
     cfg = orb.OrbConfig(**kw)
     levels, maps, budgets = _select_inputs(make(50, shape), cfg, cuda_dev)
     ck.reset_launch_counts()
-    got = ck.orb_select(levels, maps, budgets, *_select_args(cfg))
+    got = torb.orb_select(levels, maps, budgets, *_select_args(cfg))
     torch.cuda.synchronize()
     assert ck.LAUNCHES["orb_select"] == (3 if cfg.harris_rescore else 2)
-    want = ck._orb_select_plain(levels, maps, budgets, *_select_args(cfg))
+    want = torb._orb_select_plain(levels, maps, budgets, *_select_args(cfg))
     _assert_sels_equal(got, want)
     assert sum(int(v.sum()) for _, _, v in got) > cfg.n_features // 2
 
@@ -1592,12 +1611,12 @@ def test_cuda_orb_select_sorts_big_levels_in_global_memory(cuda_dev,
                         harris_rescore=rescore)
     levels, maps, budgets = _select_inputs(_textured_u8(56, (376, 1241)),
                                            cfg, cuda_dev)
-    plan = ck.orb_select_plan(tuple(tuple(lv.shape) for lv in levels),
-                              tuple(budgets), cfg.cell_size)
+    plan = torb.orb_select_plan(tuple(tuple(lv.shape) for lv in levels),
+                                tuple(budgets), cfg.cell_size)
     slots = [c * p for c, p in plan]
-    assert slots[0] > ck.ORB_SELECT_SHARED_SORT
-    got = ck.orb_select(levels, maps, budgets, *_select_args(cfg))
-    want = ck._orb_select_plain(levels, maps, budgets, *_select_args(cfg))
+    assert slots[0] > torb.ORB_SELECT_SHARED_SORT
+    got = torb.orb_select(levels, maps, budgets, *_select_args(cfg))
+    want = torb._orb_select_plain(levels, maps, budgets, *_select_args(cfg))
     _assert_sels_equal(got, want)
     assert all(int(v.sum()) > 0 for _, _, v in got)
 
@@ -1622,8 +1641,8 @@ def test_cuda_orb_select_degenerate_maps(cuda_dev, maps_kind, rescore):
     elif maps_kind == "no-high-tier":
         maps = [(torch.clamp(s, max=cfg.fast_threshold_high).contiguous(), h)
                 for s, h in maps]
-    got = ck.orb_select(levels, maps, budgets, *_select_args(cfg))
-    want = ck._orb_select_plain(levels, maps, budgets, *_select_args(cfg))
+    got = torb.orb_select(levels, maps, budgets, *_select_args(cfg))
+    want = torb._orb_select_plain(levels, maps, budgets, *_select_args(cfg))
     _assert_sels_equal(got, want)
     n_valid = sum(int(v.sum()) for _, _, v in got)
     assert (n_valid == 0) == (maps_kind == "flat")
@@ -1646,7 +1665,7 @@ def test_cuda_orb_routes_give_the_same_features(cuda_dev, kw, monkeypatch):
     torch.cuda.synchronize()
     assert ck.LAUNCHES["orb_select"] == (3 if cfg.harris_rescore else 2)
     assert ck.LAUNCHES["fast_harris"] == 1
-    monkeypatch.setattr(ck, "orb_select", ck._orb_select_plain)
+    monkeypatch.setattr(torb, "orb_select", torb._orb_select_plain)
     ck.reset_launch_counts()
     want = orb.orb_detect_and_describe(gray, cfg)
     torch.cuda.synchronize()
@@ -1659,7 +1678,7 @@ def test_cuda_orb_routes_give_the_same_features(cuda_dev, kw, monkeypatch):
 @pytest.mark.cuda
 def test_cuda_orb_select_waits_for_nothing(cuda_dev):
     """ORB's select stage on the card: one span a frame (attribute "all")
-    around one ck.orb_select call, which launches 3 times and does not
+    around one torb.orb_select call, which launches 3 times and does not
     synchronise with the host (sync debug mode "error")."""
     from kornia_tpu_torch.features import orb
     from kornia_tpu_torch.utils import tracing
@@ -1667,13 +1686,13 @@ def test_cuda_orb_select_waits_for_nothing(cuda_dev):
     cfg = orb.OrbConfig()
     gray = _textured_u8(53, (376, 1241))
     levels, maps, budgets = _select_inputs(gray, cfg, cuda_dev)
-    want = ck._orb_select_plain(levels, maps, budgets, *_select_args(cfg))
-    ck.orb_select(levels, maps, budgets, *_select_args(cfg))   # warm-up
+    want = torb._orb_select_plain(levels, maps, budgets, *_select_args(cfg))
+    torb.orb_select(levels, maps, budgets, *_select_args(cfg))   # warm-up
     torch.cuda.synchronize()
     ck.reset_launch_counts()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        sels = ck.orb_select(levels, maps, budgets, *_select_args(cfg))
+        sels = torb.orb_select(levels, maps, budgets, *_select_args(cfg))
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -1691,7 +1710,7 @@ def test_cuda_orb_select_waits_for_nothing(cuda_dev):
                                 dict(n_levels=33, scale_factor=1.05)])
 def test_cuda_orb_over_capacity_raises(cuda_dev, kw):
     """Cells over 2048 pixels, or more than ORB_SELECT_MAX_LEVELS levels:
-    ck.orb_select raises, and so does ORB on the card, which has no other
+    torb.orb_select raises, and so does ORB on the card, which has no other
     route; no K10 launch."""
     from kornia_tpu_torch.features import orb
 
@@ -1700,7 +1719,7 @@ def test_cuda_orb_over_capacity_raises(cuda_dev, kw):
     levels, maps, budgets = _select_inputs(gray, cfg, cuda_dev)
     ck.reset_launch_counts()
     with pytest.raises(ValueError, match="cannot take"):
-        ck.orb_select(levels, maps, budgets, *_select_args(cfg))
+        torb.orb_select(levels, maps, budgets, *_select_args(cfg))
     with pytest.raises(ValueError, match="cannot take"):
         orb.orb_detect_and_describe(gray, cfg)
     assert ck.LAUNCHES["orb_select"] == 0
@@ -1718,11 +1737,11 @@ def test_cuda_orb_select_rejects_bad_input(cuda_dev):
     for bad in ([maps[0], (s.double(), h)], [maps[0], (s, h[:, :-1])],
                 [maps[0], (s.t(), h)], [maps[0], (s, h.cpu())]):
         with pytest.raises(ValueError):
-            ck.orb_select(levels, bad, budgets, *args)
+            torb.orb_select(levels, bad, budgets, *args)
     with pytest.raises(ValueError):
-        ck.orb_select([levels[0], levels[1].float()], maps, budgets, *args)
+        torb.orb_select([levels[0], levels[1].float()], maps, budgets, *args)
     with pytest.raises(ValueError):
-        ck.orb_select(levels, maps[:1], budgets, *args)
+        torb.orb_select(levels, maps[:1], budgets, *args)
 
 
 # --------------------------------------------------------------------------
@@ -1749,7 +1768,7 @@ def _describe_inputs(case, dev):
     make, shape, kw = _DESCRIBE_CASES[case]
     cfg = orb.OrbConfig(**kw)
     levels, maps, budgets = _select_inputs(make(60, shape), cfg, dev)
-    sels = ck.orb_select(levels, maps, budgets, *_select_args(cfg))
+    sels = torb.orb_select(levels, maps, budgets, *_select_args(cfg))
     return (levels, [xy for xy, _, _ in sels],
             orb._pattern_on(cfg.pattern, cfg.pattern_seed, dev))
 
@@ -1782,10 +1801,10 @@ def test_cuda_orb_describe_bit_equal(cuda_dev, case):
     levels, xys, pat = _describe_inputs(case, cuda_dev)
     torch.cuda.synchronize()
     ck.reset_launch_counts()
-    ang, bits = ck.orb_describe(levels, xys, pat)
+    ang, bits = torb.orb_describe(levels, xys, pat)
     torch.cuda.synchronize()
     assert {k: v for k, v in ck.LAUNCHES.items() if v} == {"orb_describe": 1}
-    want_ang, want_bits = ck._orb_describe_plain(levels, xys, pat)
+    want_ang, want_bits = torb._orb_describe_plain(levels, xys, pat)
     torch.cuda.synchronize()
     assert ang.dtype == torch.float32 and bits.dtype == torch.uint8
     assert torch.equal(ang, want_ang) and torch.equal(bits, want_bits)
@@ -1807,8 +1826,8 @@ def test_cuda_orb_describe_at_borders(cuda_dev, pattern, seed):
                for s in ((1, 9), (5, 1), (2, 2), (40, 3))]
     xys = _border_xys(levels, 63)
     pat = orb._pattern_on(pattern, seed, cuda_dev)
-    ang, bits = ck.orb_describe(levels, xys, pat)
-    want_ang, want_bits = ck._orb_describe_plain(levels, xys, pat)
+    ang, bits = torb.orb_describe(levels, xys, pat)
+    want_ang, want_bits = torb._orb_describe_plain(levels, xys, pat)
     torch.cuda.synchronize()
     assert torch.equal(ang, want_ang) and torch.equal(bits, want_bits)
 
@@ -1843,7 +1862,7 @@ def test_cuda_orb_describe_routes_give_the_same_features(cuda_dev, frame,
     torch.cuda.synchronize()
     assert {k: v for k, v in ck.LAUNCHES.items() if v} == {
         "fast_harris": 1, "orb_select": 3, "orb_describe": 1}
-    monkeypatch.setattr(ck, "orb_describe", ck._orb_describe_plain)
+    monkeypatch.setattr(torb, "orb_describe", torb._orb_describe_plain)
     ck.reset_launch_counts()
     want = orb.orb_detect_and_describe(gray, cfg)
     torch.cuda.synchronize()
@@ -1859,20 +1878,20 @@ def test_cuda_orb_describe_routes_give_the_same_features(cuda_dev, frame,
 
 @pytest.mark.cuda
 def test_cuda_orb_describe_waits_for_nothing(cuda_dev):
-    """One ck.orb_describe call launches once and does not synchronise
+    """One torb.orb_describe call launches once and does not synchronise
     with the host (sync debug mode "error"); ORB's describe span carries
     "fused" on the card, "composed" in the unpaired form."""
     from kornia_tpu_torch.features import orb
     from kornia_tpu_torch.utils import tracing
 
     levels, xys, pat = _describe_inputs("kitti", cuda_dev)
-    want = ck._orb_describe_plain(levels, xys, pat)
-    ck.orb_describe(levels, xys, pat)                    # warm-up
+    want = torb._orb_describe_plain(levels, xys, pat)
+    torb.orb_describe(levels, xys, pat)                    # warm-up
     torch.cuda.synchronize()
     ck.reset_launch_counts()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = ck.orb_describe(levels, xys, pat)
+        got = torb.orb_describe(levels, xys, pat)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -1909,6 +1928,6 @@ def test_cuda_orb_describe_rejects_bad_input(cuda_dev):
     ck.reset_launch_counts()
     for args in bad:
         with pytest.raises(ValueError):
-            ck.orb_describe(*args)
+            torb.orb_describe(*args)
     torch.cuda.synchronize()
     assert ck.LAUNCHES["orb_describe"] == 0

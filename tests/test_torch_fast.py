@@ -176,9 +176,9 @@ def test_fast_score_plain_version_equals_reference_composition(nms, mask):
         ref = ref * m
     if nms:
         ref = jfast.nms_maxpool(ref)
+    dispatch = tfast._score_nms_dispatch if nms else tfast._score_dispatch
     ck.reset_launch_counts()
-    got = ck.fast_score(tensor(img), 20.0, nms=nms,
-                        mask=None if m is None else tensor(m))
+    got = dispatch(tensor(img), 20.0, 9, None if m is None else tensor(m))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert ck.LAUNCHES["fast_score"] == 0      # a CPU tensor: no launch
 

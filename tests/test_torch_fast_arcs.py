@@ -2,12 +2,13 @@
 
 FAST at arc lengths other than 9: the port's CPU route (``fast_score``,
 ``fast_detect``, ``fast_detect_cells``, ``fast_harris_cells``, and K1's
-score-only plain version ``cuda_kernels._fast_score_plain``) against the
+score-only plain version, the CPU branch of ``_score_dispatch`` and
+``_score_nms_dispatch``) against the
 JAX package's XLA path, exactly (the FAST score of u8 input is an integer,
 the max-pool NMS and the per-cell selection are exact). Besides 9-12, the
 two edge values the reference's log-step doubling reduces
 (pallas_kernels.py:262-272, fast.py:56-66): an arc length <= 1 is the arc
-of 1, one >= 16 the whole ring; ``cuda_kernels.fast_arc`` maps n the same
+of 1, one >= 16 the whole ring; ``fast.fast_arc`` maps n the same
 way for the kernel, which is compiled for 1..16. The card's forms are held
 to these plain versions by tests/test_torch_cuda.py.
 
@@ -97,8 +98,9 @@ def test_fast_cell_detectors_arc_lengths_equal_reference(n):
 @pytest.mark.parametrize("nms", [True, False], ids=["nms", "no-nms"])
 @pytest.mark.parametrize("masked", [False, True], ids=["", "mask"])
 def test_fast_score_plain_version_at_arc_lengths(n, nms, masked):
-    """K1's score-only plain version at arc length n is the port's own
-    composition, ``nms_maxpool(fast_score(img, thr, n) * mask)``."""
+    """K1's score-only plain version at arc length n (the CPU branch of
+    the score dispatch) is the port's own composition,
+    ``nms_maxpool(fast_score(img, thr, n) * mask)``."""
     img = tensor(_textured(64))
     mask = (tensor(np.random.default_rng(65).integers(0, 2, img.shape)
                    .astype(np.float32)) if masked else None)
@@ -107,10 +109,8 @@ def test_fast_score_plain_version_at_arc_lengths(n, nms, masked):
         want = want * mask
     if nms:
         want = tfast.nms_maxpool(want)
-    got = ck._fast_score_plain(img, 15.0, nms, mask, arc_length=n)
-    assert torch.equal(got, want)
-    assert torch.equal(ck.fast_score(img, 15.0, nms, mask, arc_length=n),
-                       want)
+    dispatch = tfast._score_nms_dispatch if nms else tfast._score_dispatch
+    assert torch.equal(dispatch(img, 15.0, n, mask), want)
 
 
 def test_fast_arc_maps_like_the_reference_doubling():
@@ -121,13 +121,13 @@ def test_fast_arc_maps_like_the_reference_doubling():
     by_n = {n: np.asarray(jfast.fast_score(img, 10.0, n))
             for n in (-3, 0, 1, 2, 15, 16, 17, 40)}
     for n, arr in by_n.items():
-        np.testing.assert_array_equal(arr, by_n[ck.fast_arc(n)])
+        np.testing.assert_array_equal(arr, by_n[tfast.fast_arc(n)])
     assert not np.array_equal(by_n[1], by_n[2])
     assert not np.array_equal(by_n[15], by_n[16])
-    assert [ck.fast_arc(n) for n in (-3, 0, 1, 9, 12, 16, 17, 40)] == [
+    assert [tfast.fast_arc(n) for n in (-3, 0, 1, 9, 12, 16, 17, 40)] == [
         1, 1, 1, 9, 12, 16, 16, 16]
     with pytest.raises(TypeError):
-        ck.fast_arc(9.5)
+        tfast.fast_arc(9.5)
 
 
 def test_fast_detect_any_arc_length_counts_no_cpu_launch():

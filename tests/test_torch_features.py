@@ -235,7 +235,7 @@ def test_select_level_exact(frame, rescore):
                                            ("smooth", True),
                                            ("smooth", False)])
 def test_orb_select_plain_equals_reference(frame, rescore):
-    """ck.orb_select's plain version, all levels at once on K1's maps (the
+    """torb.orb_select's plain version, all levels at once on K1's maps (the
     route ORB takes on the card, here through the plain versions), level by
     level equal to the reference's _select_level."""
     from kornia_tpu_torch.ops import cuda_kernels as ck
@@ -246,7 +246,7 @@ def test_orb_select_plain_equals_reference(frame, rescore):
     levels = _ref_pyramid(gray)
     budgets = jorb._level_budgets(cfg)
     tl = [tensor(lv) for lv in levels]
-    got = ck.orb_select(tl, ck.fast_harris_levels(
+    got = torb.orb_select(tl, tfast.fast_harris_levels(
         tl, tcfg.fast_threshold_low), budgets, tcfg.cell_size,
         tcfg.fast_threshold_high, tcfg.harris_rescore)
     assert len(got) == len(levels)
@@ -289,7 +289,7 @@ def describe_ref():
 def test_describe_windows_exact(describe_ref):
     r = describe_ref
     for frames, want in ((r["grays"], r["win_g"]), (r["blurs"], r["win_b"])):
-        got = ck.extract_windows_packed_paired(
+        got = torb._extract_windows_packed_paired(
             [tensor(f) for f in frames],
             [tensor(x) for x in r["xy_ints"]])
         np.testing.assert_array_equal(got.numpy(), want)
@@ -299,7 +299,7 @@ def test_orientation_within_1e5(describe_ref):
     """Intensity-centroid angles from the reference's windows. The two
     moment sums run in another order than XLA's, so atan2 sees inputs a
     few ULP apart: within 1e-5 rad."""
-    got = ck.orientation_from_windows_paired(
+    got = torb.orientation_from_windows_paired(
         tensor(describe_ref["win_g"])).numpy()
     diff = np.abs(got - describe_ref["ang"])
     diff = np.minimum(diff, 2 * np.pi - diff)
@@ -312,7 +312,7 @@ def test_brief_given_reference_angles(describe_ref):
     inputs, and a tap exactly at .5 after rotation would round the other
     way; none does here (measured 0 flipped bits of 131072), so the bits
     are equal."""
-    got = ck.brief_from_windows_paired(
+    got = torb.brief_from_windows_paired(
         tensor(describe_ref["win_b"]), tensor(describe_ref["ang"]),
         torb._pattern_on(TCFG.pattern, TCFG.pattern_seed, "cpu")).numpy()
     np.testing.assert_array_equal(got, describe_ref["desc"])

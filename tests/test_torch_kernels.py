@@ -26,6 +26,8 @@ from kornia_tpu.ops import optical_flow as jflow
 from kornia_tpu.ops import pallas_kernels as pk
 
 from kornia_tpu_torch import convert
+from kornia_tpu_torch.features import fast as tfast
+from kornia_tpu_torch.features import orb as torb
 from kornia_tpu_torch.ops import cuda_kernels as ck
 
 # One intra-op thread: these tests run many small ops, and torch's pool
@@ -75,7 +77,7 @@ def test_fast_harris_plain_matches_reference(shape):
     h_ref = np.asarray(jresp.harris_response(
         jnp.asarray(img).astype(jnp.float32), k=0.04, block_size=5,
         sigma=1.0, grad="central"))
-    score, hmap = ck.fast_harris(tensor(img), 7.0)
+    score, hmap = tfast.fast_harris(tensor(img), 7.0)
     np.testing.assert_array_equal(score.numpy(), s_ref)
     np.testing.assert_array_equal(hmap.numpy(), h_ref)
 
@@ -89,7 +91,7 @@ def test_fast_harris_plain_matches_pallas_interpret():
     img = _img(2, (48, 80))
     s_pl, h_pl = pk.fast_score_pallas(jnp.asarray(img), 7.0, 9, nms=True,
                                       harris=True)
-    score, hmap = ck.fast_harris(tensor(img), 7.0)
+    score, hmap = tfast.fast_harris(tensor(img), 7.0)
     np.testing.assert_array_equal(score.numpy(), np.asarray(s_pl))
     hp = np.asarray(h_pl)[3:-3, 3:-3]
     ht = hmap.numpy()[3:-3, 3:-3]
@@ -98,7 +100,7 @@ def test_fast_harris_plain_matches_pallas_interpret():
 
 def test_fast_harris_counts_no_cpu_launch():
     ck.reset_launch_counts()
-    ck.fast_harris(tensor(_img(3, (32, 32))), 7.0)
+    tfast.fast_harris(tensor(_img(3, (32, 32))), 7.0)
     assert ck.LAUNCHES["fast_harris"] == 0
 
 
@@ -112,14 +114,14 @@ def test_fast_harris_levels_plain_equals_per_level(shapes):
     included; it counts no launch on the CPU."""
     levels = [tensor(a) for a in _levels(4, shapes)]
     ck.reset_launch_counts()
-    got = ck.fast_harris_levels(levels, 7.0)
+    got = tfast.fast_harris_levels(levels, 7.0)
     assert ck.LAUNCHES["fast_harris"] == 0
     assert len(got) == len(levels)
     for (score, hmap), lv in zip(got, levels):
-        s1, h1 = ck.fast_harris(lv, 7.0)
+        s1, h1 = tfast.fast_harris(lv, 7.0)
         assert score.shape == hmap.shape == lv.shape
         assert torch.equal(score, s1) and torch.equal(hmap, h1)
-    assert ck.fast_harris_levels([], 7.0) == []
+    assert tfast.fast_harris_levels([], 7.0) == []
 
 
 @pytest.fixture(scope="module")
@@ -138,8 +140,8 @@ def ref_pyramid():
             jresp.harris_response(x.astype(jnp.float32), k=0.04,
                                   block_size=5, sigma=1.0, grad="central"))
            for x in lv]
-    got = ck.fast_harris_levels([tensor(np.asarray(x)) for x in lv],
-                                7.0)
+    got = tfast.fast_harris_levels([tensor(np.asarray(x)) for x in lv],
+                                   7.0)
     return got, pallas, xla, [np.asarray(x) for x in lv]
 
 
@@ -166,7 +168,6 @@ def test_orb_features_equal_the_per_level_route(ref_pyramid, monkeypatch,
     equal at every slot (xy, score, mask, octave) those of the reference's
     per-level route, ``_select_level`` with its own FAST + Harris pass per
     level, on the reference's 3-level pyramid of the same frame."""
-    from kornia_tpu_torch.features import orb as torb
     levels = ref_pyramid[3]
     cfg = jorb.OrbConfig(n_features=300, n_levels=len(levels))
     tcfg = convert.orb_config(dataclasses.asdict(cfg))
@@ -174,13 +175,13 @@ def test_orb_features_equal_the_per_level_route(ref_pyramid, monkeypatch,
     monkeypatch.setattr(torb, "_pyramid", lambda g, c: [
         tensor(lv) for lv in levels])
     calls = []
-    all_levels = ck.fast_harris_levels
+    all_levels = tfast.fast_harris_levels
 
     def counted(lvs, thr):
         calls.append(len(lvs))
         return all_levels(lvs, thr)
 
-    monkeypatch.setattr(ck, "fast_harris_levels", counted)
+    monkeypatch.setattr(torb, "fast_harris_levels", counted)
     got = torb.orb_detect_and_describe(levels[0], tcfg, device="cpu",
                                        describe=describe)
     assert calls == [len(levels)]
@@ -225,13 +226,12 @@ def test_orb_17_levels_in_chunks_equal_the_per_level_route(levels17,
     describe form equal to the per-level route's (``_select_level(...,
     maps=None)``, one K1 call per level); the 17th level's selection is
     the reference's ``_select_level``, slot for slot."""
-    from kornia_tpu_torch.features import orb as torb
     levels, cfg, ref17 = levels17
     tcfg = convert.orb_config(dataclasses.asdict(cfg))
     monkeypatch.setattr(torb, "_pyramid", lambda g, c: [
         tensor(lv) for lv in levels])
     calls, chunks = [], []
-    all_levels, chunk = ck.fast_harris_levels, ck._fast_harris_chunk
+    all_levels, chunk = tfast.fast_harris_levels, tfast._fast_harris_chunk
 
     def counted(lvs, thr):
         calls.append(len(lvs))
@@ -241,8 +241,8 @@ def test_orb_17_levels_in_chunks_equal_the_per_level_route(levels17,
         chunks.append(len(lvs))
         return chunk(lvs, thr)
 
-    monkeypatch.setattr(ck, "fast_harris_levels", counted)
-    monkeypatch.setattr(ck, "_fast_harris_chunk", counted_chunk)
+    monkeypatch.setattr(torb, "fast_harris_levels", counted)
+    monkeypatch.setattr(tfast, "_fast_harris_chunk", counted_chunk)
     got = torb.orb_detect_and_describe(levels[0], tcfg, device="cpu",
                                        **form)
     assert calls == [17] and chunks == [16, 1]
@@ -253,7 +253,7 @@ def test_orb_17_levels_in_chunks_equal_the_per_level_route(levels17,
         want = torch.cat([sl[i] * tcfg.scale_factor ** lv if i == 0
                           else sl[i] for lv, sl in enumerate(sels)])
         assert torch.equal(getattr(got, field), want), field
-    monkeypatch.setattr(ck, "fast_harris_levels", lambda lvs, thr: [
+    monkeypatch.setattr(torb, "fast_harris_levels", lambda lvs, thr: [
         all_levels([lv], thr)[0] for lv in lvs])
     per_level = torb.orb_detect_and_describe(levels[0], tcfg, device="cpu",
                                              **form)
@@ -275,7 +275,7 @@ def test_fast_harris_levels_rejects_bad_input_on_cpu(levels, match):
     """The CPU route checks what the card route checks: each level a 2-D
     uint8 tensor (any number of levels is taken, in chunks of 16)."""
     with pytest.raises(ValueError, match=match):
-        ck.fast_harris_levels([tensor(a) for a in levels], 7.0)
+        tfast.fast_harris_levels([tensor(a) for a in levels], 7.0)
 
 
 # --------------------------------------------------------------------------
@@ -365,7 +365,6 @@ _ROTATED_CASES = [(layout, k) for layout in ("paired", "unpaired")
 
 
 def _rotated_inputs(layout, k, pattern, seed):
-    from kornia_tpu_torch.features import orb as torb
     rng = np.random.default_rng(31)
     paired = layout == "paired"
     win = tensor(rng.standard_normal(
@@ -386,7 +385,6 @@ def test_brief_rotated_plain_samples_match_the_index_form(layout, k, pattern,
     *_brief_tap_coords(...))``, exactly: both layouts, the learned pattern
     and two seeded ones (seed 1 has the (14, 14) tap that reaches the
     paired layout's row clip), K = 0, an odd K on the unpaired layout."""
-    from kornia_tpu_torch.features import orb as torb
     win, ang, pat = _rotated_inputs(layout, k, pattern, seed)
     paired = layout == "paired"
     rows, cols = torb._brief_tap_coords(ang, seed, pattern,
@@ -413,12 +411,11 @@ def test_brief_rotated_bits_match_reference(layout, pattern, seed):
     ``brief_from_windows_paired`` / ``brief_from_windows`` on the same
     windows and angles, exactly (0 of 64 x 256 bits flip here; a one-ULP
     cos/sin difference could move a tap that rotates onto an exact .5)."""
-    from kornia_tpu_torch.features import orb as torb
     win, ang, _ = _rotated_inputs(layout, 64, pattern, seed)
     if layout == "paired":
         want = jorb.brief_from_windows_paired(
             jnp.asarray(win.numpy()), jnp.asarray(ang.numpy()), seed, pattern)
-        got = ck.brief_from_windows_paired(
+        got = torb.brief_from_windows_paired(
             win, ang, torb._pattern_on(pattern, seed, win.device))
     else:
         want = jorb.brief_from_windows(
@@ -674,10 +671,8 @@ def test_orb_select_plan_at_kitti_and_euroc():
     """The slots a level at OrbConfig() on KITTI's frame (level 0: 396
     cells of 3, 1,188 slots; level 7: 30 of 9) and at SlamConfig()'s ORB on
     EuRoC's (4 levels of 1000 features: at most 924 slots a level)."""
-    from kornia_tpu_torch.features import orb as torb
-
     cfg = torb.OrbConfig()
-    plan = ck.orb_select_plan(_kitti_shapes(), tuple(torb._level_budgets(
+    plan = torb.orb_select_plan(_kitti_shapes(), tuple(torb._level_budgets(
         cfg)), cfg.cell_size)
     assert plan[0] == (396, 3) and plan[-1] == (30, 9)
     assert max(c * p for c, p in plan) == 1188
@@ -685,10 +680,10 @@ def test_orb_select_plan_at_kitti_and_euroc():
                   for i in range(4))
     budgets = tuple(torb._level_budgets(torb.OrbConfig(n_features=1000,
                                                        n_levels=4)))
-    plan = ck.orb_select_plan(euroc, budgets, 35)
+    plan = torb.orb_select_plan(euroc, budgets, 35)
     assert max(c * p for c, p in plan) <= 924
     # every level of both sorts in shared memory
-    assert all(2 * b <= c * p <= ck.ORB_SELECT_SHARED_SORT
+    assert all(2 * b <= c * p <= torb.ORB_SELECT_SHARED_SORT
                for (c, p), b in zip(plan, budgets))
 
 
@@ -708,7 +703,7 @@ def test_orb_select_plan_capacity(shapes, budgets, cell, fits):
     """K10 takes a frame only within its capacity: at most
     ORB_SELECT_MAX_LEVELS levels, cells of at most 2048 pixels, no empty
     level, at most ORB_SELECT_MAX_SLOTS slots a level."""
-    plan = ck.orb_select_plan(shapes, budgets, cell)
+    plan = torb.orb_select_plan(shapes, budgets, cell)
     assert (plan is not None) == fits
 
 
@@ -716,15 +711,12 @@ def test_orb_select_plan_capacity(shapes, budgets, cell, fits):
 def test_orb_select_plan_counts_the_composition_slots(rescore):
     """cells x per_cell of each level is the length of the composition's
     candidate list (fast.cell_candidates), which the kernel sorts."""
-    from kornia_tpu_torch.features import fast as tfast
-    from kornia_tpu_torch.features import orb as torb
-
     cfg = torb.OrbConfig(n_features=600, n_levels=4, harris_rescore=rescore)
     levels = torb._pyramid(tensor(_img(40, (120, 200))), cfg)
     budgets = torb._level_budgets(cfg)
-    plan = ck.orb_select_plan(tuple(tuple(lv.shape) for lv in levels),
-                              tuple(budgets), cfg.cell_size)
-    maps = ck.fast_harris_levels(levels, cfg.fast_threshold_low)
+    plan = torb.orb_select_plan(tuple(tuple(lv.shape) for lv in levels),
+                                tuple(budgets), cfg.cell_size)
+    maps = tfast.fast_harris_levels(levels, cfg.fast_threshold_low)
     for lv, (s, h), b, (cells, per_cell) in zip(levels, maps, budgets, plan):
         xy, score = tfast.cell_candidates(lv, s, h, b, cfg.cell_size,
                                           cfg.fast_threshold_high, rescore)
@@ -737,7 +729,7 @@ def test_orb_select_scratch_holds_the_global_sort(budget, keys):
     """K10's scratch on one 35 x 35 level: 8 bytes a cell and a slot, and
     for a level of more than ORB_SELECT_SHARED_SORT slots its sort keys
     (8 bytes each, the next power of two over its slots)."""
-    *_, words = ck._select_table(((35, 35),), (budget,), 35)
+    *_, words = torb._select_table(((35, 35),), (budget,), 35)
     assert words == 2 * (1 + 2 * budget) + 2 * keys
 
 
@@ -750,16 +742,16 @@ def test_orb_select_table_raises_over_capacity(shapes, budgets, cell):
     """Shapes K10 cannot take raise, as the other wrappers do; ORB takes
     no other route on the card."""
     with pytest.raises(ValueError, match="cannot take"):
-        ck._select_table(shapes, budgets, cell)
+        torb._select_table(shapes, budgets, cell)
 
 
 def test_orb_select_plain_rejects_unmatched_lists():
     levels = [tensor(_img(41, (40, 60)))]
-    maps = ck.fast_harris_levels(levels, 7.0)
+    maps = tfast.fast_harris_levels(levels, 7.0)
     with pytest.raises(ValueError, match="a level"):
-        ck.orb_select(levels, maps, [10, 10], 35, 20.0)
+        torb.orb_select(levels, maps, [10, 10], 35, 20.0)
     with pytest.raises(ValueError, match="a level"):
-        ck.orb_select([], [], [], 35, 20.0)
+        torb.orb_select([], [], [], 35, 20.0)
 
 
 def test_new_wrappers_count_no_cpu_launch():
@@ -771,12 +763,12 @@ def test_new_wrappers_count_no_cpu_launch():
     ck.lane_gather(torch.zeros(6, 128), torch.zeros(2, 128,
                                                     dtype=torch.int32))
     ck.fused_preprocess(tensor(_img(30, (20, 30, 3))), 8, 8)
-    ck.fast_score(tensor(_img(31, (20, 30))), 10.0, nms=False)
+    tfast._score_dispatch(tensor(_img(31, (20, 30))), 10.0, 9)
     levels = [tensor(_img(32, (40, 60))), tensor(_img(33, (33, 50)))]
-    ck.orb_select(levels, ck.fast_harris_levels(levels, 7.0), [20, 12], 35,
-                  20.0)
-    ck.orb_describe(levels, [torch.zeros((20, 2)), torch.zeros((12, 2))],
-                    torch.zeros((256, 4), dtype=torch.int32))
+    torb.orb_select(levels, tfast.fast_harris_levels(levels, 7.0), [20, 12],
+                    35, 20.0)
+    torb.orb_describe(levels, [torch.zeros((20, 2)), torch.zeros((12, 2))],
+                      torch.zeros((256, 4), dtype=torch.int32))
     assert all(v == 0 for v in ck.LAUNCHES.values())
     assert len(ck.SOURCES) == 11
     assert set(ck.LAUNCHES) == set(ck.KERNELS) == set(ck.SOURCES) | {
@@ -823,6 +815,59 @@ def test_port_imports_neither_jax_nor_reference():
     assert "kornia_tpu_torch" in {m.split(".")[0] for m in imported}
     bad = {m for m in imported if m.split(".")[0] in ("jax", "kornia_tpu")}
     assert not bad, bad
+
+
+def _imports(path, root):
+    """(module, inside a function) of every import statement of the
+    source file at ``path`` under ``root``: a relative import resolved
+    against its package, ``from P import m`` counted as an import of P
+    and of P.m."""
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    package = os.path.relpath(os.path.dirname(path), root).split(os.sep)
+    found = []
+
+    def visit(node, in_fn):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                found.extend((a.name, in_fn) for a in child.names)
+            elif isinstance(child, ast.ImportFrom):
+                base = child.module or ""
+                if child.level:
+                    up = package[:len(package) - child.level + 1]
+                    base = ".".join(up + ([base] if base else []))
+                found.append((base, in_fn))
+                found.extend((f"{base}.{a.name}", in_fn) for a in child.names)
+            visit(child, in_fn or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)))
+
+    visit(tree, False)
+    return found
+
+
+def test_kernel_layer_imports_nothing_above_it():
+    """The port's imports point one way, features/ -> ops/: no module
+    under kornia_tpu_torch/ops/ imports kornia_tpu_torch.features, at its
+    top or inside a function, and features/fast.py, responses.py and
+    orb.py import ops.cuda_kernels at their top only."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pkg = os.path.join(root, "kornia_tpu_torch")
+    ops_files = [os.path.join(d, f)
+                 for d, _, files in os.walk(os.path.join(pkg, "ops"))
+                 for f in sorted(files) if f.endswith(".py")]
+    assert os.path.join(pkg, "ops", "cuda_kernels.py") in ops_files
+    up = [(os.path.relpath(p, root), m) for p in ops_files
+          for m, _ in _imports(p, root)
+          if m.split(".")[:2] == ["kornia_tpu_torch", "features"]]
+    assert not up, up
+    for name in ("fast.py", "responses.py", "orb.py"):
+        path = os.path.join(pkg, "features", name)
+        found = _imports(path, root)
+        assert ("kornia_tpu_torch.ops.cuda_kernels", False) in found, name
+        late = [m for m, in_fn in found
+                if in_fn and m == "kornia_tpu_torch.ops.cuda_kernels"]
+        assert not late, (name, late)
 
 
 def test_cuda_entry_point_without_card_raises():

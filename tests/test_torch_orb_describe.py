@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from kornia_tpu_torch import convert
+from kornia_tpu_torch.features import fast as tfast
 from kornia_tpu_torch.features import orb
 from kornia_tpu_torch.ops import cuda_kernels as ck
 from kornia_tpu_torch.ops.filters import gaussian_blur, gaussian_kernel1d
@@ -45,8 +46,8 @@ def _composition(levels, xys, pattern):
     grays_f = [img.to(torch.float32) for img in levels]
     blurs = [gaussian_blur(g, (7, 7), 2.0) for g in grays_f]
     xy_ints = [torch.round(xy).to(torch.int32) for xy in xys]
-    ang = ck.orientation_from_windows_paired(
-        ck.extract_windows_packed_paired(grays_f, xy_ints))
+    ang = orb.orientation_from_windows_paired(
+        orb._extract_windows_packed_paired(grays_f, xy_ints))
     canvas, starts = ck.prepare_window_canvas(blurs)
     xy = torch.cat([x + torch.tensor([0, s], dtype=torch.int32)[None]
                     for x, s in zip(xy_ints, starts)]).contiguous()
@@ -179,10 +180,10 @@ def _frame_case(seed, shape, cfg):
     """A textured frame's pyramid and K10's selection (its plain version)
     with ``cfg``'s budgets."""
     levels = orb._pyramid(tensor(_textured(seed, shape)), cfg)
-    maps = ck.fast_harris_levels(levels, cfg.fast_threshold_low)
-    sels = ck.orb_select(levels, maps, orb._level_budgets(cfg),
-                         cfg.cell_size, cfg.fast_threshold_high,
-                         cfg.harris_rescore)
+    maps = tfast.fast_harris_levels(levels, cfg.fast_threshold_low)
+    sels = orb.orb_select(levels, maps, orb._level_budgets(cfg),
+                          cfg.cell_size, cfg.fast_threshold_high,
+                          cfg.harris_rescore)
     return levels, [xy for xy, _, _ in sels]
 
 
@@ -223,7 +224,7 @@ def test_orb_describe_plain_equals_the_composition(case):
     if case == "odd_budget":
         assert any(int(x.shape[0]) % 2 for x in xys)
     pattern = _PATTERN[cfg.pattern]
-    got = ck.orb_describe(levels, xys, pattern)
+    got = orb.orb_describe(levels, xys, pattern)
     want = _composition(levels, xys, pattern)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
@@ -233,7 +234,7 @@ def test_orb_describe_plain_at_borders_equals_the_composition():
     cfg = orb.OrbConfig(n_features=300, n_levels=6)
     levels = orb._pyramid(tensor(_textured(51, (90, 140))), cfg)
     xys = _border_xys(levels, 52)
-    got = ck.orb_describe(levels, xys, _PATTERN["seeded"])
+    got = orb.orb_describe(levels, xys, _PATTERN["seeded"])
     want = _composition(levels, xys, _PATTERN["seeded"])
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
@@ -257,7 +258,7 @@ def test_orb_describe_kernel_model_equals_the_plain_version(pattern):
     if pattern == "seeded":
         assert int(np.abs(pat[:, [1, 3]].numpy()).max()) == 14
     ang, bits, _, _ = _kernel_model(levels, xys, pat)
-    want = ck.orb_describe(levels, xys, pat)
+    want = orb.orb_describe(levels, xys, pat)
     assert torch.equal(ang, want[0])
     assert torch.equal(bits, want[1])
 
@@ -280,7 +281,7 @@ def test_orb_describe_int_moments_equal_the_f32_sums(patch):
     _, _, m10, m01 = _kernel_model([level], [xy], _PATTERN["rublee2011"])
     patches = torch.stack([level[y - 15: y + 16, x - 15: x + 16]
                            for x, y in ((60, 60), (61, 59))]).float()
-    mask = torch.from_numpy(ck.circular_mask())
+    mask = torch.from_numpy(orb._circular_mask())
     offs = torch.arange(-15, 16, dtype=torch.float32)
     f10 = torch.sum(patches * mask * offs[None, None, :], dim=(1, 2))
     f01 = torch.sum(patches * mask * offs[None, :, None], dim=(1, 2))
@@ -300,16 +301,16 @@ def test_orb_describe_table_at_kitti():
     shapes = tuple((int(round(376 / 1.2 ** i)), int(round(1241 / 1.2 ** i)))
                    for i in range(8))
     budgets = tuple(orb._level_budgets(cfg))
-    hs, ws, bs = ck._describe_table(shapes, budgets)
+    hs, ws, bs = orb._describe_table(shapes, budgets)
     assert list(hs) == [h for h, _ in shapes]
     assert list(ws) == [w for _, w in shapes]
     assert list(bs) == list(budgets) and sum(bs) == 2000
-    assert ck._describe_table(shapes, budgets)[0] is hs
-    many = ((20, 30),) * (ck.ORB_SELECT_MAX_LEVELS + 1)
+    assert orb._describe_table(shapes, budgets)[0] is hs
+    many = ((20, 30),) * (orb.ORB_SELECT_MAX_LEVELS + 1)
     with pytest.raises(ValueError, match="levels"):
-        ck._describe_table(many, (2,) * len(many))
+        orb._describe_table(many, (2,) * len(many))
     with pytest.raises(ValueError, match="empty level"):
-        ck._describe_table(((20, 30), (0, 15)), (2, 2))
+        orb._describe_table(((20, 30), (0, 15)), (2, 2))
 
 
 def test_orb_describe_rejects_bad_arguments():
@@ -320,21 +321,21 @@ def test_orb_describe_rejects_bad_arguments():
     xys = [torch.zeros((4, 2)), torch.zeros((2, 2))]
     pat = _PATTERN["rublee2011"]
     ck.reset_launch_counts()
-    ang, bits = ck.orb_describe(levels, xys, pat)
+    ang, bits = orb.orb_describe(levels, xys, pat)
     assert ang.shape == (6,) and bits.shape == (6, 256)
     assert all(v == 0 for v in ck.LAUNCHES.values())
     with pytest.raises(ValueError, match="a level"):
-        ck.orb_describe(levels, xys[:1], pat)
+        orb.orb_describe(levels, xys[:1], pat)
     with pytest.raises(ValueError, match="a level"):
-        ck.orb_describe([], [], pat)
+        orb.orb_describe([], [], pat)
     with pytest.raises(ValueError, match=r"\(B, 2\)"):
-        ck.orb_describe(levels, [torch.zeros((4, 3)), xys[1]], pat)
+        orb.orb_describe(levels, [torch.zeros((4, 3)), xys[1]], pat)
     with pytest.raises(ValueError, match=r"\(H, W\)"):
-        ck.orb_describe([levels[0][None], levels[1]], xys, pat)
+        orb.orb_describe([levels[0][None], levels[1]], xys, pat)
     with pytest.raises(ValueError, match="even"):
-        ck.orb_describe(levels, [torch.zeros((3, 2)), xys[1]], pat)
+        orb.orb_describe(levels, [torch.zeros((3, 2)), xys[1]], pat)
     with pytest.raises(ValueError, match="256, 4"):
-        ck.orb_describe(levels, xys, pat[:128])
+        orb.orb_describe(levels, xys, pat[:128])
 
 
 def test_describe_span_names_its_route():
@@ -360,16 +361,16 @@ def test_canvas_offsets_and_mask_are_cached_constants():
     xys = [torch.tensor([[1, 2], [3, 4]], dtype=torch.int32),
            torch.tensor([[5, 6]], dtype=torch.int32)]
     starts = [0, 100, 150]
-    got = ck.canvas_xy(xys, starts)
+    got = orb._canvas_xy(xys, starts)
     assert got.dtype == torch.int32
     assert got.tolist() == [[1, 2], [3, 4], [5, 106]]
     before = filters.const_on.cache_info().hits
-    ck.canvas_xy(xys, starts)
+    orb._canvas_xy(xys, starts)
     assert filters.const_on.cache_info().hits == before + 1
     dev = torch.device("cpu")
-    assert ck.circular_mask_on(dev) is ck.circular_mask_on(dev)
-    assert torch.equal(ck.circular_mask_on(dev),
-                       torch.from_numpy(ck.circular_mask()))
+    assert orb._circular_mask_on(dev) is orb._circular_mask_on(dev)
+    assert torch.equal(orb._circular_mask_on(dev),
+                       torch.from_numpy(orb._circular_mask()))
 
 
 def test_orb_route_unchanged_by_k11_on_the_cpu():
@@ -380,10 +381,10 @@ def test_orb_route_unchanged_by_k11_on_the_cpu():
     cfg = orb.OrbConfig(n_features=500, n_levels=5)
     got = orb.orb_detect_and_describe(gray, cfg, device="cpu")
     levels = orb._pyramid(tensor(gray), cfg)
-    maps = ck.fast_harris_levels(levels, cfg.fast_threshold_low)
-    sels = ck.orb_select(levels, maps, orb._level_budgets(cfg),
-                         cfg.cell_size, cfg.fast_threshold_high,
-                         cfg.harris_rescore)
+    maps = tfast.fast_harris_levels(levels, cfg.fast_threshold_low)
+    sels = orb.orb_select(levels, maps, orb._level_budgets(cfg),
+                          cfg.cell_size, cfg.fast_threshold_high,
+                          cfg.harris_rescore)
     ang, desc = _composition(levels, [xy for xy, _, _ in sels],
                              _PATTERN[cfg.pattern])
     assert torch.equal(got.angle, ang) and torch.equal(got.descriptors, desc)

@@ -58,7 +58,7 @@ def test_orb_and_match_span_tree(frame):
     assert root.name == "features.orb" and root.parent is None
     kids = [r for r in rows if r.parent == 0]
     assert [r.name for r in kids] == ORB_CHILDREN
-    # every level in one select stage (one ck.orb_select call)
+    # every level in one select stage (one orb.orb_select call)
     assert [r.attr for r in kids if r.name == "features.orb.select"] == \
         ["all"]
     assert len(rows) == 1 + len(kids) + 1
