@@ -25,11 +25,14 @@ Phases (any failure raises, so the script exits non-zero):
    _brief_tap_coords' indices. K10 orb_select: all 8 levels of each view
    in one call, xy, vals and valid bit-equal to the per-level composition
    (orb._orb_select_plain, fast.select_cells a level) on the same K1 maps.
+   K12 orb_pyramid: every level of each view byte-equal to the plain chain
+   (pyramid.scale_pyramid: two dense cuBLAS products a level).
 3. The slice at full size on a seed-made scene with known pose: two
    480×752 views of two textured, non-coplanar planes; ORB (OrbConfig())
    on both, Hamming matching, the two-view bootstrap (TwoViewParams()).
-   Launch counts for the pair must be fast_harris 2 (one a frame),
-   orb_select 6 (3 a frame), orb_describe 2 (K11, one a frame); both
+   Launch counts for the pair must be orb_pyramid 2 (K12, one a frame),
+   fast_harris 2 (one a frame), orb_select 6 (3 a frame), orb_describe 2
+   (K11, one a frame); both
    frames' ORB features must equal those of the route with one K1 launch
    per level, each K11 call's angles and bits its plain version's (the
    paired composition: K2 twice and K3 once a call), and its bits the
@@ -57,6 +60,12 @@ Phases (any failure raises, so the script exits non-zero):
    can reach and of the horizontal pass at the 512 taps (the design's
    vertical pass over the whole window apart). Describe by the
    composition and by K11, and the whole frame with either, in turns.
+   K12 at KITTI's frame (8 levels at 1.2) and at SlamConfig()'s 4 levels
+   of a 480×752 view against its plain chain, the 49 launches a KITTI
+   frame it replaced; its bound: benchmark/roofline.py's count (4 f32
+   operations an output pixel) or the frame read once and the levels
+   written once, whichever is longer. The pyramid by the chain and by K12
+   in turns.
 5. rectify (the warping slice's path): a raw, distorted EuRoC-size stereo
    pair of the same scene (0.11 m baseline, < 1° relative rotation,
    K_EUROC and radtan distortion) → StereoRectifier.from_calib →
@@ -122,8 +131,8 @@ Phases (any failure raises, so the script exits non-zero):
    slam.track_step with SlamConfig() (ratio 0.8, distance ≤ 64, 3 px,
    256 × 6-point EPnP hypotheses, 2 LO refits, 10 LM steps), the draw
    from a CUDA generator seeded with SEED. The frame's ORB launches
-   fast_harris 1, orb_select 3, orb_describe 1, each K1, K10 and K11
-   call bit-equal to its plain version; the step runs
+   orb_pyramid 1, fast_harris 1, orb_select 3, orb_describe 1, each K1,
+   K10 and K11 call bit-equal to its plain version; the step runs
    under torch.cuda.set_sync_debug_mode("error") (it must not
    wait for the
    device), must recover the pose within 0.1° and 0.02 units of centre
@@ -167,8 +176,8 @@ Phases (any failure raises, so the script exits non-zero):
    levels, ba_window 5, 10 local and 12 global BA iterations) with the
    loop thresholds of tests/test_slam.py's image loop test, a vocabulary
    (k 8, depth 3) built by the port from the ORB of every 6th frame.
-   Counted from 0 after the vocabulary: fast_harris 1, orb_select 3,
-   orb_describe 1 a frame and no other kernel; the K1, K10 and K11 calls
+   Counted from 0 after the vocabulary: orb_pyramid 1, fast_harris 1,
+   orb_select 3, orb_describe 1 a frame and no other kernel; the K1, K10 and K11 calls
    of the
    first and last frames bit-equal to their plain versions. Gates on the
    ground truth (slam_gates): tracking at the end, >= 70% of frames
@@ -204,8 +213,8 @@ Phases (any failure raises, so the script exits non-zero):
    route's; K1 timed per form beside its plain version and its bound (the
    integer operations of the kernel's arc loop: 99 a pixel for n = 9, 131
    for n = 10-16). ORB (OrbConfig()) on the two-plane 480×752 pair, match,
-   estimate_relative_pose(solver="5pt"): fast_harris 2, orb_select 6,
-   orb_describe 2 and no other kernel; rotation < 0.5°,
+   estimate_relative_pose(solver="5pt"): orb_pyramid 2, fast_harris 2,
+   orb_select 6, orb_describe 2 and no other kernel; rotation < 0.5°,
    direction < 3°
    from the truth (the reference test's gates); call ms and launches of
    the 5-point two-view. ICP on a seed-made 16,384-point scan and the same
@@ -433,6 +442,10 @@ KERNELS = {
                      "none: kornia_tpu_torch/features/orb.py's paired "
                      "describe composition (blurs, canvases, K2, centroid "
                      "angle, cos/sin, K3), on every level"),
+    "orb_pyramid": ("kornia_tpu_torch/ops/csrc/orb_pyramid.cu",
+                    "none: kornia_tpu_torch/ops/pyramid.py::scale_pyramid, "
+                    "the chain of bilinear resizes (two dense band-matrix "
+                    "products a level), every level of a frame"),
 }
 # K10's launches an ORB frame with Harris ranking (OrbConfig's default):
 # cell ranges, cell top-k, level sort
@@ -443,9 +456,10 @@ BLUR_KSIZE = (orb._BLUR_KSIZE, orb._BLUR_KSIZE)
 
 def orb_launches(frames: int, fast_harris: int | None = None) -> dict:
     """The hand-kernel launches of ``frames`` paired ORB frames at
-    OrbConfig()'s ranking: K1 once (``fast_harris`` where a frame takes
-    more), K10 ORB_SELECT times and K11 once a frame."""
-    return {"fast_harris": frames if fast_harris is None else fast_harris,
+    OrbConfig()'s ranking: K12 once, K1 once (``fast_harris`` where a
+    frame takes more), K10 ORB_SELECT times and K11 once a frame."""
+    return {"orb_pyramid": frames,
+            "fast_harris": frames if fast_harris is None else fast_harris,
             "orb_select": ORB_SELECT * frames, "orb_describe": frames}
 # KITTI's frame (376 x 1241), where K10's row is timed
 HW_KITTI = (376, 1241)
@@ -1155,6 +1169,68 @@ def orb_describe_row(n_launches, cfg, card_line) -> dict:
     src, rep = KERNELS["orb_describe"]
     return {"name": "orb_describe", "route": "cuda", "source": src,
             "replaces": rep, "launches": n_launches, "max_abs_err": 0.0,
+            **{k: v for k, v in cases[0].items() if k != "case"},
+            "cases": cases}
+
+
+def check_orb_pyramid(gray, n_levels, scale, label):
+    """K12 on one frame against its plain chain on the card
+    (``pyramid.scale_pyramid``): every level byte-equal. Returns (the
+    levels, the max |error| (0.0))."""
+    got = orb.orb_pyramid(gray, n_levels, scale)
+    want = pyramid.scale_pyramid(gray, n_levels, scale, device=gray.device)
+    torch.cuda.synchronize()
+    diff = [int((a != b).sum()) for a, b in zip(got, want)]
+    if len(got) != len(want) or any(diff):
+        raise AssertionError(f"orb_pyramid ({label}, {tuple(gray.shape)}, "
+                             f"{n_levels} levels at {scale}): bytes "
+                             f"differing from the plain chain by level "
+                             f"{diff}")
+    return got, max(max_err(a, b) for a, b in zip(got, want))
+
+
+def orb_pyramid_row(n_launches, cfg, card_line) -> dict:
+    """K12's kernels-line row at KITTI's frame (a 376 x 1241 crop of the
+    scene's texture, ``cfg``'s 8 levels at 1.2), with a case at
+    SlamConfig()'s ORB (4 levels of the 480 x 752 view): the kernel
+    against its plain chain (``pyramid.scale_pyramid``, the 49 launches a
+    KITTI frame it replaced), both byte-equal, device and call ms; the
+    bound: benchmark/roofline.py's count, 4 f32 operations an output
+    pixel, or the frame read once and every level written once, whichever
+    is longer."""
+    rng = np.random.default_rng(SEED + 40)
+    frame = np.ascontiguousarray(np.clip(
+        _texture(rng)[:HW_KITTI[0], :HW_KITTI[1]], 0, 255).astype(np.uint8))
+    view = np.ascontiguousarray(np.clip(_texture(rng)[:H, :W], 0, 255)
+                                .astype(np.uint8))
+    cases = []
+    for label, img, c in (("KITTI", frame, cfg),
+                          ("SLAM", view, orb.OrbConfig(n_features=1000,
+                                                       n_levels=4))):
+        gray = torch.as_tensor(img, device=DEV)
+        n, sf = c.n_levels, c.scale_factor
+        levels, err = check_orb_pyramid(gray, n, sf, label)
+        if label == "KITTI":
+            # ``_pyramid``: the chain in a tree from before K12
+            HOST_CASES["orb_pyramid"] = lambda mod, g=gray, c=c: \
+                mod._pyramid(g, c)
+        times = kernel_times(
+            lambda g=gray, n=n, sf=sf: orb.orb_pyramid(g, n, sf),
+            lambda g=gray, n=n, sf=sf: pyramid.scale_pyramid(g, n, sf,
+                                                             device=DEV))
+        out_px = sum(lv.numel() for lv in levels[1:])
+        f32_ops = 4 * out_px
+        nbytes = gray.numel() + out_px
+        bms, by = bound(nbytes, 0, f32_ops)
+        log(f"time orb_pyramid (K12, {label} {tuple(gray.shape)}, {n} "
+            f"levels at {sf}, {out_px} output pixels): "
+            f"{fmt_times(times)} (plain: the chain), bound {bms:.5f} ms "
+            f"({by}: {f32_ops} f32 ops, {nbytes} B) [{card_line}]")
+        cases.append({"case": f"{label}, {n} levels", "max_abs_err": err,
+                      "bound_ms": bms, "bound_by": by, **times})
+    src, rep = KERNELS["orb_pyramid"]
+    return {"name": "orb_pyramid", "route": "cuda", "source": src,
+            "replaces": rep, "launches": n_launches,
             **{k: v for k, v in cases[0].items() if k != "case"},
             "cases": cases}
 
@@ -1940,27 +2016,28 @@ def phase_orb_variants(card_line, img1, parent=None):
     with Record("brief_from_windows", orb) as rec_desc:
         unp, n_unp = counted(lambda: run(describe="unpaired"))
     log(f"orb unpaired launches: {n_unp}")
-    only(n_unp, {"fast_harris": 1, "windows": 2, "brief_rotated": 1,
-                 "orb_select": ORB_SELECT})
+    only(n_unp, {"orb_pyramid": 1, "fast_harris": 1, "windows": 2,
+                 "brief_rotated": 1, "orb_select": ORB_SELECT})
     for name in ("xy", "mask", "angle", "descriptors"):
         if not torch.equal(getattr(unp, name), getattr(paired, name)):
             raise AssertionError(f"unpaired ORB {name} differs from paired")
     lg, n_lg = counted(lambda: run(brief="lane_gather"))
     log(f"orb lane_gather launches: {n_lg}")
-    only(n_lg, {"fast_harris": 1, "windows": 2, "lane_gather": 4,
-                "orb_select": ORB_SELECT})
+    only(n_lg, {"orb_pyramid": 1, "fast_harris": 1, "windows": 2,
+                "lane_gather": 4, "orb_select": ORB_SELECT})
     if not torch.equal(lg.descriptors, paired.descriptors):
         raise AssertionError("lane_gather BRIEF differs from paired")
     log("orb variants: unpaired xy/mask/angle/descriptors and lane_gather "
         "descriptors bit-equal to the paired run "
         f"({int(paired.mask.sum())} keypoints)")
     odd, n_odd = counted(lambda: run(orb.OrbConfig(n_features=2001)))
-    only(n_odd, {"fast_harris": 1, "windows": 2, "brief_rotated": 1,
-                 "orb_select": ORB_SELECT})
+    only(n_odd, {"orb_pyramid": 1, "fast_harris": 1, "windows": 2,
+                 "brief_rotated": 1, "orb_select": ORB_SELECT})
     if tuple(odd.descriptors.shape) != (2001, 256):
         raise AssertionError("odd budget sum: descriptor shape")
     gat, n_gat = counted(lambda: run(describe="gather"))
-    only(n_gat, {"fast_harris": 1, "orb_select": ORB_SELECT})
+    only(n_gat, {"orb_pyramid": 1, "fast_harris": 1,
+                 "orb_select": ORB_SELECT})
     flips = int((gat.descriptors != paired.descriptors)[paired.mask].sum())
     log(f"orb n_features=2001: {int(odd.mask.sum())} keypoints, launches "
         f"{n_odd}; describe=gather: {flips} of "
@@ -1971,9 +2048,10 @@ def phase_orb_variants(card_line, img1, parent=None):
         quad, n_quad = counted(lambda: orb.orb_detect_and_describe_quadtree(
             frame, cfg, device=DEV))
     log(f"orb quadtree launches: {n_quad}")
-    # per level: K1's score-only form (the detection), 2 window calls and
-    # one describe
-    only(n_quad, {"fast_score": 8, "windows": 16, "brief_rotated": 8})
+    # K12 once; per level: K1's score-only form (the detection), 2 window
+    # calls and one describe
+    only(n_quad, {"orb_pyramid": 1, "fast_score": 8, "windows": 16,
+                  "brief_rotated": 8})
     n_bits = check_brief_calls(rec_desc.calls, "unpaired and quadtree")
     if len(rec_desc.calls) != 9 or n_bits != 2 * cfg.n_features * 256:
         raise AssertionError("recorded describe calls of the unpaired and "
@@ -2426,7 +2504,7 @@ def phase_track(card_line):
            "rot_err_deg": rerr, "centre_err": cerr,
            "cpu_route": {"rot_rad": d_rot, "t": d_t, "n_inliers": d_n},
            "orb_launches": {name: launches[name] for name in (
-               "fast_harris", "orb_select", "orb_describe")},
+               "orb_pyramid", "fast_harris", "orb_select", "orb_describe")},
            "kernel_errs": errs,
            "checks_s": time.perf_counter() - t_phase}
     # a profiler trace of the step holds ~35,000 records a call (reading
@@ -6233,6 +6311,11 @@ def main():
         for view in (levels, levels2))
     log(f"K10 orb_select: xy, vals and valid of all {len(levels)} levels "
         f"of both views bit-equal to the per-level composition")
+    errs["orb_pyramid"] = max(
+        check_orb_pyramid(view[0], cfg.n_levels, cfg.scale_factor, "pair")[1]
+        for view in (levels, levels2))
+    log(f"K12 orb_pyramid: all {len(levels)} levels of both views in one "
+        f"launch each, byte-equal to the plain chain")
 
     # 3. the slice at full size
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -6476,18 +6559,26 @@ def main():
                                    card_line))
     rows_out.append(orb_describe_row(launches["orb_describe"], cfg,
                                      card_line))
+    rows_out.append(orb_pyramid_row(launches["orb_pyramid"], cfg, card_line))
+    rows_out[-1]["max_abs_err"] = max(rows_out[-1]["max_abs_err"],
+                                      errs["orb_pyramid"])
     # the hand kernels of ORB's paired frame; K2 and K3 run in K11's plain
     # version, K3 also in the other forms
     frame_rows = [row for row in rows_out
-                  if row["name"] in ("fast_harris", "orb_select",
-                                     "orb_describe")]
+                  if row["name"] in ("orb_pyramid", "fast_harris",
+                                     "orb_select", "orb_describe")]
 
     def stage(name, fn, reps=REPS):
         ms = cuda_ms(fn, reps=reps)
         log(f"stage {name}: {ms:.3f} ms [{card_line}]")
         return ms
 
-    stage("pyramid (1 frame)", lambda: orb._pyramid(g1, cfg))
+    # before / after in turns: the plain chain, then K12
+    for chain in (True, False, False, True):
+        stage("pyramid (1 frame), " + ("the plain chain" if chain else "K12"),
+              (lambda: pyramid.scale_pyramid(g1, cfg.n_levels,
+                                             cfg.scale_factor, device=DEV))
+              if chain else (lambda: orb._pyramid(g1, cfg)))
 
     def select(per_level):
         maps = ([None] * len(levels) if per_level
@@ -6606,12 +6697,13 @@ def main():
 
     # 13. the tracking step (the seventh slice)
     track_launches, track_errs = phase_track(card_line)
-    # K1, K10 and K11: the kernels of ORB's frame
+    # K12, K1, K10 and K11: the kernels of ORB's frame
     for row in frame_rows:
         key = row["name"]
         row["launches_by_path"] = {"pair": row["launches"],
                                    "track frame": track_launches[key]}
-        row["max_abs_err"] = max(row["max_abs_err"], track_errs[key])
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 track_errs.get(key, 0.0))
     # 14. the SLAM back end (the eighth slice)
     phase_backend(card_line)
     # 15. the SLAM frame loop (the ninth slice)
@@ -6625,15 +6717,16 @@ def main():
             par["front"][key]
         row["launches_by_path"][
             f"slam loop, mesh of {PAR_RANKS} (rank 0)"] = par["slam"][key]
-        row["max_abs_err"] = max(row["max_abs_err"], slam_errs[key],
-                                 par["errs"][key])
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 slam_errs.get(key, 0.0),
+                                 par["errs"].get(key, 0.0))
     # K1's score-only entry (fast_score) on the fast_detector path
     k1 = rows_out[0]
     k1["launches_by_path"]["fast_detect (score-only entry)"] = \
         k1_fast_detect
     k1["launches_by_path"]["fast_detect arc lengths 9-12"] = k1_arc_launches
     k1["cases"] = k1_cases + k1_arc_cases
-    # the examples' paths: K1 (both entries), K6, K7, K10, K11
+    # the examples' paths: K1 (both entries), K6, K7, K10, K11, K12
     k6["paths"] = {"preprocess phase": k6["launches"]}
     for label, counts in ex_launches.items():
         for row in frame_rows:

@@ -1,5 +1,8 @@
 """ORB detector + descriptor (port of kornia_tpu/features/orb.py).
 
+The pyramid's levels come from :func:`orb_pyramid`: on the card one
+kernel, K12, one launch for every level of a frame; on the CPU its plain
+version, the chain of bilinear resizes of ``ops/pyramid.scale_pyramid``.
 The FAST score, its 3×3 NMS and the dense Harris map of every pyramid
 level come from one CUDA kernel launch per 16 levels
 (``fast.fast_harris_levels``, K1); then per level the two-tier gate and
@@ -53,7 +56,8 @@ from kornia_tpu_torch.features.quadtree import distribute_quadtree
 from kornia_tpu_torch.ops import cuda_kernels as ck
 from kornia_tpu_torch.ops.filters import (const_on, gaussian_blur,
                                           gaussian_kernel1d)
-from kornia_tpu_torch.ops.resize import resize
+from kornia_tpu_torch.ops.pyramid import scale_pyramid
+from kornia_tpu_torch.ops.resize import matrix_on
 from kornia_tpu_torch.utils import tracing
 
 _PATCH = 31
@@ -161,14 +165,241 @@ def _level_budgets(cfg: OrbConfig) -> List[int]:
     return raw
 
 
-def _pyramid(gray_u8: torch.Tensor, cfg: OrbConfig) -> List[torch.Tensor]:
-    h, w = gray_u8.shape
-    levels = [gray_u8]
-    for i in range(1, cfg.n_levels):
-        s = cfg.scale_factor ** i
-        nh, nw = int(round(h / s)), int(round(w / s))
-        levels.append(resize(levels[-1], (nh, nw)))
+# --------------------------------------------------------------------------
+# K12: ORB's image pyramid, every level of a frame
+# --------------------------------------------------------------------------
+
+# each level starts on a 16-byte boundary of K12's buffer, as a fresh
+# allocation would, and is padded to it (a kernel thread stores 4 bytes)
+_PYRAMID_ALIGN = 16
+
+
+class PyramidPlan(NamedTuple):
+    """K12's host-side plan for one frame shape."""
+
+    shapes: Tuple[Tuple[int, int], ...]   # every level, level 0 the frame
+    offsets: Tuple[int, ...]    # byte offset of level i >= 1 in the buffer
+    nbytes: int                 # the buffer's size
+    taps: np.ndarray            # (N, 4) int32 rows (i0, i1, w0, w1 bits)
+    ytabs: Tuple[int, ...]      # first taps row of level i >= 1's rows
+    xtabs: Tuple[int, ...]      # first taps row of its columns
+
+
+@functools.lru_cache(maxsize=64)
+def pyramid_plan(h: int, w: int, n_levels: int,
+                 scale_factor: float) -> PyramidPlan:
+    """K12's plan for an (h, w) frame: level i is round(dim /
+    scale_factor^i) (``ops/pyramid.scale_pyramid``'s rule), resized from
+    level i - 1; its output rows and columns take the one or two non-zero
+    weights of ``ops/resize._resize_matrix``'s rows
+    (``cuda_kernels._resize_taps``), the row table of each level, then its
+    column table, one (i0, i1, w0, w1) row each, the weights' f32 bits.
+    Raises where a level rounds to no row or column."""
+    shapes = [(h, w)] + [(int(round(h / scale_factor ** i)),
+                          int(round(w / scale_factor ** i)))
+                         for i in range(1, max(n_levels, 1))]
+    if any(lh < 1 or lw < 1 for lh, lw in shapes):
+        raise ValueError(f"orb_pyramid: {n_levels} levels at "
+                         f"{scale_factor} make an empty level of {(h, w)}: "
+                         f"{shapes}")
+    offsets, rows, ytabs, xtabs = [], [], [], []
+    nbytes = n_taps = 0
+    for (ph, pw), (lh, lw) in zip(shapes, shapes[1:]):
+        offsets.append(nbytes)
+        nbytes += -(-lh * lw // _PYRAMID_ALIGN) * _PYRAMID_ALIGN
+        for n_in, n_out, tabs in ((ph, lh, ytabs), (pw, lw, xtabs)):
+            idx, wt = ck._resize_taps(n_in, n_out)
+            rows.append(np.concatenate([idx, wt.view(np.int32)], axis=1))
+            tabs.append(n_taps)
+            n_taps += n_out
+    taps = (np.concatenate(rows) if rows
+            else np.zeros((0, 4), np.int32))
+    return PyramidPlan(tuple(shapes), tuple(offsets), nbytes,
+                       np.ascontiguousarray(taps), tuple(ytabs), tuple(xtabs))
+
+
+# the high bit of a tap row's second index: the plain chain's product adds
+# that output's two taps as two rounded products, not as one FMA chain
+_SPLIT_BIT = np.int32(-2 ** 31)
+# products the sum order of each output is read from: at least this many
+# values an output (over random operands of the product's shape)
+_ORDER_SAMPLES = 256
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor) -> torch.Tensor:
+    """f32 fma(a, b, c) of f32 tensors, exact, in float64 ops: a * b is
+    exact in float64; the float64 sum s with c and its error e (TwoSum)
+    give the exact sum, which rounds to f32 as s does unless s lies on a
+    midpoint of the f32 grid, where the sign of e decides."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    r = s.float()
+    r64 = r.double()
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    dn = torch.nextafter(r, torch.full_like(r, float("-inf")))
+    r = torch.where((s == (r64 + up.double()) / 2) & (e > 0), up, r)
+    return torch.where((s == (r64 + dn.double()) / 2) & (e < 0), dn, r)
+
+
+def _split_outputs(tab, src: torch.Tensor, got: torch.Tensor):
+    """For one product's outputs (``tab``: their taps i0, i1 (n_out,) and
+    w0, w1 (n_out, 1) over the rows of ``src``; each output's values in a
+    row of ``got``): (split, fused), each (n_out,) bool, where some value
+    is the two taps' rounded products added and not their FMA chain
+    fma(w1, x1, w0 * x0), or the other way round; and whether every value
+    is one of the two."""
+    i0, i1, w0, w1 = tab
+    x1 = src[i1]
+    # a product of two f32 values is exact in float64, so one cast rounds
+    # it; so is the sum of two f32 values that lie within 2^29 of each
+    # other, and a smaller one cannot move the sum to an f32 midpoint
+    first = (w0.double() * src[i0].double()).float()
+    second = (w1.double() * x1.double()).float()
+    split = got == (first.double() + second.double()).float()
+    fused = got == _fma_f32(w1, x1, first)
+    return ((split & ~fused).any(1), (fused & ~split).any(1),
+            (fused | split).all())
+
+
+@functools.lru_cache(maxsize=64)
+def pyramid_sum_order(h: int, w: int, n_levels: int, scale_factor: float,
+                      device: torch.device) -> np.ndarray:
+    """Per row of :func:`pyramid_plan`'s taps, whether the plain chain's
+    product on ``device`` adds that output's two taps as two rounded
+    products (True) or as one FMA chain over k ascending (False). A
+    library's matrix product splits its sum over k where the kernel it
+    picks for the product's shapes does (split-K slices, a tile's k range,
+    a small-N reduction), which no formula of the weights says; so it is
+    read once per frame shape from the products themselves: the two
+    ``torch.matmul`` of ``ops/resize.resize`` with its cached matrices, on
+    random f32 operands of their shapes, at least _ORDER_SAMPLES values an
+    output, compared on ``device`` with both orders computed exactly. An
+    output whose values never tell the two apart gets False (the two agree
+    for its weights). Raises where an output takes both orders, or a value
+    neither."""
+    plan = pyramid_plan(h, w, n_levels, scale_factor)
+    gen = torch.Generator(device=device).manual_seed(12)
+    taps = torch.from_numpy(plan.taps).to(device)
+    seen, sound = [], []
+    for i, ((ph, pw), (lh, lw)) in enumerate(zip(plan.shapes,
+                                                 plan.shapes[1:])):
+        wy = matrix_on(ph, lh, "bilinear", False, device)
+        wx = matrix_on(pw, lw, "bilinear", False, device)
+        # the rows pass Wy @ X (X: ph x pw), then the columns T @ Wx^T
+        # (T: lh x pw); each output's values along the other axis
+        for first, n_out, shape, product, axis in (
+                (plan.ytabs[i], lh, (ph, pw), lambda x: wy @ x, 0),
+                (plan.xtabs[i], lw, (lh, pw), lambda t: t @ wx.T, 1)):
+            rows = taps[first: first + n_out]
+            tab = (rows[:, 0].long(), rows[:, 1].long(),
+                   rows[:, 2:3].view(torch.float32),
+                   rows[:, 3:4].view(torch.float32))
+            split = torch.zeros(n_out, dtype=torch.bool, device=device)
+            fused = torch.zeros_like(split)
+            for _ in range(min(64, -(-_ORDER_SAMPLES // shape[1 - axis]))):
+                src = torch.rand(shape, generator=gen, device=device) * 255
+                got = product(src)
+                if axis:
+                    src, got = src.T, got.T
+                s_, f_, ok = _split_outputs(tab, src, got)
+                split |= s_
+                fused |= f_
+                sound.append(ok)
+            sound.append(~(split & fused).any())
+            seen.append(split)
+    if not bool(torch.stack(sound).all()):
+        raise ValueError(f"orb_pyramid: the plain chain's products at "
+                         f"{plan.shapes} sum some output in an order K12 "
+                         "does not take")
+    return (torch.cat(seen).cpu().numpy() if seen
+            else np.zeros(0, bool))
+
+
+def pyramid_launches(plan: PyramidPlan):
+    """Per K12 launch, the index of its source level and its ctypes
+    arguments up to the source pointer (levels, their hs and ws, the
+    offsets and table rows of its levels >= 1): up to
+    ORB_SELECT_MAX_LEVELS levels a launch (the kernel's table, K10's
+    limit), its source included, each launch after the first from the
+    last level of the one before."""
+    launches = []
+    n = len(plan.shapes)
+    for first in range(0, n - 1, ORB_SELECT_MAX_LEVELS - 1):
+        last = min(first + ORB_SELECT_MAX_LEVELS, n)     # levels [first, last)
+        m = last - first
+        out = slice(first, last - 1)      # the plan's entries of levels >= 1
+        launches.append((first, (
+            m, (ctypes.c_int * m)(*[lh for lh, _ in plan.shapes[first:last]]),
+            (ctypes.c_int * m)(*[lw for _, lw in plan.shapes[first:last]]),
+            (ctypes.c_longlong * (m - 1))(*plan.offsets[out]),
+            (ctypes.c_int * (m - 1))(*plan.ytabs[out]),
+            (ctypes.c_int * (m - 1))(*plan.xtabs[out]))))
+    return tuple(launches)
+
+
+def pyramid_taps(h: int, w: int, n_levels: int, scale_factor: float,
+                 device: torch.device) -> np.ndarray:
+    """:func:`pyramid_plan`'s taps with :func:`pyramid_sum_order` on
+    ``device`` in the high bit of each row's second index: the table K12
+    reads."""
+    taps = pyramid_plan(h, w, n_levels, scale_factor).taps.copy()
+    split = pyramid_sum_order(h, w, n_levels, scale_factor, device)
+    taps[split, 1] |= _SPLIT_BIT
+    return taps
+
+
+@functools.lru_cache(maxsize=64)
+def _pyramid_table(h: int, w: int, n_levels: int, scale_factor: float,
+                   device: int):
+    """:func:`pyramid_plan`, :func:`pyramid_taps` on card ``device``
+    (read and uploaded once per frame shape: a host sync) and
+    :func:`pyramid_launches`."""
+    dev = torch.device("cuda", device)
+    plan = pyramid_plan(h, w, n_levels, scale_factor)
+    taps = torch.from_numpy(pyramid_taps(h, w, n_levels, scale_factor,
+                                         dev)).to(dev)
+    return plan, taps, pyramid_launches(plan)
+
+
+def orb_pyramid(gray: torch.Tensor, n_levels: int,
+                scale_factor: float = 1.2) -> List[torch.Tensor]:
+    """ORB's geometric pyramid of an (H, W) u8 frame: ``n_levels`` levels,
+    level i round(dim / scale_factor^i), each the bilinear resize of the
+    one before it (ORB-SLAM's chain), level 0 ``gray`` itself.
+
+    The plain version, ``ops/pyramid.scale_pyramid``, on a CPU tensor; on
+    the card one launch for up to ORB_SELECT_MAX_LEVELS levels, byte-equal
+    to it, levels >= 1 views of one buffer, no host sync once a frame shape
+    has its table (:func:`pyramid_taps`). Raises for a card frame that is
+    not a contiguous 2-D u8 tensor and where :func:`pyramid_plan` or
+    :func:`pyramid_sum_order` does."""
+    if gray.is_cpu:
+        return scale_pyramid(gray, n_levels, scale_factor, device=gray.device)
+    ck.check(gray, "orb_pyramid frame", torch.uint8, 2)
+    if n_levels <= 1:
+        return [gray]
+    h, w = gray.shape
+    plan, taps, launches = _pyramid_table(h, w, int(n_levels),
+                                          float(scale_factor),
+                                          gray.get_device())
+    buf = torch.empty(plan.nbytes, dtype=torch.uint8, device=gray.device)
+    levels = [gray] + [buf.as_strided(shape, (shape[1], 1), off)
+                       for shape, off in zip(plan.shapes[1:], plan.offsets)]
+    fn = ck.kernel("orb_pyramid")
+    for first, args in launches:
+        rc = fn(*args, levels[first].data_ptr(), buf.data_ptr(),
+                taps.data_ptr(), ck.stream(gray))
+        ck.launched("orb_pyramid", rc)
     return levels
+
+
+def _pyramid(gray_u8: torch.Tensor, cfg: OrbConfig) -> List[torch.Tensor]:
+    """ORB's pyramid at ``cfg``'s levels and scale: :func:`orb_pyramid`."""
+    return orb_pyramid(gray_u8, cfg.n_levels, cfg.scale_factor)
 
 
 def _select_level(level_img: torch.Tensor, budget: int, cfg: OrbConfig,
@@ -669,18 +900,19 @@ def orb_detect_and_describe(gray_u8, cfg: OrbConfig = OrbConfig(),
     unpaired form only, "lane_gather" (see the module docstring).
 
     Its stages are spans (``utils.tracing``): ``features.orb`` around the
-    call, inside it ``.upload``, ``.pyramid``, ``.fast_harris``,
-    ``.select`` (every level in one :func:`orb_select` call,
-    attribute ``"all"``), ``.describe`` (attribute ``"fused"`` where the
-    paired form runs on the card, K11, else ``"composed"``) and
-    ``.assemble``."""
+    call, inside it ``.upload``, ``.pyramid`` (attribute ``"fused"`` on the
+    card, K12, else ``"composed"``), ``.fast_harris``, ``.select`` (every
+    level in one :func:`orb_select` call, attribute ``"all"``),
+    ``.describe`` (attribute ``"fused"`` where the paired form runs on the
+    card, K11, else ``"composed"``) and ``.assemble``."""
     with tracing.span("features.orb"):
         dev = resolve_device(device)
         with tracing.span("features.orb.upload"):
             gray = to_device(gray_u8, dev, torch.uint8)
         budgets = _level_budgets(cfg)
         describe = _resolve_describe(describe, brief, sum(budgets))
-        with tracing.span("features.orb.pyramid"):
+        with tracing.span("features.orb.pyramid",
+                          "composed" if gray.is_cpu else "fused"):
             levels = _pyramid(gray, cfg)
         with tracing.span("features.orb.fast_harris"):
             maps = fast_harris_levels(levels, cfg.fast_threshold_low)

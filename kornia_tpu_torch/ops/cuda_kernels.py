@@ -5,10 +5,11 @@ operations, each with its plain PyTorch version.
 Each TPU kernel on a ported path (kornia_tpu/ops/pallas_kernels.py,
 warp_pallas.py, warp_shear.py) has one CUDA C++ source under ``csrc/`` for
 sm_90a and one wrapper, beside its plain version: here, or in the features
-module whose code that plain version is. ``orb_select`` (K10) and
-``orb_describe`` (K11) replace no TPU kernel: the JAX package selects and
-describes ORB's keypoints in dense XLA ops around its kernels, which eager
-PyTorch on the card runs as some hundred launches a frame:
+module whose code that plain version is. ``orb_select`` (K10),
+``orb_describe`` (K11) and ``orb_pyramid`` (K12) replace no TPU kernel: the
+JAX package selects and describes ORB's keypoints and resizes its pyramid in
+dense XLA ops around its kernels, which eager PyTorch on the card runs as
+tens to hundreds of launches a frame:
 
 ==============  ==========================================  =================
 wrapper         replaces                                    source
@@ -49,6 +50,10 @@ orb_describe    none: features/orb.py's paired describe     orb_describe.cu
 (orb.py)        (casts, blurs, canvases, K2, centroid
                 angle, cos/sin, K3) on every level, one
                 launch for all levels
+orb_pyramid     none: ops/pyramid.py::scale_pyramid, the    orb_pyramid.cu
+(orb.py)        chain of bilinear resizes (two dense band-
+                matrix products a level), every level >= 1
+                of a frame in one launch
 ==============  ==========================================  =================
 
 The wrappers marked (fast.py) and (orb.py) are in the package's features
@@ -88,7 +93,7 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 SOURCES = ("fast_harris", "windows_paired", "brief_sample", "windows",
            "lane_gather", "preprocess", "remap", "lane_shift", "shear_x",
-           "orb_select", "orb_describe")
+           "orb_select", "orb_describe", "orb_pyramid")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -176,6 +181,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> Dict[str, object]:
         "shear_y": [p, p, p, i, i, i, p],
         "orb_select": [i, p, p, p, p, p, p, i, f, i, p, p, p, p, p],
         "orb_describe": [i, p, p, p, p, p, p, p, p, p, p],
+        "orb_pyramid": [i, p, p, p, p, p, p, p, p, p],
     }
     fns = {}
     for entry in (name,) + _EXTRA_ENTRIES.get(name, ()):
@@ -594,7 +600,7 @@ def _resize_taps(in_size: int, out_size: int):
     int32 indices, (out, 2) f32 weights), ascending index; a row with one
     entry (an integer position, or edge taps merged by the clamp) repeats
     its index with weight 0."""
-    m = _resize_matrix(in_size, out_size)
+    m = _resize_matrix(in_size, out_size, "bilinear", False)
     idx = np.zeros((out_size, 2), np.int32)
     wt = np.zeros((out_size, 2), np.float32)
     for i, row in enumerate(m):

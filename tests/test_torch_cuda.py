@@ -529,26 +529,28 @@ def test_cuda_slice3_entry_points_launch_kernels(cuda_dev):
         return out, {k: v for k, v in ck.LAUNCHES.items() if v}
 
     paired, n = run(lambda: orb.orb_detect_and_describe(gray, cfg))
-    assert n == {"fast_harris": 1, "orb_select": 3, "orb_describe": 1}
+    assert n == {"orb_pyramid": 1, "fast_harris": 1, "orb_select": 3,
+                 "orb_describe": 1}
     unp, n = run(lambda: orb.orb_detect_and_describe(gray, cfg,
                                                      describe="unpaired"))
-    assert n == {"fast_harris": 1, "orb_select": 3, "windows": 2,
-                 "brief_rotated": 1}
+    assert n == {"orb_pyramid": 1, "fast_harris": 1, "orb_select": 3,
+                 "windows": 2, "brief_rotated": 1}
     assert torch.equal(unp.descriptors, paired.descriptors)
     assert torch.equal(unp.angle, paired.angle)
     lg, n = run(lambda: orb.orb_detect_and_describe(gray, cfg,
                                                     brief="lane_gather"))
-    assert n == {"fast_harris": 1, "orb_select": 3, "windows": 2,
-                 "lane_gather": 4}
+    assert n == {"orb_pyramid": 1, "fast_harris": 1, "orb_select": 3,
+                 "windows": 2, "lane_gather": 4}
     assert torch.equal(lg.descriptors, paired.descriptors)
     odd, n = run(lambda: orb.orb_detect_and_describe(
         gray, dataclasses.replace(cfg, n_features=201)))
-    assert n == {"fast_harris": 1, "orb_select": 3, "windows": 2,
-                 "brief_rotated": 1}
+    assert n == {"orb_pyramid": 1, "fast_harris": 1, "orb_select": 3,
+                 "windows": 2, "brief_rotated": 1}
     assert odd.descriptors.shape == (201, 256)
     _, n = run(lambda: orb.orb_detect_and_describe_quadtree(gray, cfg))
     # the quadtree's per-level detection runs K1's score-only entry
-    assert n == {"fast_score": 3, "windows": 6, "brief_rotated": 3}
+    assert n == {"orb_pyramid": 1, "fast_score": 3, "windows": 6,
+                 "brief_rotated": 3}
     xy = torch.round(paired.xy[paired.octave == 0]).to(torch.int32)
     _, n = run(lambda: responses.harris_at_windows(
         torch.as_tensor(gray, device=cuda_dev).float(), xy))
@@ -1020,8 +1022,8 @@ def test_cuda_slam_frame_loop(cuda_dev):
     """Eight 480×752 frames of chip_smoke.slam_sequence through
     MonocularSlam with SlamConfig() widths on the card: frame 0 is held,
     frame 1 bootstraps (two keyframes), every later frame is tracked;
-    each frame launches K1 once, K10 three times, K11 once and no other
-    hand kernel; the keyframe poses' camera centres within 0.05
+    each frame launches K12 once, K1 once, K10 three times, K11 once and
+    no other hand kernel; the keyframe poses' camera centres within 0.05
     of the truth after a sim3 alignment."""
     import chip_smoke as cs
     from kornia_tpu_torch import slam
@@ -1036,7 +1038,8 @@ def test_cuda_slam_frame_loop(cuda_dev):
         states.append(system.process_frame(f).state)
         torch.cuda.synchronize()
         want = {name: 0 for name in ck.LAUNCHES}
-        want.update(fast_harris=1, orb_select=3, orb_describe=1)
+        want.update(orb_pyramid=1, fast_harris=1, orb_select=3,
+                    orb_describe=1)
         assert dict(ck.LAUNCHES) == want
     assert states[0] == slam.TrackingState.INITIALIZING
     assert all(s == slam.TrackingState.TRACKING for s in states[1:])
@@ -1861,14 +1864,15 @@ def test_cuda_orb_describe_routes_give_the_same_features(cuda_dev, frame,
     got = orb.orb_detect_and_describe(gray, cfg)
     torch.cuda.synchronize()
     assert {k: v for k, v in ck.LAUNCHES.items() if v} == {
-        "fast_harris": 1, "orb_select": 3, "orb_describe": 1}
+        "orb_pyramid": 1, "fast_harris": 1, "orb_select": 3,
+        "orb_describe": 1}
     monkeypatch.setattr(torb, "orb_describe", torb._orb_describe_plain)
     ck.reset_launch_counts()
     want = orb.orb_detect_and_describe(gray, cfg)
     torch.cuda.synchronize()
     assert {k: v for k, v in ck.LAUNCHES.items() if v} == {
-        "fast_harris": 1, "orb_select": 3, "windows_paired": 2,
-        "brief_rotated": 1}
+        "orb_pyramid": 1, "fast_harris": 1, "orb_select": 3,
+        "windows_paired": 2, "brief_rotated": 1}
     if frame == "sparse":
         assert int(got.mask.sum()) < cfg.n_features // 2
     for name in got._fields:
@@ -1931,3 +1935,125 @@ def test_cuda_orb_describe_rejects_bad_input(cuda_dev):
             torb.orb_describe(*args)
     torch.cuda.synchronize()
     assert ck.LAUNCHES["orb_describe"] == 0
+
+
+# --------------------------------------------------------------------------
+# K12: ORB's pyramid, every level of a frame in one launch
+# --------------------------------------------------------------------------
+
+# (frame, shape, levels, scale): KITTI's and the SLAM loop's pyramids on
+# rendered, noise and saturated frames, odd and narrow shapes, levels a few
+# pixels high or wide, a scale of 2 (taps of 0.5: ties at x.5), 2 levels,
+# more levels than one launch takes, and a frame that starts 3 bytes off a
+# 16-byte boundary
+_PYRAMID_CASES = {
+    "kitti_scene": ("scene", (376, 1241), 8, 1.2),
+    "kitti_noise": ("noise", (376, 1241), 8, 1.2),
+    "kitti_saturated": ("saturated", (376, 1241), 8, 1.2),
+    "kitti_offset": ("offset", (376, 1241), 8, 1.2),
+    "slam_scene": ("scene", (480, 752), 4, 1.2),
+    "slam_noise": ("noise", (480, 752), 4, 1.2),
+    "slam_saturated": ("saturated", (480, 752), 4, 1.2),
+    "odd": ("noise", (37, 45), 6, 1.2),
+    "few_rows": ("scene", (9, 1241), 8, 1.2),
+    "narrow": ("saturated", (600, 7), 8, 1.2),
+    "tiny": ("noise", (3, 5), 4, 1.2),
+    "scale_1.35": ("noise", (123, 457), 5, 1.35),
+    "halves": ("noise", (64, 64), 3, 2.0),
+    "two_levels": ("scene", (376, 1241), 2, 1.2),
+    "beyond_table": ("scene", (376, 1241), 40, 1.05),
+}
+
+
+def _pyramid_frame(kind, seed, shape, dev):
+    """A card frame: a crop of chip_smoke's rendered texture, uniform
+    noise, 0/255 noise, or the texture in a buffer 3 bytes on."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    if kind in ("scene", "offset"):
+        img = np.clip(cs._texture(rng)[:h, :w], 0, 255).astype(np.uint8)
+    elif kind == "noise":
+        img = rng.integers(0, 256, shape, np.uint8)
+    else:
+        img = (rng.integers(0, 2, shape) * 255).astype(np.uint8)
+    if kind != "offset":
+        return convert.tensor(np.ascontiguousarray(img), dev)
+    buf = torch.zeros(h * w + 16, dtype=torch.uint8, device=dev)
+    buf[3:3 + h * w] = convert.tensor(img.ravel(), dev)
+    return buf[3:3 + h * w].view(h, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_PYRAMID_CASES))
+def test_cuda_orb_pyramid_byte_equal(cuda_dev, case):
+    """K12's levels byte-equal to the plain chain on the card
+    (ops/pyramid.scale_pyramid: two dense cuBLAS products a level), one
+    launch for up to 32 levels, contiguous u8 views; level 0 the frame."""
+    from kornia_tpu_torch.ops.pyramid import scale_pyramid
+
+    kind, shape, n, s = _PYRAMID_CASES[case]
+    gray = _pyramid_frame(kind, 80, shape, cuda_dev)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    got = torb.orb_pyramid(gray, n, s)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ck.LAUNCHES.items() if v} == {
+        "orb_pyramid": -(-(n - 1) // 31)}
+    want = scale_pyramid(gray, n, s, device=cuda_dev)
+    torch.cuda.synchronize()
+    assert len(got) == n and got[0] is gray
+    for a, b in zip(got, want):
+        assert a.dtype == torch.uint8 and a.shape == b.shape
+        assert a.is_contiguous() and a.device == gray.device
+    diff = [int((a != b).sum()) for a, b in zip(got, want)]
+    assert diff == [0] * n, (case, [tuple(b.shape) for b in want], diff)
+
+
+@pytest.mark.cuda
+def test_cuda_orb_pyramid_waits_for_nothing(cuda_dev):
+    """One K12 call launches once and does not synchronise with the host
+    (sync debug mode "error", after the warm-up that uploads the tap
+    table); one level launches nothing; ORB's pyramid span carries
+    "fused" on the card."""
+    from kornia_tpu_torch.features import orb
+    from kornia_tpu_torch.ops.pyramid import scale_pyramid
+    from kornia_tpu_torch.utils import tracing
+
+    img = _textured_u8(81, (376, 1241))
+    gray = convert.tensor(img, cuda_dev)
+    want = scale_pyramid(gray, 8, 1.2, device=cuda_dev)
+    torb.orb_pyramid(gray, 8, 1.2)                        # warm-up
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = torb.orb_pyramid(gray, 8, 1.2)
+        one = torb.orb_pyramid(gray, 1, 1.2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["orb_pyramid"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert len(one) == 1 and one[0] is gray
+    for form in ("auto", "unpaired"):
+        with tracing.recording() as rows:
+            orb.orb_detect_and_describe(img, describe=form)
+        assert [r.attr for r in rows
+                if r.name == "features.orb.pyramid"] == ["fused"]
+
+
+@pytest.mark.cuda
+def test_cuda_orb_pyramid_rejects_bad_input(cuda_dev):
+    """Frames K12 cannot take raise before any launch: another dtype, a
+    3-D frame, a non-contiguous view, a level that rounds to no row."""
+    gray = convert.tensor(_textured_u8(82, (60, 80)), cuda_dev)
+    bad = [(gray.float(), 4), (gray[..., None], 4), (gray[:, ::2], 4),
+           (gray[:3], 8)]
+    ck.reset_launch_counts()
+    for frame, n in bad:
+        with pytest.raises(ValueError):
+            torb.orb_pyramid(frame, n, 1.5)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["orb_pyramid"] == 0

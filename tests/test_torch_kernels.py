@@ -769,8 +769,9 @@ def test_new_wrappers_count_no_cpu_launch():
                     35, 20.0)
     torb.orb_describe(levels, [torch.zeros((20, 2)), torch.zeros((12, 2))],
                       torch.zeros((256, 4), dtype=torch.int32))
+    torb.orb_pyramid(levels[0], 4, 1.2)
     assert all(v == 0 for v in ck.LAUNCHES.values())
-    assert len(ck.SOURCES) == 11
+    assert len(ck.SOURCES) == 12
     assert set(ck.LAUNCHES) == set(ck.KERNELS) == set(ck.SOURCES) | {
         "fast_score", "brief_rotated", "shear_y"}
 
